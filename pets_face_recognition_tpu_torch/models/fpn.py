@@ -1,0 +1,60 @@
+"""Feature Pyramid Network (counterpart of the JAX ``models/fpn.py``), NCHW.
+
+torchvision ``FeaturePyramidNetwork`` names in the flat (torchvision 0.12)
+layout: ``inner_blocks.{i}`` lateral 1x1 convs, ``layer_blocks.{i}`` 3x3
+smoothing convs; nearest 2x top-down path cropped to the lateral's size, and a
+stride-2 max-pool ``p6`` for the RPN.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .resnet import Bottleneck, ResNet
+
+
+class FPN(nn.Module):
+    """``{'c2'..'c5'}`` -> ``{'p2'..'p6'}`` with ``out_channels`` everywhere."""
+
+    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
+                 out_channels: int = 256,
+                 in_levels: Sequence[str] = ("c2", "c3", "c4", "c5"),
+                 add_p6: bool = True):
+        super().__init__()
+        self.in_levels = tuple(in_levels)
+        self.add_p6 = add_p6
+        self.inner_blocks = nn.ModuleList(nn.Conv2d(c, out_channels, 1) for c in in_channels)
+        self.layer_blocks = nn.ModuleList(
+            nn.Conv2d(out_channels, out_channels, 3, padding=1) for _ in in_channels)
+
+    def forward(self, feats: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        laterals = [blk(feats[lvl]) for blk, lvl in zip(self.inner_blocks, self.in_levels)]
+        merged = [laterals[-1]]
+        for lat in laterals[-2::-1]:
+            up = F.interpolate(merged[0], scale_factor=2, mode="nearest")
+            merged.insert(0, lat + up[:, :, : lat.shape[2], : lat.shape[3]])
+        outs = {f"p{int(lvl[1:])}": blk(m)
+                for blk, lvl, m in zip(self.layer_blocks, self.in_levels, merged)}
+        if self.add_p6:
+            top = int(self.in_levels[-1][1:])
+            outs[f"p{top + 1}"] = F.max_pool2d(outs[f"p{top}"], 1, 2)
+        return outs
+
+
+class BackboneWithFPN(nn.Module):
+    """``body`` (a ``features_only`` ResNet) + ``fpn``: NCHW images -> pyramid."""
+
+    def __init__(self, body: ResNet, out_channels: int = 256):
+        super().__init__()
+        self.body = body
+        widths = [64 * Bottleneck.expansion * 2 ** i for i in range(4)]
+        self.fpn = FPN(widths, out_channels)
+        self.out_channels = out_channels
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        return self.fpn(self.body(x))
+

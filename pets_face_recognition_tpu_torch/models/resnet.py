@@ -1,0 +1,107 @@
+"""ResNet backbones (counterpart of the JAX ``models/resnet.py``), NCHW inside.
+
+torchvision module and ``state_dict`` names (``conv1``, ``layer1.0.conv2``,
+``layer2.0.downsample.0`` ...), stride on each bottleneck's 3x3 conv, BN
+epsilon 1e-5, eval-mode statistics. The JAX package's space-to-depth stem is an
+exact rewrite of the 7x7/s2 conv and stores 7x7 weights, so the port runs the
+plain ``Conv2d(3, 64, 7, 2, 3)``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm from fixed statistics (torchvision's detection trunk norm).
+
+    Buffers only: ``weight``, ``bias``, ``running_mean``, ``running_var``.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3(stride) -> 1x1 bottleneck, projection shortcut when needed."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, width: int, stride: int,
+                 norm_layer: Callable[[int], nn.Module]):
+        super().__init__()
+        out_ch = width * self.expansion
+        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        self.bn1 = norm_layer(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.bn2 = norm_layer(width)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.bn3 = norm_layer(out_ch)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or in_ch != out_ch:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), norm_layer(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """torchvision-compatible bottleneck ResNet; ``forward`` takes NCHW.
+
+    ``features_only`` returns ``{'c2'..'c5'}`` NCHW maps; otherwise the global
+    average pool, then ``fc`` when ``num_classes`` > 0.
+    """
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 num_classes: int = 0, features_only: bool = False,
+                 norm_layer: Callable[[int], nn.Module] = FrozenBatchNorm2d):
+        super().__init__()
+        self.features_only = features_only
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = norm_layer(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        in_ch = 64
+        for stage, (n_blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
+            blocks = []
+            for i in range(n_blocks):
+                stride = 2 if (i == 0 and stage > 0) else 1
+                blocks.append(Bottleneck(in_ch, width, stride, norm_layer))
+                in_ch = width * Bottleneck.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.out_channels = in_ch
+        self.fc = nn.Linear(in_ch, num_classes) if num_classes else None
+
+    def forward(self, x: torch.Tensor):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        feats = {}
+        for stage in range(4):
+            x = getattr(self, f"layer{stage + 1}")(x)
+            feats[f"c{stage + 2}"] = x
+        if self.features_only:
+            return feats
+        x = x.mean(dim=(2, 3))
+        return self.fc(x) if self.fc is not None else x
+
+
+def resnet50(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), **kw)

@@ -1,0 +1,172 @@
+"""RoI heads, eval path (counterpart of the JAX ``models/roi_heads.py``).
+
+torchvision module names (``box_head.fc6``, ``box_predictor.cls_score``,
+``keypoint_head.{0,2,..,14}``, ``keypoint_predictor.kps_score_lowres``). The
+heads take the JAX layout: pooled RoIs ``(K, oh, ow, C)`` NHWC. ``fc6``
+flattens that NHWC block in ``(h, w, c)`` order, as the JAX ``TwoMLPHead`` does,
+so weights carried over from the JAX package give the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.boxes import clip_boxes, decode_boxes
+
+BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+
+
+class TwoMLPHead(nn.Module):
+    """flatten -> fc6 -> relu -> fc7 -> relu."""
+
+    def __init__(self, in_features: int, representation_size: int = 1024):
+        super().__init__()
+        self.fc6 = nn.Linear(in_features, representation_size)
+        self.fc7 = nn.Linear(representation_size, representation_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        return torch.relu(self.fc7(torch.relu(self.fc6(x))))
+
+
+class FastRCNNPredictor(nn.Module):
+    """``cls_score`` (C classes incl. background) and ``bbox_pred`` (4C)."""
+
+    def __init__(self, in_features: int, num_classes: int):
+        super().__init__()
+        self.cls_score = nn.Linear(in_features, num_classes)
+        self.bbox_pred = nn.Linear(in_features, num_classes * 4)
+
+    def forward(self, x: torch.Tensor):
+        return self.cls_score(x), self.bbox_pred(x).reshape(x.shape[0], -1, 4)
+
+
+class KeypointHead(nn.Sequential):
+    """8 x (conv3x3 + relu) at 512 channels (torchvision ``KeypointRCNNHeads``);
+    NCHW in and out."""
+
+    def __init__(self, in_channels: int, channels: int = 512, n_convs: int = 8):
+        layers = []
+        for i in range(n_convs):
+            layers += [nn.Conv2d(in_channels if i == 0 else channels, channels, 3,
+                                 padding=1), nn.ReLU(inplace=True)]
+        super().__init__(*layers)
+
+
+class KeypointPredictor(nn.Module):
+    """Transposed conv (4, stride 2) then 2x bilinear upsample
+    (``align_corners=False``); NCHW in, ``(K, S, S, NK)`` NHWC heatmaps out."""
+
+    def __init__(self, in_channels: int, num_keypoints: int):
+        super().__init__()
+        self.kps_score_lowres = nn.ConvTranspose2d(in_channels, num_keypoints, 4, 2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.interpolate(self.kps_score_lowres(x), scale_factor=2,
+                          mode="bilinear", align_corners=False)
+        return x.permute(0, 2, 3, 1)
+
+
+def postprocess_detections_batch(class_logits: torch.Tensor, box_deltas: torch.Tensor,
+                                  proposals: torch.Tensor, prop_valid: torch.Tensor,
+                                  image_size: tuple[int, int],
+                                  score_thresh: float = 0.05):
+    """Top-1 detection per image: ``class_logits (B, N, C)``, ``box_deltas
+    (B, N, C, 4)``, ``proposals (B, N, 4)``, ``prop_valid (B, N)`` ->
+    ``(boxes (B, 1, 4), labels (B, 1), scores (B, 1), valid (B, 1))``.
+
+    Greedy NMS never suppresses the best box, so top-1 after NMS is the argmax
+    over valid candidates (ties: lower index first). This is the JAX
+    ``detections_per_img == 1`` path; the NMS branch is Mask R-CNN's.
+    """
+    B, N, C = class_logits.shape
+    scores = torch.softmax(class_logits, dim=-1)
+    boxes = clip_boxes(decode_boxes(box_deltas, proposals[:, :, None, :],
+                                    BOX_CODER_WEIGHTS), image_size)
+    fg_scores = scores[:, :, 1:].reshape(B, N * (C - 1))
+    fg_boxes = boxes[:, :, 1:, :].reshape(B, N * (C - 1), 4)
+    fg_labels = torch.arange(1, C, device=class_logits.device).repeat(N)
+    fg_valid = prop_valid.repeat_interleave(C - 1, dim=1)
+    w = fg_boxes[..., 2] - fg_boxes[..., 0]
+    h = fg_boxes[..., 3] - fg_boxes[..., 1]
+    fg_valid = fg_valid & (w >= 0.01) & (h >= 0.01) & (fg_scores > score_thresh)
+
+    masked = torch.where(fg_valid, fg_scores, torch.full_like(fg_scores, float("-inf")))
+    top_i = torch.argmax(masked, dim=1, keepdim=True)
+    top_s = torch.gather(masked, 1, top_i)
+    out_boxes = torch.gather(fg_boxes, 1, top_i[..., None].expand(B, 1, 4))
+    out_labels = fg_labels[top_i]
+    out_valid = top_s > float("-inf")
+    return out_boxes, out_labels, torch.where(out_valid, top_s, torch.zeros_like(top_s)), \
+        out_valid
+
+
+def _bicubic_kernel(t: float, a: float = -0.75) -> float:
+    t = abs(t)
+    if t <= 1.0:
+        return (a + 2.0) * t ** 3 - (a + 3.0) * t ** 2 + 1.0
+    if t < 2.0:
+        return a * t ** 3 - 5.0 * a * t ** 2 + 8.0 * a * t - 4.0 * a
+    return 0.0
+
+
+def _local_bicubic_matrix(upsample: int, cells: int) -> np.ndarray:
+    """``(u * cells, cells + 4)``: weight of padded-window row ``j`` for output
+    row ``i`` of a cell-aligned window (torch bicubic, ``align_corners=False``)."""
+    taps = cells + 4
+    Wn = upsample * cells
+    U = np.zeros((Wn, taps), np.float32)
+    for i in range(Wn):
+        src = (i + 0.5) / upsample - 0.5 + 2.0
+        t0 = int(np.floor(src))
+        f = src - t0
+        for m in range(4):
+            U[i, t0 - 1 + m] += _bicubic_kernel(f + 1.0 - m)
+    return U
+
+
+def heatmaps_to_keypoints(kp_logits: torch.Tensor, boxes: torch.Tensor,
+                          upsample: int = 4):
+    """Decode ``(K, S, S, NK)`` heatmaps to image-space keypoints ``(K, NK, 3)``
+    and scores ``(K, NK)``, the JAX package's windowed bicubic decode.
+
+    Pass 1 takes the nearest-cell argmax on the ``S x S`` grid; pass 2 evaluates
+    the bicubic ``(u*S)^2`` upsample (a = -0.75, ``align_corners=False``, border
+    replicate) on a 8-cell window around it and takes its argmax; then
+    ``x = (x_int + 0.5) * w / (u*S) + x1``.
+    """
+    K, S, _, NK = kp_logits.shape
+    u = upsample
+    Su = u * S
+    cells = min(8, S)
+    taps = cells + 4
+    Wn = u * cells
+    dev = kp_logits.device
+    maps = kp_logits.float().permute(0, 3, 1, 2).reshape(K * NK, S, S)
+
+    idx_c = torch.argmax(maps.reshape(K * NK, S * S), dim=-1)
+    cy, cx = idx_c // S, idx_c % S
+    wy0 = (cy - cells // 2).clamp(0, S - cells)
+    wx0 = (cx - cells // 2).clamp(0, S - cells)
+
+    padded = F.pad(maps[:, None], (2, 2, 2, 2), mode="replicate")[:, 0]
+    r = torch.arange(taps, device=dev)
+    rows = (wy0[:, None] + r[None, :])[:, :, None]
+    cols = (wx0[:, None] + r[None, :])[:, None, :]
+    win = padded[torch.arange(K * NK, device=dev)[:, None, None], rows, cols]
+    U = torch.from_numpy(_local_bicubic_matrix(u, cells)).to(dev)
+    up = U @ win @ U.T                                  # (K*NK, Wn, Wn)
+    flat = up.reshape(K, NK, Wn * Wn)
+    score, idx = flat.max(dim=-1)
+    yy = (idx // Wn + u * wy0.reshape(K, NK)).float()
+    xx = (idx % Wn + u * wx0.reshape(K, NK)).float()
+
+    x1, y1 = boxes[:, 0:1], boxes[:, 1:2]
+    w = (boxes[:, 2:3] - boxes[:, 0:1]).clamp(min=1e-6)
+    h = (boxes[:, 3:4] - boxes[:, 1:2]).clamp(min=1e-6)
+    x = (xx + 0.5) * w / Su + x1
+    y = (yy + 0.5) * h / Su + y1
+    return torch.stack([x, y, torch.ones_like(score)], dim=-1), score

@@ -1,0 +1,122 @@
+"""Region proposal network, eval path (counterpart of the JAX ``models/rpn.py``).
+
+Per image: head logits -> per-level top-``pre_nms_top_n`` -> decode + clip ->
+drop tiny boxes (filtering on sigmoid probability, as torchvision) -> greedy
+NMS per (image, level) through kernel K2 -> global top-``post_nms_top_n``.
+Every shape is fixed; invalid entries ride along with validity masks. Top-k
+runs as a stable sort, so ties keep the lower index first, as ``lax.top_k``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.boxes import clip_boxes, decode_boxes
+from ..ops.nms import nms_keep_sorted_batch_cuda
+
+
+class RPNHead(nn.Module):
+    """Shared 3x3 conv + 1x1 objectness / box-delta heads (torchvision names).
+
+    ``forward`` takes the NCHW levels in order and returns ``(B, N)`` logits and
+    ``(B, N, 4)`` deltas, anchors ordered ``(level, y, x, anchor)``.
+    """
+
+    def __init__(self, in_channels: int, num_anchors: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
+        self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
+        self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        logits, deltas = [], []
+        for x in feats:
+            t = torch.relu(self.conv(x))
+            B = t.shape[0]
+            logits.append(self.cls_logits(t).permute(0, 2, 3, 1).reshape(B, -1))
+            deltas.append(self.bbox_pred(t).permute(0, 2, 3, 1).reshape(B, -1, 4))
+        return torch.cat(logits, 1), torch.cat(deltas, 1)
+
+
+class RPN(nn.Module):
+    """Holds the head under torchvision's ``rpn.head`` name."""
+
+    def __init__(self, in_channels: int, num_anchors: int):
+        super().__init__()
+        self.head = RPNHead(in_channels, num_anchors)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        return self.head(feats)
+
+
+def level_sizes(feature_sizes: Sequence[tuple[int, int]], num_anchors: int) -> list[int]:
+    """Anchors per level (the port's ``_level_ids``: level ``l`` owns a run of
+    ``H_l * W_l * A`` consecutive anchors)."""
+    return [h * w * num_anchors for h, w in feature_sizes]
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: descending, ties lower index first."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def generate_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
+                       anchors: torch.Tensor, level_counts: Sequence[int],
+                       image_size: tuple[int, int], pre_nms_top_n: int,
+                       post_nms_top_n: int, nms_thresh: float = 0.7,
+                       min_size: float = 1e-3, score_thresh: float = 0.0,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched eval proposals.
+
+    ``objectness (B, N)`` logits, ``deltas (B, N, 4)``, ``anchors (N, 4)``,
+    ``level_counts``: anchors per level. Returns ``(B, post_nms_top_n, 4)``
+    proposals and a ``(B, post_nms_top_n)`` validity mask.
+    """
+    B = objectness.shape[0]
+    L = len(level_counts)
+    k = min(pre_nms_top_n, max(level_counts))
+    starts = [sum(level_counts[:i]) for i in range(L)]
+
+    lvl_boxes, lvl_scores, lvl_valid = [], [], []
+    for start, n in zip(starts, level_counts):
+        s = objectness[:, start:start + n]
+        d = deltas[:, start:start + n]
+        a = anchors[start:start + n]
+        kk = min(k, n)
+        top_s, top_i = _top_k(s, kk)
+        boxes = decode_boxes(torch.gather(d, 1, top_i[..., None].expand(B, kk, 4)),
+                             a[top_i])
+        boxes = clip_boxes(boxes, image_size)
+        w = boxes[..., 2] - boxes[..., 0]
+        h = boxes[..., 3] - boxes[..., 1]
+        # torchvision filters on sigmoid PROBABILITIES, not logits
+        valid = ((w >= min_size) & (h >= min_size)
+                 & (torch.sigmoid(top_s) >= score_thresh) & torch.isfinite(top_s))
+        pad = k - kk
+        if pad:
+            boxes = nn.functional.pad(boxes, (0, 0, 0, pad))
+            top_s = nn.functional.pad(top_s, (0, pad), value=float("-inf"))
+            valid = nn.functional.pad(valid, (0, pad))
+        lvl_boxes.append(boxes)
+        lvl_scores.append(top_s)
+        lvl_valid.append(valid)
+
+    boxes = torch.stack(lvl_boxes, 1).reshape(B * L, k, 4).contiguous()
+    scores_k = torch.stack(lvl_scores, 1).reshape(B * L, k)
+    valid = torch.stack(lvl_valid, 1).reshape(B * L, k).contiguous()
+
+    keep = nms_keep_sorted_batch_cuda(boxes, valid, nms_thresh)   # kernel K2
+    kept_scores = torch.where(keep, torch.sigmoid(scores_k),
+                              torch.full_like(scores_k, float("-inf")))
+
+    flat_boxes = boxes.reshape(B, L * k, 4)
+    flat_scores = kept_scores.reshape(B, L * k)
+    flat_keep = keep.reshape(B, L * k)
+    top_s, top_i = _top_k(flat_scores, post_nms_top_n)
+    out_boxes = torch.gather(flat_boxes, 1, top_i[..., None].expand(B, post_nms_top_n, 4))
+    out_keep = torch.gather(flat_keep, 1, top_i) & (top_s > float("-inf"))
+    return out_boxes, out_keep

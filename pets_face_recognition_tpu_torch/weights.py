@@ -1,0 +1,191 @@
+"""Weights: the JAX package's flax variables -> the port's ``state_dict``s, and
+seeded random weights.
+
+The bridge is the inverse of the JAX package's ``utils/torch_convert.py``
+(``convert_resnet``, ``convert_fe_embedder``, ``convert_detection_model``),
+written again here: input is the nested ``{"params": ..., "batch_stats": ...}``
+dict as numpy arrays, output uses torchvision key names. Layouts:
+
+- conv: flax ``(kh, kw, I, O)`` -> torch ``(O, I, kh, kw)``;
+- dense: ``(I, O)`` -> ``(O, I)``;
+- transposed conv: flax ``(kh, kw, O, I)`` (``transpose_kernel=True``) -> torch
+  ``(I, O, kh, kw)``;
+- batch norm: ``scale``/``bias`` params and ``mean``/``var`` stats ->
+  ``weight``/``bias``/``running_mean``/``running_var``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.resnet import FrozenBatchNorm2d
+
+
+def _conv(k) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _dense(k) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(k).T)
+
+
+_deconv = _conv  # (kh, kw, O, I) -> (I, O, kh, kw): the same axis permutation
+
+
+def _bn(sd: dict, dst: str, params: Mapping, stats: Mapping,
+        num_batches_tracked: bool) -> None:
+    sd[f"{dst}.weight"] = np.asarray(params["scale"])
+    sd[f"{dst}.bias"] = np.asarray(params["bias"])
+    sd[f"{dst}.running_mean"] = np.asarray(stats["mean"])
+    sd[f"{dst}.running_var"] = np.asarray(stats["var"])
+    if num_batches_tracked:
+        sd[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def resnet_state_dict(params: Mapping, stats: Mapping, prefix: str = "",
+                      num_batches_tracked: bool = False) -> dict[str, np.ndarray]:
+    """flax ``models.resnet.ResNet`` variables -> torchvision ResNet keys.
+
+    ``num_batches_tracked`` adds the ``BatchNorm2d`` counter (FE trunks);
+    frozen detection trunks have none.
+    """
+    sd: dict[str, np.ndarray] = {}
+    sd["conv1.weight"] = _conv(params["conv1"]["kernel"])
+    _bn(sd, "bn1", params["bn1"], stats["bn1"], num_batches_tracked)
+    for name in sorted(params):
+        m = re.fullmatch(r"layer(\d+)_(\d+)", name)
+        if not m:
+            continue
+        base = f"layer{m.group(1)}.{m.group(2)}"
+        blk, bst = params[name], stats[name]
+        for c in (1, 2, 3):
+            sd[f"{base}.conv{c}.weight"] = _conv(blk[f"conv{c}"]["kernel"])
+            _bn(sd, f"{base}.bn{c}", blk[f"bn{c}"], bst[f"bn{c}"], num_batches_tracked)
+        if "downsample_conv" in blk:
+            sd[f"{base}.downsample.0.weight"] = _conv(blk["downsample_conv"]["kernel"])
+            _bn(sd, f"{base}.downsample.1", blk["downsample_bn"],
+                bst["downsample_bn"], num_batches_tracked)
+    if "fc" in params:
+        sd["fc.weight"] = _dense(params["fc"]["kernel"])
+        sd["fc.bias"] = np.asarray(params["fc"]["bias"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def embedder_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
+    """flax ``EmbeddingModel`` variables -> torchvision ``resnet50`` with
+    ``fc = Linear(2048, 512)`` (the inverse of ``convert_fe_embedder``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd = resnet_state_dict(p["backbone"], st["backbone"], num_batches_tracked=True)
+    sd["fc.weight"] = _dense(p["fc"]["kernel"])
+    sd["fc.bias"] = np.asarray(p["fc"]["bias"])
+    return sd
+
+
+def _dense_pair(sd: dict, dst: str, layer: Mapping) -> None:
+    sd[f"{dst}.weight"] = _dense(layer["kernel"])
+    sd[f"{dst}.bias"] = np.asarray(layer["bias"])
+
+
+def _conv_pair(sd: dict, dst: str, layer: Mapping) -> None:
+    sd[f"{dst}.weight"] = _conv(layer["kernel"])
+    sd[f"{dst}.bias"] = np.asarray(layer["bias"])
+
+
+def _prefixed(prefix: str, sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def fpn_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """flax ``FPN`` params (``inner_i``, ``layer_i``) -> ``inner_blocks.i`` /
+    ``layer_blocks.i`` (flat torchvision 0.12 layout)."""
+    sd: dict[str, np.ndarray] = {}
+    for i in range(len([k for k in params if k.startswith("inner_")])):
+        _conv_pair(sd, f"inner_blocks.{i}", params[f"inner_{i}"])
+        _conv_pair(sd, f"layer_blocks.{i}", params[f"layer_{i}"])
+    return sd
+
+
+def rpn_head_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """flax ``RPNHead`` params -> ``conv`` / ``cls_logits`` / ``bbox_pred``."""
+    sd: dict[str, np.ndarray] = {}
+    for name in ("conv", "cls_logits", "bbox_pred"):
+        _conv_pair(sd, name, params[name])
+    return sd
+
+
+def box_heads_state_dict(box_head: Mapping, box_predictor: Mapping) -> dict[str, np.ndarray]:
+    """flax ``TwoMLPHead`` + ``FastRCNNPredictor`` -> ``box_head.*`` / ``box_predictor.*``."""
+    sd: dict[str, np.ndarray] = {}
+    for name in ("fc6", "fc7"):
+        _dense_pair(sd, f"box_head.{name}", box_head[name])
+    for name in ("cls_score", "bbox_pred"):
+        _dense_pair(sd, f"box_predictor.{name}", box_predictor[name])
+    return sd
+
+
+def keypoint_heads_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """flax ``KeypointHead`` -> ``keypoint_head.{0,2,..,14}`` (conv/relu
+    Sequential) and ``keypoint_predictor.kps_score_lowres``."""
+    sd: dict[str, np.ndarray] = {}
+    n_convs = len([k for k in params if k.startswith("kps_fcn")])
+    for i in range(1, n_convs + 1):
+        _conv_pair(sd, f"keypoint_head.{2 * (i - 1)}", params[f"kps_fcn{i}"])
+    sd["keypoint_predictor.kps_score_lowres.weight"] = _deconv(
+        params["kps_score_lowres"]["kernel"])
+    sd["keypoint_predictor.kps_score_lowres.bias"] = np.asarray(
+        params["kps_score_lowres"]["bias"])
+    return sd
+
+
+def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
+    """flax ``GeneralizedRCNN`` variables -> torchvision keypoint R-CNN keys in
+    the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd = resnet_state_dict(p["backbone"]["backbone"], st["backbone"]["backbone"],
+                           prefix="backbone.body.")
+    sd.update(_prefixed("backbone.fpn.", fpn_state_dict(p["backbone"]["fpn"])))
+    sd.update(_prefixed("rpn.head.", rpn_head_state_dict(p["rpn"])))
+    sd.update(_prefixed("roi_heads.", box_heads_state_dict(p["box_head"],
+                                                           p["box_predictor"])))
+    if "keypoint_head" in p:
+        sd.update(_prefixed("roi_heads.", keypoint_heads_state_dict(p["keypoint_head"])))
+    return sd
+
+
+def to_tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, seed: int) -> nn.Module:
+    """Seeded random weights, in place, drawn on the CPU from one generator.
+
+    Weights are ``N(0, 1) / sqrt(fan_in)`` (keeps a random 50-layer forward
+    finite), biases zero, norms near identity: ``weight ~ U(0.5, 1.5)``,
+    ``bias ~ 0.1 N``, ``running_mean ~ 0.1 N``, ``running_var ~ U(0.5, 1.5)``.
+    """
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(t: torch.Tensor, fn) -> None:
+        t.copy_(fn(t.shape).to(t))
+
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = m.weight
+            fan_in = w.shape[0] * math.prod(w.shape[2:]) if isinstance(
+                m, nn.ConvTranspose2d) else math.prod(w.shape[1:])
+            draw(w, lambda s: torch.randn(s, generator=g) / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, FrozenBatchNorm2d)):
+            draw(m.weight, lambda s: torch.rand(s, generator=g) + 0.5)
+            draw(m.bias, lambda s: torch.randn(s, generator=g) * 0.1)
+            draw(m.running_mean, lambda s: torch.randn(s, generator=g) * 0.1)
+            draw(m.running_var, lambda s: torch.rand(s, generator=g) + 0.5)
+    return module

@@ -1,0 +1,72 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its entry
+points default to CUDA and raise without it, and its kernels build only from
+its own sources."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from pets_face_recognition_tpu_torch import resolve_device
+from pets_face_recognition_tpu_torch.kernels import _build
+from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "pets_face_recognition_tpu_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|pets_face_recognition_tpu)\b(?!_torch)",
+                       re.MULTILINE)
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [f"pets_face_recognition_tpu_torch.{m}" for m in (
+        "serving", "weights", "kernels", "ops.nms", "ops.roi_align", "ops.homography",
+        "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder")]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
+            + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+              " or m.split('.')[0] == 'pets_face_recognition_tpu']\n"
+              "assert not bad, bad\nprint('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_serving_models()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EmbeddingService(torch.nn.Identity(), torch.nn.Identity())
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_is_one_nvcc_call_over_the_port_sources():
+    srcs = _build.sources()
+    assert [p.name for p in srcs] == ["nms.cu", "roi_align.cu", "warp.cu"]
+    for src in srcs:
+        text = src.read_text()
+        assert "torch/" not in text and "ATen" not in text and "pybind" not in text
+        assert 'extern "C"' in text
+    assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.library_path().parent == _build.BUILD_DIR
+    code = "\n".join(line for line in Path(_build.__file__).read_text().splitlines()
+                     if re.match(r"\s*(import|from)\s", line))
+    assert "cpp_extension" not in code and "ninja" not in code
