@@ -7,8 +7,11 @@
 // survives; areas clamp at 0.
 //
 // Bound: latency. The greedy sweep is K dependent steps per group, and the work
-// per step is tiny (K <= 1024 IoUs). Design: one block per group; its boxes,
-// areas and alive mask sit in shared memory; a loop over the pivot i, with one
+// per step is tiny (at most K IoUs). Design: one block per group; its boxes,
+// areas and alive mask sit in dynamic shared memory, 24 bytes a box, so a block
+// holds K <= 9685 (the 232,448 bytes a Hopper block may use; past the 48 KB
+// default the launcher raises the kernel's limit, which the training budget
+// K = 2000, 48,000 bytes, does not need); a loop over the pivot i, with one
 // __syncthreads() per step, has the threads cover the columns j > i. The float
 // expressions are those of the plain PyTorch version, each rounded on its own,
 // so the keep masks are bit-equal to it.
@@ -16,6 +19,10 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr size_t kBytesPerBox = 6 * sizeof(float);
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 232448;  // Hopper: 227 KB of dynamic shared memory
 
 __global__ void nms_keep_sorted_batch_kernel(const float* __restrict__ boxes,
                                              const unsigned char* __restrict__ valid,
@@ -75,7 +82,14 @@ extern "C" int pfr_nms_keep_sorted_batch(const float* boxes,
                                          cudaStream_t stream) {
   if (G == 0 || K == 0) return 0;
   int threads = K < 128 ? ((K + 31) / 32) * 32 : 128;
-  size_t smem = (size_t)K * 6 * sizeof(float);
+  size_t smem = (size_t)K * kBytesPerBox;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        nms_keep_sorted_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   nms_keep_sorted_batch_kernel<<<G, threads, smem, stream>>>(
       boxes, valid, keep, K, iou_threshold);
   return (int)cudaGetLastError();

@@ -15,8 +15,9 @@ import torch
 
 from ._build import build, library
 
-KERNELS = ("warp_perspective_batch", "nms_keep_sorted_batch",
-           "multilevel_roi_align")
+KERNELS = ("warp_perspective_batch", "nms_keep_sorted_batch", "nms_keep_sorted",
+           "nms_keep_sorted_grid", "multilevel_roi_align",
+           "multilevel_roi_align_backward")
 
 _launches = {name: 0 for name in KERNELS}
 

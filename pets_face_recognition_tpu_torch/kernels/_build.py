@@ -99,6 +99,11 @@ _SIGNATURES = {
     "pfr_multilevel_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                                  _I, _I, _I, _P, _P),
+    # (g, d0..d3, H0..H3, W0..W3, stride0..stride3, n_levels, B, C,
+    #  rois, batch_idx, level, K, OH, OW, sampling_ratio, stream)
+    "pfr_multilevel_roi_align_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                          _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,11 +1,20 @@
-"""Keypoint R-CNN, eval path (counterpart of the JAX ``models/rcnn.py``).
+"""Keypoint R-CNN (counterpart of the JAX ``models/rcnn.py``).
 
-``forward`` takes a fixed ``(B, H, W, 3)`` NHWC float batch (no resize or
-normalisation, as the JAX model) and returns padded detections with validity
-masks: ``boxes (B, D, 4)``, ``labels``, ``scores``, ``valid``, ``keypoints
-(B, D, NK, 3)``, ``keypoints_scores``. Inside it runs NCHW. The RPN's NMS is
-kernel K2 and both RoIAligns (box 7x7, keypoint 14x14) are kernel K3; their
-wrappers fall back to the plain versions only for CPU tensors.
+``forward(images)`` takes a fixed ``(B, H, W, 3)`` NHWC float batch (no resize
+or normalisation, as the JAX model) and returns padded detections with
+validity masks: ``boxes (B, D, 4)``, ``labels``, ``scores``, ``valid``,
+``keypoints (B, D, NK, 3)``, ``keypoints_scores``. With ``targets`` it returns
+the training loss dict of the JAX ``_forward_train``: RPN loss, proposals at
+the training budgets, box sampling and loss, and the keypoint head on the
+positive budget. Inside it runs NCHW. The RPN's NMS is kernel K2; both
+RoIAligns (box 7x7, keypoint 14x14) run forward through kernel K3 and, in
+training, backward through kernel K4 (``MultilevelRoIAlign``); their wrappers
+take the plain versions only for CPU tensors.
+
+The two samplers take uniform noise, ``sampler_noise = {"rpn": (B, N_anchors),
+"box": (B, rpn_post_nms_top_n_train + G)}``, or draw it from ``generator``
+(on the generator's device, then moved to the images'), so that runs on two
+devices, or against the JAX package, can share the same samples.
 """
 
 from __future__ import annotations
@@ -16,28 +25,43 @@ import torch
 from torch import nn
 
 from ..ops.anchors import multilevel_anchors
-from ..ops.roi_align import multilevel_roi_align_cuda
+from ..ops.roi_align import multilevel_roi_align_diff
 from . import roi_heads as rh
 from .fpn import BackboneWithFPN
 from .resnet import ResNet
-from .rpn import RPN, generate_proposals, level_sizes
+from .rpn import RPN, generate_proposals, level_sizes, rpn_loss
 
 
 @dataclasses.dataclass(frozen=True)
 class RCNNConfig:
-    """Eval hyper-parameters (torchvision defaults unless noted); the training
-    fields of the JAX ``RCNNConfig`` wait for the training slice."""
+    """Hyper-parameters (torchvision defaults unless noted), the JAX
+    ``RCNNConfig``'s fields less the mask head's and the box NMS's."""
 
     num_classes: int = 2
     anchor_sizes: tuple = ((32,), (64,), (128,), (256,), (512,))
     aspect_ratios: tuple = (0.5, 1.0, 2.0)
+    # RPN
+    rpn_pre_nms_top_n_train: int = 2000
     rpn_pre_nms_top_n_test: int = 1000
+    rpn_post_nms_top_n_train: int = 2000
     rpn_post_nms_top_n_test: int = 1000
     rpn_nms_thresh: float = 0.7
+    # the RPN matcher's IoU thresholds are fixed at 0.7 / 0.3, as the JAX
+    # ``rpn_loss`` fixes them (its config's fields are never read)
+    rpn_batch_size_per_image: int = 256
+    rpn_positive_fraction: float = 0.5
+    # box head
     box_score_thresh: float = 0.05
     box_detections_per_img: int = 1
+    box_fg_iou_thresh: float = 0.5
+    box_bg_iou_thresh: float = 0.5
+    box_batch_size_per_image: int = 512
+    box_positive_fraction: float = 0.25
+    # task heads
     num_keypoints: int = 0
     keypoint_roi_size: int = 14
+    # training: the keypoint head runs on the sampled-positive budget only
+    task_heads_on_positives_only: bool = True
 
 
 class RoIHeads(nn.Module):
@@ -50,6 +74,12 @@ class RoIHeads(nn.Module):
         if cfg.num_keypoints:
             self.keypoint_head = rh.KeypointHead(channels)
             self.keypoint_predictor = rh.KeypointPredictor(512, cfg.num_keypoints)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(x, idx, 1)`` for ``x (B, N, ...)`` and ``idx (B, M)``."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *(1,) * (x.dim() - 2))
+                        .expand(*idx.shape, *x.shape[2:]))
 
 
 class GeneralizedRCNN(nn.Module):
@@ -66,15 +96,16 @@ class GeneralizedRCNN(nn.Module):
         self.roi_heads = RoIHeads(cfg, backbone.out_channels)
 
     def _roi_align(self, pool_feats, strides, boxes_flat, batch_idx, output_size):
-        return multilevel_roi_align_cuda(
+        return multilevel_roi_align_diff(
             pool_feats, boxes_flat.contiguous(), batch_idx, output_size,
             tuple(strides[: len(pool_feats)]), min_level=2,
             max_level=1 + len(pool_feats))
 
-    def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, targets: dict | None = None,
+                sampler_noise: dict | None = None,
+                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         c = self.cfg
         B, H, W, _ = images.shape
-        image_size = (H, W)
         feats = self.backbone(images.permute(0, 3, 1, 2))
         names = sorted(feats, key=lambda n: int(n[1:]))        # p2..p6
         sizes = [tuple(feats[n].shape[2:]) for n in names]
@@ -84,13 +115,85 @@ class GeneralizedRCNN(nn.Module):
         objectness, deltas = self.rpn([feats[n] for n in names])
         # RoIs pool from p2..p5 only (the max-pool level feeds the RPN alone)
         pool_feats = [feats[n].permute(0, 2, 3, 1).contiguous() for n in names[:-1]]
+        counts = level_sizes(sizes, self.num_anchors)
+        if targets is not None:
+            return self._forward_train(targets, sampler_noise, generator, pool_feats,
+                                       strides, anchors, counts, objectness, deltas,
+                                       (H, W))
+        return self._forward_eval(pool_feats, strides, anchors, counts, objectness,
+                                  deltas, (H, W))
 
+    def draw_sampler_noise(self, B: int, n_anchors: int, n_gt: int,
+                      generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """Uniform noise for both samplers, drawn from ``generator``."""
+        n_box = self.cfg.rpn_post_nms_top_n_train + n_gt
+        return {"rpn": torch.rand(B, n_anchors, generator=generator, device=generator.device),
+                "box": torch.rand(B, n_box, generator=generator, device=generator.device)}
+
+    def _forward_train(self, targets, sampler_noise, generator, pool_feats, strides,
+                       anchors, counts, objectness, deltas, image_size):
+        c = self.cfg
+        B = objectness.shape[0]
+        dev = objectness.device
+        if sampler_noise is None:
+            if generator is None:
+                raise ValueError("training needs sampler_noise or a torch.Generator")
+            sampler_noise = self.draw_sampler_noise(B, anchors.shape[0],
+                                               targets["boxes"].shape[1], generator)
+        noise = {k: v.to(dev) for k, v in sampler_noise.items()}
+        losses = rpn_loss(objectness, deltas, anchors, targets["boxes"], targets["valid"],
+                          noise["rpn"], c.rpn_batch_size_per_image,
+                          c.rpn_positive_fraction)
         proposals, prop_valid = generate_proposals(
-            objectness, deltas, anchors, level_sizes(sizes, self.num_anchors),
-            image_size, c.rpn_pre_nms_top_n_test, c.rpn_post_nms_top_n_test,
-            c.rpn_nms_thresh)
+            objectness.detach(), deltas.detach(), anchors, counts, image_size,
+            c.rpn_pre_nms_top_n_train, c.rpn_post_nms_top_n_train, c.rpn_nms_thresh)
+        boxes, cls_t, gt_idx, valid, fg = rh.select_training_samples(
+            proposals, prop_valid, targets["boxes"], targets["labels"], targets["valid"],
+            noise["box"], c.box_batch_size_per_image, c.box_positive_fraction,
+            c.box_fg_iou_thresh, c.box_bg_iou_thresh)
+
+        S = boxes.shape[1]
+        boxes_flat = boxes.reshape(B * S, 4)
+        batch_idx = torch.arange(B, dtype=torch.int32, device=dev)
+        heads = self.roi_heads
+        pooled = self._roi_align(pool_feats, strides, boxes_flat,
+                                 batch_idx.repeat_interleave(S), (7, 7))
+        class_logits, box_deltas = heads.box_predictor(heads.box_head(pooled))
+        matched = _take(targets["boxes"], gt_idx).reshape(B * S, 4)
+        losses.update(rh.fastrcnn_loss(class_logits, box_deltas, boxes_flat,
+                                       cls_t.reshape(-1), matched, valid.reshape(-1),
+                                       fg.reshape(-1)))
+
+        if c.num_keypoints:
+            P = S
+            if c.task_heads_on_positives_only:
+                # the sampler never emits more positives than this budget, so
+                # the subset holds every fg sample and the loss is unchanged
+                P = min(max(1, int(c.box_batch_size_per_image * c.box_positive_fraction)), S)
+            # stable fg-first order keeps the sampler's order
+            pos_order = torch.argsort((~fg).to(torch.uint8), dim=1, stable=True)[:, :P]
+            pos_boxes_flat = _take(boxes, pos_order).reshape(B * P, 4)
+            pos_fg = _take(fg, pos_order).reshape(-1)
+            r = c.keypoint_roi_size
+            pooled = self._roi_align(pool_feats, strides, pos_boxes_flat,
+                                     batch_idx.repeat_interleave(P), (r, r))
+            kp_logits = heads.keypoint_predictor(heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
+            gt_kps = _take(targets["keypoints"], _take(gt_idx, pos_order))
+            kp_targets, kp_valid = rh.keypoints_to_heatmap_targets(
+                gt_kps.reshape(B * P, c.num_keypoints, 3), pos_boxes_flat, kp_logits.shape[1])
+            losses["loss_keypoint"] = rh.keypointrcnn_loss(kp_logits, kp_targets,
+                                                           kp_valid, pos_fg)
+        return losses
+
+    def _forward_eval(self, pool_feats, strides, anchors, counts, objectness, deltas,
+                      image_size):
+        c = self.cfg
+        B = objectness.shape[0]
+        proposals, prop_valid = generate_proposals(
+            objectness, deltas, anchors, counts, image_size, c.rpn_pre_nms_top_n_test,
+            c.rpn_post_nms_top_n_test, c.rpn_nms_thresh)
         S = proposals.shape[1]
-        batch_idx = torch.arange(B, dtype=torch.int32, device=images.device)
+        batch_idx = torch.arange(B, dtype=torch.int32, device=objectness.device)
         pooled = self._roi_align(pool_feats, strides, proposals.reshape(B * S, 4),
                                  batch_idx.repeat_interleave(S), (7, 7))
         heads = self.roi_heads

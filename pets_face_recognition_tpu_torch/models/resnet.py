@@ -2,7 +2,8 @@
 
 torchvision module and ``state_dict`` names (``conv1``, ``layer1.0.conv2``,
 ``layer2.0.downsample.0`` ...), stride on each bottleneck's 3x3 conv, BN
-epsilon 1e-5, eval-mode statistics. The JAX package's space-to-depth stem is an
+epsilon 1e-5, eval-mode statistics (the detection trunk's affine trains, see
+``FrozenBatchNorm2d``). The JAX package's space-to-depth stem is an
 exact rewrite of the 7x7/s2 conv and stores 7x7 weights, so the port runs the
 plain ``Conv2d(3, 64, 7, 2, 3)``.
 """
@@ -16,16 +17,22 @@ from torch import nn
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm from fixed statistics (torchvision's detection trunk norm).
+    """BatchNorm from fixed statistics with a trainable affine (the JAX
+    package's detection trunk norm).
 
-    Buffers only: ``weight``, ``bias``, ``running_mean``, ``running_var``.
+    ``running_mean`` and ``running_var`` are buffers and never change;
+    ``weight`` and ``bias`` are parameters. This follows the JAX package, whose
+    frozen norm is ``nn.BatchNorm(use_running_average=True)`` with ``scale`` and
+    ``bias`` in ``params``, so training differentiates and updates them; it
+    departs from torchvision's ``FrozenBatchNorm2d``, which keeps all four as
+    buffers. The ``state_dict`` keys are torchvision's either way.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 

@@ -1,4 +1,6 @@
-"""RoI heads, eval path (counterpart of the JAX ``models/roi_heads.py``).
+"""RoI heads (counterpart of the JAX ``models/roi_heads.py``): the box and
+keypoint heads, the eval postprocess and keypoint decode, and for training the
+proposal sampler, the Fast R-CNN loss and the keypoint heatmap targets and loss.
 
 torchvision module names (``box_head.fc6``, ``box_predictor.cls_score``,
 ``keypoint_head.{0,2,..,14}``, ``keypoint_predictor.kps_score_lowres``). The
@@ -14,7 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.boxes import clip_boxes, decode_boxes
+from ..losses import cross_entropy, smooth_l1
+from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
+from .rpn import batched_iou, sample_balanced
 
 BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
@@ -170,3 +174,83 @@ def heatmaps_to_keypoints(kp_logits: torch.Tensor, boxes: torch.Tensor,
     x = (xx + 0.5) * w / Su + x1
     y = (yy + 0.5) * h / Su + y1
     return torch.stack([x, y, torch.ones_like(score)], dim=-1), score
+
+
+def select_training_samples(proposals: torch.Tensor, prop_valid: torch.Tensor,
+                            gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                            gt_valid: torch.Tensor, noise: torch.Tensor,
+                            num_samples: int = 512, positive_fraction: float = 0.25,
+                            fg_iou_thresh: float = 0.5, bg_iou_thresh: float = 0.5):
+    """Box-head sampling per image, batched: GT boxes are appended to the
+    ``(B, S0, 4)`` proposals (torchvision ``add_gt_proposals``), matched,
+    sampled with ``noise (B, S0 + G)``, and the sampled set is moved to the
+    first ``num_samples`` slots. Returns ``(boxes, cls, gt_idx, valid, fg)``,
+    each ``(B, num_samples, ...)``.
+
+    The slot order is the JAX package's: a stable argsort of
+    ``-sampled - arange(n) * 1e-9`` in float32. The 1e-9 steps fall below
+    float32 resolution at 1.0, so the sampled entries come in runs of equal
+    keys, higher index runs first and ascending inside a run; the expression
+    and the stable sort are copied so that the order, not only the set, agrees.
+    """
+    all_boxes = torch.cat([proposals, gt_boxes], dim=1)
+    all_valid = torch.cat([prop_valid, gt_valid], dim=1)
+    iou = batched_iou(all_boxes, gt_boxes)
+    iou = torch.where(gt_valid[:, None, :] & all_valid[:, :, None], iou,
+                      torch.full_like(iou, -1.0))
+    best_iou, best_gt = iou.max(dim=2)
+    is_fg = (best_iou >= fg_iou_thresh) & all_valid
+    is_bg = (best_iou < bg_iou_thresh) & all_valid
+    match_labels = torch.where(is_fg, 1, torch.where(is_bg, 0, -1))
+    sampled = sample_balanced(match_labels, noise, num_samples, positive_fraction)
+    n = sampled.shape[1]
+    key = -sampled - torch.arange(n, dtype=torch.float32, device=sampled.device) * 1e-9
+    take = torch.argsort(key, dim=1, stable=True)[:, :num_samples]
+
+    boxes = torch.gather(all_boxes, 1, take[..., None].expand(*take.shape, 4))
+    valid = torch.gather(sampled, 1, take) > 0
+    fg = torch.gather(is_fg, 1, take) & valid
+    gt_idx = torch.gather(best_gt, 1, take)
+    cls = torch.where(fg, torch.gather(gt_labels, 1, gt_idx), 0)
+    return boxes, cls, gt_idx, valid, fg
+
+
+def fastrcnn_loss(class_logits: torch.Tensor, box_deltas: torch.Tensor,
+                  sampled_boxes: torch.Tensor, cls_targets: torch.Tensor,
+                  matched_gt_boxes: torch.Tensor, valid: torch.Tensor,
+                  fg: torch.Tensor) -> dict[str, torch.Tensor]:
+    """torchvision ``fastrcnn_loss`` over ``K`` flattened samples: cross entropy
+    over the valid ones, smooth-L1 of the target class's deltas over the fg ones,
+    summed and divided by the valid count."""
+    n = valid.sum().clamp(min=1).float()
+    cls_loss = cross_entropy(class_logits, cls_targets, weights=valid.float())
+    targets = encode_boxes(matched_gt_boxes, sampled_boxes, BOX_CODER_WEIGHTS)
+    idx = cls_targets.long()[:, None, None].expand(-1, 1, 4)
+    per_class = torch.gather(box_deltas, 1, idx)[:, 0]
+    reg = smooth_l1(per_class, targets).sum(-1)
+    return {"loss_classifier": cls_loss, "loss_box_reg": (reg * fg.float()).sum() / n}
+
+
+def keypoints_to_heatmap_targets(keypoints: torch.Tensor, boxes: torch.Tensor,
+                                 heatmap_size: int = 56):
+    """``(K, NK, 3)`` (x, y, visibility) keypoints -> flat heatmap cell index
+    ``(K, NK)`` int64 and validity (visible and inside the box), torchvision
+    ``keypoints_to_heatmap``; points on the far edge snap inside."""
+    x1, y1 = boxes[:, 0:1], boxes[:, 1:2]
+    w = (boxes[:, 2:3] - boxes[:, 0:1]).clamp(min=1e-6)
+    h = (boxes[:, 3:4] - boxes[:, 1:2]).clamp(min=1e-6)
+    kx, ky = keypoints[..., 0], keypoints[..., 1]
+    x = torch.floor((kx - x1) * (heatmap_size / w)).long().clamp(0, heatmap_size - 1)
+    y = torch.floor((ky - y1) * (heatmap_size / h)).long().clamp(0, heatmap_size - 1)
+    in_box = (kx >= x1) & (kx < x1 + w) & (ky >= y1) & (ky < y1 + h)
+    return y * heatmap_size + x, (keypoints[..., 2] > 0) & in_box
+
+
+def keypointrcnn_loss(kp_logits: torch.Tensor, kp_targets: torch.Tensor,
+                      kp_valid: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """Cross entropy over the ``S x S`` positions per visible keypoint of each
+    fg sample; ``kp_logits (K, S, S, NK)``."""
+    K, S, _, NK = kp_logits.shape
+    flat = kp_logits.permute(0, 3, 1, 2).reshape(K * NK, S * S)
+    weights = (kp_valid & fg[:, None]).float().reshape(K * NK)
+    return cross_entropy(flat, kp_targets.reshape(K * NK), weights=weights)

@@ -1,10 +1,14 @@
-"""Region proposal network, eval path (counterpart of the JAX ``models/rpn.py``).
+"""Region proposal network (counterpart of the JAX ``models/rpn.py``).
 
-Per image: head logits -> per-level top-``pre_nms_top_n`` -> decode + clip ->
-drop tiny boxes (filtering on sigmoid probability, as torchvision) -> greedy
-NMS per (image, level) through kernel K2 -> global top-``post_nms_top_n``.
+Proposals, per image: head logits -> per-level top-``pre_nms_top_n`` ->
+decode + clip -> drop tiny boxes (filtering on sigmoid probability, as
+torchvision) -> greedy NMS per (image, level) through kernel K2 -> global
+top-``post_nms_top_n``, at the eval or the training budgets. Training adds the
+anchor matcher, the balanced sampler and the RPN loss, batched over images.
 Every shape is fixed; invalid entries ride along with validity masks. Top-k
-runs as a stable sort, so ties keep the lower index first, as ``lax.top_k``.
+and argsort run as stable sorts, so ties keep the lower index first, as
+``lax.top_k`` and ``jnp.argsort``. The sampler takes its uniform noise as an
+argument, so that a caller can hand both frameworks the same numbers.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.boxes import clip_boxes, decode_boxes
+from ..losses import optax_sigmoid_ce, smooth_l1
+from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ..ops.nms import nms_keep_sorted_batch_cuda
 
 
@@ -120,3 +125,69 @@ def generate_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
     out_boxes = torch.gather(flat_boxes, 1, top_i[..., None].expand(B, post_nms_top_n, 4))
     out_keep = torch.gather(flat_keep, 1, top_i) & (top_s > float("-inf"))
     return out_boxes, out_keep
+
+
+def batched_iou(boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """IoU of ``boxes`` (``(N, 4)`` shared, or ``(B, N, 4)``) against each
+    image's ``gt_boxes (B, M, 4)``: ``(B, N, M)``."""
+    return torch.stack([pairwise_iou(boxes if boxes.dim() == 2 else boxes[b], g)
+                        for b, g in enumerate(gt_boxes)])
+
+
+def assign_rpn_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                       gt_valid: torch.Tensor, fg_iou_thresh: float = 0.7,
+                       bg_iou_thresh: float = 0.3) -> tuple[torch.Tensor, torch.Tensor]:
+    """Anchor labels ``(B, N)`` (1 fg, 0 bg, -1 ignore) and matched GT boxes
+    ``(B, N, 4)``: torchvision ``Matcher`` with low-quality matches (an anchor
+    whose IoU with a valid GT equals that GT's best, and is above 0, is fg)."""
+    iou = batched_iou(anchors, gt_boxes)
+    iou = torch.where(gt_valid[:, None, :], iou, torch.full_like(iou, -1.0))
+    best_iou, best_gt = iou.max(dim=2)
+    labels = torch.full_like(best_gt, -1, dtype=torch.int32)
+    labels = torch.where(best_iou < bg_iou_thresh, 0, labels)
+    labels = torch.where(best_iou >= fg_iou_thresh, 1, labels)
+    per_gt_best = torch.where(gt_valid, iou.max(dim=1).values,
+                              torch.full_like(gt_valid, -2.0, dtype=iou.dtype))
+    is_best = ((iou == per_gt_best[:, None, :]) & gt_valid[:, None, :]
+               & (iou > 0)).any(dim=2)
+    labels = torch.where(is_best, 1, labels)
+    matched = torch.gather(gt_boxes, 1, best_gt[..., None].expand(*best_gt.shape, 4))
+    return labels, matched
+
+
+def sample_balanced(labels: torch.Tensor, noise: torch.Tensor, batch_size: int = 256,
+                    positive_fraction: float = 0.5) -> torch.Tensor:
+    """Balanced fg/bg sampling along the last axis with uniform ``noise`` of the
+    same shape: float mask, 1.0 for sampled entries. Up to
+    ``batch_size * positive_fraction`` positives, the rest negatives; the ones
+    taken are those with the least noise (ranks by two stable argsorts)."""
+    n_pos_budget = int(batch_size * positive_fraction)
+    is_pos = labels == 1
+    is_neg = labels == 0
+    n_pos = is_pos.sum(-1, keepdim=True).clamp(max=n_pos_budget)
+    n_neg = torch.minimum(is_neg.sum(-1, keepdim=True), batch_size - n_pos)
+    two = torch.full_like(noise, 2.0)
+
+    def rank(mask):
+        return torch.argsort(torch.argsort(torch.where(mask, noise, two), dim=-1,
+                                           stable=True), dim=-1, stable=True)
+
+    sampled = (is_pos & (rank(is_pos) < n_pos)) | (is_neg & (rank(is_neg) < n_neg))
+    return sampled.float()
+
+
+def rpn_loss(objectness: torch.Tensor, deltas: torch.Tensor, anchors: torch.Tensor,
+             gt_boxes: torch.Tensor, gt_valid: torch.Tensor, noise: torch.Tensor,
+             batch_size_per_image: int = 256, positive_fraction: float = 0.5,
+             ) -> dict[str, torch.Tensor]:
+    """RPN loss (torchvision normalisation: both terms over the sampled count
+    per image, then the mean over images). ``noise (B, N)`` feeds the sampler."""
+    labels, matched = assign_rpn_targets(anchors, gt_boxes, gt_valid)
+    sampled = sample_balanced(labels, noise, batch_size_per_image, positive_fraction)
+    n_sampled = sampled.sum(-1).clamp(min=1.0)
+    is_fg = (labels == 1).float()
+    cls = optax_sigmoid_ce(objectness, is_fg)
+    cls_loss = (cls * sampled).sum(-1) / n_sampled
+    reg = smooth_l1(deltas, encode_boxes(matched, anchors)).sum(-1)
+    reg_loss = (reg * (sampled * is_fg)).sum(-1) / n_sampled
+    return {"loss_objectness": cls_loss.mean(), "loss_rpn_box_reg": reg_loss.mean()}

@@ -4,7 +4,11 @@
 ``nms_keep_sorted_batch`` is the plain PyTorch version of kernel K2 (greedy NMS
 over G groups of score-sorted boxes); ``nms_keep_sorted_batch_cuda`` is its
 wrapper, which launches ``csrc/nms.cu`` for CUDA tensors and calls the plain
-version for CPU tensors. ``nms`` is the index-returning form of the JAX package.
+version for CPU tensors. ``nms_keep_sorted`` (one group) and
+``nms_keep_sorted_grid`` (G groups) are K5, the JAX package's other two entry
+points over the same function (``pallas_nms.py:75`` and ``:191``); they launch
+the same kernel, each with its own launch count. ``nms`` is the
+index-returning form of the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ import torch
 from .. import kernels
 
 _NEG_INF = -1e10
+# csrc/nms.cu keeps 24 bytes a box in shared memory; a Hopper block may use
+# 232,448 bytes of it
+NMS_MAX_K = 232448 // 24
 
 
 def nms_keep_sorted_batch(boxes: torch.Tensor, valid: torch.Tensor,
@@ -46,15 +53,13 @@ def nms_keep_sorted_batch(boxes: torch.Tensor, valid: torch.Tensor,
     return alive
 
 
-def nms_keep_sorted_batch_cuda(boxes: torch.Tensor, valid: torch.Tensor,
-                               iou_threshold: float) -> torch.Tensor:
-    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
-    if boxes.device.type == "cpu":
-        return nms_keep_sorted_batch(boxes, valid, iou_threshold)
+def _launch_nms(name: str, boxes: torch.Tensor, valid: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """Run ``csrc/nms.cu`` on ``(G, K, 4)`` boxes and count one launch of ``name``."""
     kernels.check_cuda_f32("nms boxes", boxes, 3)
     G, K, four = boxes.shape
-    if four != 4 or K > 1024:
-        raise ValueError(f"nms boxes: expected (G, K<=1024, 4), got {tuple(boxes.shape)}")
+    if four != 4 or K > NMS_MAX_K:
+        raise ValueError(f"nms boxes: expected (G, K<={NMS_MAX_K}, 4), got {tuple(boxes.shape)}")
     if valid.shape != (G, K) or valid.dtype != torch.bool or not valid.is_contiguous() \
             or valid.device != boxes.device:
         raise ValueError("nms valid: expected a contiguous (G, K) bool tensor "
@@ -67,9 +72,40 @@ def nms_keep_sorted_batch_cuda(boxes: torch.Tensor, valid: torch.Tensor,
         rc = lib.pfr_nms_keep_sorted_batch(
             kernels.ptr(boxes), kernels.ptr(valid), kernels.ptr(keep), G, K,
             float(iou_threshold), kernels.stream_of(boxes))
-    kernels.raise_on_error("nms_keep_sorted_batch", rc)
-    kernels.count_launch("nms_keep_sorted_batch")
+    kernels.raise_on_error(name, rc)
+    kernels.count_launch(name)
     return keep
+
+
+def nms_keep_sorted_batch_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                               iou_threshold: float) -> torch.Tensor:
+    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
+    if boxes.device.type == "cpu":
+        return nms_keep_sorted_batch(boxes, valid, iou_threshold)
+    return _launch_nms("nms_keep_sorted_batch", boxes, valid, iou_threshold)
+
+
+def nms_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """K5, one group: ``boxes (K, 4)`` sorted by score descending, ``valid (K,)``
+    bool -> ``(K,)`` bool keep mask. The CUDA kernel (G = 1) for CUDA tensors,
+    the plain K2 for CPU ones."""
+    if boxes.device.type == "cpu":
+        return nms_keep_sorted_batch(boxes[None], valid[None], iou_threshold)[0]
+    if boxes.dim() != 2 or valid.dim() != 1:
+        raise ValueError("nms_keep_sorted: expected boxes (K, 4) and valid (K,)")
+    return _launch_nms("nms_keep_sorted", boxes[None], valid[None], iou_threshold)[0]
+
+
+def nms_keep_sorted_grid(boxes: torch.Tensor, valid: torch.Tensor,
+                         iou_threshold: float) -> torch.Tensor:
+    """K5, G groups: ``boxes (G, K, 4)``, ``valid (G, K)`` -> ``(G, K)`` bool keep
+    masks, the JAX grid entry point's function (one program per group there,
+    one block per group here). The CUDA kernel for CUDA tensors, the plain K2
+    for CPU ones."""
+    if boxes.device.type == "cpu":
+        return nms_keep_sorted_batch(boxes, valid, iou_threshold)
+    return _launch_nms("nms_keep_sorted_grid", boxes, valid, iou_threshold)
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,

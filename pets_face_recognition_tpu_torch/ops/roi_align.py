@@ -6,8 +6,13 @@ xyxy RoIs in image coordinates, ``(K, oh, ow, C)`` output. ``roi_levels`` plus
 ``multilevel_roi_align`` (one gather over the flattened pyramid) are the plain
 PyTorch version of kernel K3; ``multilevel_roi_align_cuda`` is its wrapper,
 which launches ``csrc/roi_align.cu`` for CUDA tensors and calls the plain
-version for CPU tensors. Numerics: torchvision ``aligned=False`` with a fixed
-``sampling_ratio``.
+version for CPU tensors. ``multilevel_roi_align_backward`` (scatter-add of the
+same taps) is the plain version of kernel K4, the gradient with respect to the
+levels (counterpart of ``pallas_roi_align.py::_roi_backward``), and
+``multilevel_roi_align_backward_cuda`` its wrapper over
+``csrc/roi_align_backward.cu``. ``MultilevelRoIAlign`` ties the two into one
+``torch.autograd.Function``. Numerics: torchvision ``aligned=False`` with a
+fixed ``sampling_ratio``.
 """
 
 from __future__ import annotations
@@ -38,24 +43,16 @@ def _sample_offsets(n: int, s: int, device) -> torch.Tensor:
             + off[None, :]).reshape(-1)
 
 
-def multilevel_roi_align(features: list[torch.Tensor], rois: torch.Tensor,
-                         roi_batch_idx: torch.Tensor, output_size: tuple[int, int],
-                         strides: tuple[int, ...], sampling_ratio: int = 2,
-                         canonical_scale: float = 224.0, canonical_level: int = 4,
-                         min_level: int = 2, max_level: int = 5) -> torch.Tensor:
-    """Plain K3: each RoI pools ``output_size`` from its assigned level only.
-
-    ``features``: NHWC levels ordered ``p{min_level}..p{max_level}``;
-    ``strides``: image-to-feature stride per level. Returns ``(K, oh, ow, C)``.
-    """
+def _taps(level_shapes, rois, roi_batch_idx, output_size, strides, s,
+          canonical_scale, canonical_level, min_level, max_level):
+    """Bilinear taps of every sample: 4 flat row indices into the ``(B * P, C)``
+    concatenated pyramid and 4 weights, each ``(K, oh * s, ow * s)``, the
+    out-of-bounds mask, and ``P`` (cells per image). Shared by the plain
+    forward and backward so that both use the same geometry."""
     oh, ow = output_size
-    s = sampling_ratio
-    B, _, _, C = features[0].shape
     K = rois.shape[0]
     dev = rois.device
-
-    sizes = [(f.shape[1], f.shape[2]) for f in features]
-    flat = torch.cat([f.float().reshape(B, -1, C) for f in features], dim=1)
+    sizes = [(sh[1], sh[2]) for sh in level_shapes]
     offsets, off = [], 0
     for h, w in sizes:
         offsets.append(off)
@@ -64,7 +61,8 @@ def multilevel_roi_align(features: list[torch.Tensor], rois: torch.Tensor,
     hs = torch.tensor([h for h, _ in sizes], dtype=torch.int64, device=dev)
     ws = torch.tensor([w for _, w in sizes], dtype=torch.int64, device=dev)
     offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
-    scales = torch.tensor([1.0 / st for st in strides], dtype=torch.float32, device=dev)
+    scales = torch.tensor([1.0 / st for st in strides[: len(sizes)]],
+                          dtype=torch.float32, device=dev)
 
     rois = rois.float()
     lvl = roi_levels(rois, min_level, max_level, canonical_scale,
@@ -75,8 +73,11 @@ def multilevel_roi_align(features: list[torch.Tensor], rois: torch.Tensor,
     x1, y1 = boxes[:, 0], boxes[:, 1]
     roi_w = (boxes[:, 2] - boxes[:, 0]).clamp(min=1.0)
     roi_h = (boxes[:, 3] - boxes[:, 1]).clamp(min=1.0)
-    bin_h = roi_h / oh
-    bin_w = roi_w / ow
+    # divide by tensors: PyTorch's CUDA kernels turn a division by a Python
+    # scalar into a product with its rounded reciprocal, which would move the
+    # samples by an ulp against the kernels' correctly rounded division
+    bin_h = roi_h / torch.full_like(roi_h, oh)
+    bin_w = roi_w / torch.full_like(roi_w, ow)
     ys = y1[:, None] + _sample_offsets(oh, s, dev)[None, :] * bin_h[:, None]
     xs = x1[:, None] + _sample_offsets(ow, s, dev)[None, :] * bin_w[:, None]
     yy = ys[:, :, None].expand(K, oh * s, ow * s)
@@ -98,20 +99,99 @@ def multilevel_roi_align(features: list[torch.Tensor], rois: torch.Tensor,
     lx = torch.where(x_edge, zero, xxc - x_low.float())
     hy, hx = 1.0 - ly, 1.0 - lx
 
-    big = flat.reshape(B * P, C)
-    bidx = roi_batch_idx.long()[:, None, None]
-    base3 = base[:, None, None]
+    row0 = roi_batch_idx.long()[:, None, None] * P + base[:, None, None]
+    idx = [row0 + yi * W3 + xi for yi, xi in
+           ((y_low, x_low), (y_low, x_high), (y_high, x_low), (y_high, x_high))]
+    wts = [hy * hx, hy * lx, ly * hx, ly * lx]
+    return idx, wts, oob, P
 
-    def take(yi, xi):
-        idx = bidx * P + base3 + yi * W3 + xi
-        return big[idx.reshape(-1)].reshape(K, oh * s, ow * s, C)
 
-    val = (take(y_low, x_low) * (hy * hx)[..., None]
-           + take(y_low, x_high) * (hy * lx)[..., None]
-           + take(y_high, x_low) * (ly * hx)[..., None]
-           + take(y_high, x_high) * (ly * lx)[..., None])
-    val = torch.where(oob[..., None], zero, val)
+def multilevel_roi_align(features: list[torch.Tensor], rois: torch.Tensor,
+                         roi_batch_idx: torch.Tensor, output_size: tuple[int, int],
+                         strides: tuple[int, ...], sampling_ratio: int = 2,
+                         canonical_scale: float = 224.0, canonical_level: int = 4,
+                         min_level: int = 2, max_level: int = 5) -> torch.Tensor:
+    """Plain K3: each RoI pools ``output_size`` from its assigned level only.
+
+    ``features``: NHWC levels ordered ``p{min_level}..p{max_level}``;
+    ``strides``: image-to-feature stride per level. Returns ``(K, oh, ow, C)``.
+    """
+    oh, ow = output_size
+    s = sampling_ratio
+    B, _, _, C = features[0].shape
+    K = rois.shape[0]
+    idx, wts, oob, P = _taps([f.shape for f in features], rois, roi_batch_idx,
+                             output_size, strides, s, canonical_scale,
+                             canonical_level, min_level, max_level)
+    big = torch.cat([f.float().reshape(B, -1, C) for f in features], dim=1).reshape(B * P, C)
+
+    def take(i):
+        return big[i.reshape(-1)].reshape(K, oh * s, ow * s, C)
+
+    val = (take(idx[0]) * wts[0][..., None] + take(idx[1]) * wts[1][..., None]
+           + take(idx[2]) * wts[2][..., None] + take(idx[3]) * wts[3][..., None])
+    val = torch.where(oob[..., None], torch.zeros((), device=rois.device), val)
     return val.reshape(K, oh, s, ow, s, C).mean(dim=(2, 4))
+
+
+def multilevel_roi_align_backward(grad_out: torch.Tensor,
+                                  level_shapes: list[tuple[int, int, int, int]],
+                                  rois: torch.Tensor, roi_batch_idx: torch.Tensor,
+                                  output_size: tuple[int, int], strides: tuple[int, ...],
+                                  sampling_ratio: int = 2, canonical_scale: float = 224.0,
+                                  canonical_level: int = 4, min_level: int = 2,
+                                  max_level: int = 5) -> list[torch.Tensor]:
+    """Plain K4: the gradient of :func:`multilevel_roi_align` with respect to
+    each NHWC level, for the output cotangent ``grad_out (K, oh, ow, C)``.
+
+    Rebuilds the forward's taps (same levels, clamps, edge rule and ``oob``
+    mask), spreads ``g / s^2`` over the ``s x s`` samples of each cell and
+    scatter-adds the four weighted taps per sample into zeroed levels with
+    ``index_add_``. Returns float32 levels of ``level_shapes``.
+    """
+    oh, ow = output_size
+    s = sampling_ratio
+    K, _, _, C = grad_out.shape
+    B = level_shapes[0][0]
+    idx, wts, oob, P = _taps(level_shapes, rois, roi_batch_idx, output_size,
+                             strides, s, canonical_scale, canonical_level,
+                             min_level, max_level)
+    gs = (grad_out.float() / (s * s))[:, :, None, :, None, :].expand(
+        K, oh, s, ow, s, C).reshape(K, oh * s, ow * s, C)
+    gs = torch.where(oob[..., None], torch.zeros((), device=gs.device), gs)
+    # one buffer per tap, summed last tap first: the order in which autograd
+    # through the plain forward accumulates, so the two agree to the bit
+    flat = None
+    for i, w in reversed(list(zip(idx, wts))):
+        tap = torch.zeros(B * P, C, dtype=torch.float32, device=grad_out.device)
+        tap.index_add_(0, i.reshape(-1), (gs * w[..., None]).reshape(-1, C))
+        flat = tap if flat is None else flat + tap
+    flat = flat.reshape(B, P, C)
+    grads, off = [], 0
+    for sh in level_shapes:
+        n = sh[1] * sh[2]
+        grads.append(flat[:, off:off + n].reshape(B, sh[1], sh[2], C))
+        off += n
+    return grads
+
+
+def _level_args(level_shapes, strides, min_level, max_level):
+    """Per-level ``H``, ``W`` and stride, padded to the kernels' 4 levels."""
+    n = len(level_shapes)
+    if not 1 <= n <= 4 or len(strides) < n or max_level - min_level + 1 != n:
+        raise ValueError(f"roi_align: 1-4 levels spanning min..max_level, got {n}")
+    pad = 4 - n
+    return ([sh[1] for sh in level_shapes] + [0] * pad,
+            [sh[2] for sh in level_shapes] + [0] * pad,
+            [int(st) for st in strides[:n]] + [0] * pad)
+
+
+def _check_rois(rois: torch.Tensor, roi_batch_idx: torch.Tensor) -> None:
+    kernels.check_cuda_f32("roi_align rois", rois, 2)
+    if rois.shape[1] != 4:
+        raise ValueError(f"roi_align rois: expected (K, 4), got {tuple(rois.shape)}")
+    if roi_batch_idx.shape != (rois.shape[0],) or roi_batch_idx.device != rois.device:
+        raise ValueError("roi_align batch index: expected (K,) on the rois' device")
 
 
 def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
@@ -124,25 +204,20 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
 
     Same arguments and result as :func:`multilevel_roi_align`; at most 4 levels.
     The level of each RoI comes from :func:`roi_levels`, as in the plain version.
+    Not differentiable: :class:`MultilevelRoIAlign` is.
     """
     if rois.device.type == "cpu":
         return multilevel_roi_align(features, rois, roi_batch_idx, output_size,
                                     strides, sampling_ratio, canonical_scale,
                                     canonical_level, min_level, max_level)
-    n = len(features)
-    if not 1 <= n <= 4 or len(strides) < n or max_level - min_level + 1 != n:
-        raise ValueError(f"roi_align: 1-4 levels spanning min..max_level, got {n}")
+    hs, ws, sts = _level_args([f.shape for f in features], strides, min_level, max_level)
     B, _, _, C = features[0].shape
     for i, f in enumerate(features):
         kernels.check_cuda_f32(f"roi_align level {i}", f, 4)
         if f.shape[0] != B or f.shape[3] != C or f.device != rois.device:
             raise ValueError("roi_align: levels must share B, C and the device")
-    kernels.check_cuda_f32("roi_align rois", rois, 2)
+    _check_rois(rois, roi_batch_idx)
     K = rois.shape[0]
-    if rois.shape[1] != 4:
-        raise ValueError(f"roi_align rois: expected (K, 4), got {tuple(rois.shape)}")
-    if roi_batch_idx.shape != (K,) or roi_batch_idx.device != rois.device:
-        raise ValueError("roi_align batch index: expected (K,) on the rois' device")
     oh, ow = output_size
     out = torch.empty((K, oh, ow, C), dtype=torch.float32, device=rois.device)
     if K == 0:
@@ -150,17 +225,98 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
     bidx = roi_batch_idx.to(torch.int32).contiguous()
     lvl = roi_levels(rois, min_level, max_level, canonical_scale,
                      canonical_level).contiguous()
-    pad = 4 - n
-    ptrs = [kernels.ptr(f) for f in features] + [None] * pad
-    hs = [f.shape[1] for f in features] + [0] * pad
-    ws = [f.shape[2] for f in features] + [0] * pad
-    sts = [int(st) for st in strides[:n]] + [0] * pad
+    ptrs = [kernels.ptr(f) for f in features] + [None] * (4 - len(features))
     lib = kernels.library()
     with torch.cuda.device(rois.device):
         rc = lib.pfr_multilevel_roi_align(
-            *ptrs, *hs, *ws, *sts, n, C, kernels.ptr(rois), kernels.ptr(bidx),
-            kernels.ptr(lvl), K, oh, ow, sampling_ratio, kernels.ptr(out),
-            kernels.stream_of(rois))
+            *ptrs, *hs, *ws, *sts, len(features), C, kernels.ptr(rois),
+            kernels.ptr(bidx), kernels.ptr(lvl), K, oh, ow, sampling_ratio,
+            kernels.ptr(out), kernels.stream_of(rois))
     kernels.raise_on_error("multilevel_roi_align", rc)
     kernels.count_launch("multilevel_roi_align")
     return out
+
+
+def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
+                                       level_shapes: list[tuple[int, int, int, int]],
+                                       rois: torch.Tensor, roi_batch_idx: torch.Tensor,
+                                       output_size: tuple[int, int],
+                                       strides: tuple[int, ...], sampling_ratio: int = 2,
+                                       canonical_scale: float = 224.0,
+                                       canonical_level: int = 4, min_level: int = 2,
+                                       max_level: int = 5) -> list[torch.Tensor]:
+    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
+
+    Same arguments and result as :func:`multilevel_roi_align_backward`. The
+    kernel sums with float atomics, so its result is not bit-stable from run to
+    run; it agrees with the plain version to float32 rounding of a short sum.
+    """
+    if grad_out.device.type == "cpu":
+        return multilevel_roi_align_backward(grad_out, level_shapes, rois, roi_batch_idx,
+                                             output_size, strides, sampling_ratio,
+                                             canonical_scale, canonical_level,
+                                             min_level, max_level)
+    hs, ws, sts = _level_args(level_shapes, strides, min_level, max_level)
+    kernels.check_cuda_f32("roi_align_backward grad", grad_out, 4)
+    _check_rois(rois, roi_batch_idx)
+    K, oh, ow, C = grad_out.shape
+    if K != rois.shape[0] or (oh, ow) != tuple(output_size) or grad_out.device != rois.device:
+        raise ValueError("roi_align_backward: grad must be (K, oh, ow, C) on the rois' device")
+    B = level_shapes[0][0]
+    if any(sh[0] != B or sh[3] != C for sh in level_shapes):
+        raise ValueError("roi_align_backward: levels must share B and the grad's C")
+    grads = [torch.empty(tuple(sh), dtype=torch.float32, device=rois.device)
+             for sh in level_shapes]
+    bidx = roi_batch_idx.to(torch.int32).contiguous()
+    lvl = roi_levels(rois, min_level, max_level, canonical_scale,
+                     canonical_level).contiguous()
+    ptrs = [kernels.ptr(d) for d in grads] + [None] * (4 - len(grads))
+    lib = kernels.library()
+    with torch.cuda.device(rois.device):
+        rc = lib.pfr_multilevel_roi_align_backward(
+            kernels.ptr(grad_out), *ptrs, *hs, *ws, *sts, len(grads), B, C,
+            kernels.ptr(rois), kernels.ptr(bidx), kernels.ptr(lvl), K, oh, ow,
+            sampling_ratio, kernels.stream_of(rois))
+    kernels.raise_on_error("multilevel_roi_align_backward", rc)
+    kernels.count_launch("multilevel_roi_align_backward")
+    return grads
+
+
+class MultilevelRoIAlign(torch.autograd.Function):
+    """Differentiable multilevel RoIAlign: forward K3, backward K4 (their
+    plain versions for CPU tensors). Gradients reach the levels only; the RoIs
+    and batch indices get none, as in the JAX custom VJP and torchvision.
+
+    ``apply(rois, roi_batch_idx, output_size, strides, sampling_ratio,
+    canonical_scale, canonical_level, min_level, max_level, *features)``.
+    """
+
+    @staticmethod
+    def forward(ctx, rois, roi_batch_idx, output_size, strides, sampling_ratio,
+                canonical_scale, canonical_level, min_level, max_level, *features):
+        args = (output_size, strides, sampling_ratio, canonical_scale,
+                canonical_level, min_level, max_level)
+        ctx.save_for_backward(rois, roi_batch_idx)
+        ctx.args = args
+        ctx.level_shapes = [tuple(f.shape) for f in features]
+        return multilevel_roi_align_cuda(list(features), rois, roi_batch_idx, *args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        rois, roi_batch_idx = ctx.saved_tensors
+        grads = multilevel_roi_align_backward_cuda(
+            grad_out.contiguous(), ctx.level_shapes, rois, roi_batch_idx, *ctx.args)
+        return (None,) * 9 + tuple(grads)
+
+
+def multilevel_roi_align_diff(features: list[torch.Tensor], rois: torch.Tensor,
+                              roi_batch_idx: torch.Tensor,
+                              output_size: tuple[int, int], strides: tuple[int, ...],
+                              sampling_ratio: int = 2, canonical_scale: float = 224.0,
+                              canonical_level: int = 4, min_level: int = 2,
+                              max_level: int = 5) -> torch.Tensor:
+    """:class:`MultilevelRoIAlign` with the arguments of :func:`multilevel_roi_align`."""
+    return MultilevelRoIAlign.apply(rois, roi_batch_idx, tuple(output_size),
+                                    tuple(strides), sampling_ratio, canonical_scale,
+                                    canonical_level, min_level, max_level, *features)

@@ -1,0 +1,1 @@
+"""Training utilities of the port (counterpart of the JAX ``utils/``)."""

@@ -1,0 +1,62 @@
+"""Optimiser for the R-CNN configs (counterpart of the JAX ``utils/optim.py``).
+
+``detection_sgd_optimizer`` is ``torch.optim.SGD`` with momentum and weight
+decay over every trainable parameter, which equals the JAX package's
+``optax.chain(add_decayed_weights(wd), sgd(schedule, momentum))`` step for
+step: both add ``wd * p`` to the gradient, keep ``t = g + momentum * t``, and
+step ``p -= lr * t``. The learning rate follows ``multistep_schedule`` and is
+set on the optimiser before each step by :func:`set_learning_rate`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Sequence
+
+import torch
+
+Schedule = Callable[[int], float]
+
+
+def multistep_schedule(base_lr: float, milestones_steps: Sequence[int],
+                       gamma: float = 0.1) -> Schedule:
+    """``optax.piecewise_constant_schedule``: the rate at step ``count`` is
+    ``base_lr * gamma ** (number of milestones <= count)``."""
+    milestones = sorted(int(m) for m in milestones_steps)
+
+    def schedule(count: int) -> float:
+        lr = base_lr
+        for m in milestones:
+            if count >= m:
+                lr *= gamma
+        return lr
+
+    return schedule
+
+
+def detection_sgd_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 5e-3,
+                            momentum: float = 0.9, weight_decay: float = 1e-4,
+                            milestones_steps: Sequence[int] = (), gamma: float = 0.1,
+                            ) -> tuple[torch.optim.SGD, Schedule]:
+    """SGD with momentum and weight decay over ``params``, and its schedule."""
+    opt = torch.optim.SGD(list(params), lr=lr, momentum=momentum,
+                          weight_decay=weight_decay)
+    return opt, multistep_schedule(lr, milestones_steps, gamma)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float,
+                         ) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` in place on the gradients: unchanged when
+    their global norm is below ``max_norm``, else scaled by ``max_norm / norm``.
+    Returns the norm before clipping."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+    return norm

@@ -12,6 +12,11 @@ dict as numpy arrays, output uses torchvision key names. Layouts:
   ``(I, O, kh, kw)``;
 - batch norm: ``scale``/``bias`` params and ``mean``/``var`` stats ->
   ``weight``/``bias``/``running_mean``/``running_var``.
+
+Given a ``params`` tree alone (``batch_stats`` absent), the same maps give the
+entries of the port's trainable parameters only; a gradient tree of
+``jax.grad`` has the ``params`` layout, so ``detection_state_dict({"params":
+grads})`` names each JAX gradient by the port's parameter name.
 """
 
 from __future__ import annotations
@@ -38,39 +43,47 @@ def _dense(k) -> np.ndarray:
 _deconv = _conv  # (kh, kw, O, I) -> (I, O, kh, kw): the same axis permutation
 
 
-def _bn(sd: dict, dst: str, params: Mapping, stats: Mapping,
+def _bn(sd: dict, dst: str, params: Mapping, stats: Mapping | None,
         num_batches_tracked: bool) -> None:
     sd[f"{dst}.weight"] = np.asarray(params["scale"])
     sd[f"{dst}.bias"] = np.asarray(params["bias"])
+    if stats is None:
+        return
     sd[f"{dst}.running_mean"] = np.asarray(stats["mean"])
     sd[f"{dst}.running_var"] = np.asarray(stats["var"])
     if num_batches_tracked:
         sd[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
 
 
-def resnet_state_dict(params: Mapping, stats: Mapping, prefix: str = "",
+def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "",
                       num_batches_tracked: bool = False) -> dict[str, np.ndarray]:
     """flax ``models.resnet.ResNet`` variables -> torchvision ResNet keys.
 
     ``num_batches_tracked`` adds the ``BatchNorm2d`` counter (FE trunks);
-    frozen detection trunks have none.
+    frozen detection trunks have none. ``stats=None`` leaves out the running
+    statistics.
     """
+
+    def sub(tree, name):
+        return None if tree is None else tree[name]
+
     sd: dict[str, np.ndarray] = {}
     sd["conv1.weight"] = _conv(params["conv1"]["kernel"])
-    _bn(sd, "bn1", params["bn1"], stats["bn1"], num_batches_tracked)
+    _bn(sd, "bn1", params["bn1"], sub(stats, "bn1"), num_batches_tracked)
     for name in sorted(params):
         m = re.fullmatch(r"layer(\d+)_(\d+)", name)
         if not m:
             continue
         base = f"layer{m.group(1)}.{m.group(2)}"
-        blk, bst = params[name], stats[name]
+        blk, bst = params[name], sub(stats, name)
         for c in (1, 2, 3):
             sd[f"{base}.conv{c}.weight"] = _conv(blk[f"conv{c}"]["kernel"])
-            _bn(sd, f"{base}.bn{c}", blk[f"bn{c}"], bst[f"bn{c}"], num_batches_tracked)
+            _bn(sd, f"{base}.bn{c}", blk[f"bn{c}"], sub(bst, f"bn{c}"),
+                num_batches_tracked)
         if "downsample_conv" in blk:
             sd[f"{base}.downsample.0.weight"] = _conv(blk["downsample_conv"]["kernel"])
             _bn(sd, f"{base}.downsample.1", blk["downsample_bn"],
-                bst["downsample_bn"], num_batches_tracked)
+                sub(bst, "downsample_bn"), num_batches_tracked)
     if "fc" in params:
         sd["fc.weight"] = _dense(params["fc"]["kernel"])
         sd["fc.bias"] = np.asarray(params["fc"]["bias"])
@@ -145,9 +158,11 @@ def keypoint_heads_state_dict(params: Mapping) -> dict[str, np.ndarray]:
 
 def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
     """flax ``GeneralizedRCNN`` variables -> torchvision keypoint R-CNN keys in
-    the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``)."""
-    p, st = variables["params"], variables["batch_stats"]
-    sd = resnet_state_dict(p["backbone"]["backbone"], st["backbone"]["backbone"],
+    the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``).
+    Without ``batch_stats`` the result holds the trainable parameters only."""
+    p, st = variables["params"], variables.get("batch_stats")
+    sd = resnet_state_dict(p["backbone"]["backbone"],
+                           None if st is None else st["backbone"]["backbone"],
                            prefix="backbone.body.")
     sd.update(_prefixed("backbone.fpn.", fpn_state_dict(p["backbone"]["fpn"])))
     sd.update(_prefixed("rpn.head.", rpn_head_state_dict(p["rpn"])))

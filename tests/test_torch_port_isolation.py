@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pets_face_recognition_tpu_torch import resolve_device
+from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
 from pets_face_recognition_tpu_torch.kernels import _build
 from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
 
@@ -36,7 +37,9 @@ def test_no_jax_imports(path):
 def test_importing_the_port_loads_no_jax():
     modules = [f"pets_face_recognition_tpu_torch.{m}" for m in (
         "serving", "weights", "kernels", "ops.nms", "ops.roi_align", "ops.homography",
-        "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder")]
+        "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder", "losses", "data",
+        "utils.optim", "engine.train_state", "engine.detector_controller",
+        "engine.trainer", "profile_serving")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] == 'pets_face_recognition_tpu']\n"
@@ -55,12 +58,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         build_serving_models()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EmbeddingService(torch.nn.Identity(), torch.nn.Identity())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KeyPointsController().init_state(0, model=torch.nn.Linear(1, 1))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_build_is_one_nvcc_call_over_the_port_sources():
     srcs = _build.sources()
-    assert [p.name for p in srcs] == ["nms.cu", "roi_align.cu", "warp.cu"]
+    assert [p.name for p in srcs] == ["nms.cu", "roi_align.cu", "roi_align_backward.cu",
+                                      "warp.cu"]
     for src in srcs:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text and "pybind" not in text
