@@ -8,15 +8,21 @@ Phases, each printing one JSON line (or one per kernel):
 0. device: the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions; exits 1 without a CUDA device (it never falls back to the CPU);
 1. build: the one ``nvcc`` call over ``pets_face_recognition_tpu_torch/csrc``;
-2. kernel: K1 warp, K2 NMS and K3 RoIAlign at the serving path's shapes
-   (B = 8); then K2 at the training budget (80 groups of 2000 boxes), the two
-   K5 entry points over the same kernel, and K3 and K4 (RoIAlign forward and
-   backward) at the training step's shapes (16 images of 640 x 640, 8192 box
-   RoIs at 7 x 7 and 2048 keypoint RoIs at 14 x 14). Each is held against its
-   plain PyTorch version on the card and timed with CUDA events (median after
-   warm-up) beside the plain version, the one library call that computes the
-   same function where there is one, and its bound on an H100 SXM (3.35 TB/s,
-   67 TFLOP/s float32);
+2. kernel: K1 warp (B = 8 and 32), K2 NMS and K3 RoIAlign at the serving
+   path's shapes (B = 8); then K2 at the training budget (80 groups of 2000
+   boxes), the two K5 entry points over the same kernel, and K3 and K4
+   (RoIAlign forward and backward) at the training step's shapes (16 images
+   of 640 x 640, 8192 box RoIs at 7 x 7 and 2048 keypoint RoIs at 14 x 14).
+   Each is held against its plain PyTorch version on the card and timed with
+   CUDA events (median after warm-up) beside the plain version, the one
+   library call that computes the same function where there is one, and its
+   bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32); K1, K3 and K4 also
+   with their kernel's device time from ``torch.profiler``, K1 also beside the
+   library's whole route from the maps (inverse, grid, ``grid_sample``,
+   permutes), and against ``grid_sample`` alone in paired rounds (the two
+   timed one after the other, in alternating order). K4 must give the same
+   bits in two launches on the same inputs, and its pre-pass the same
+   integers as its plain twin;
 3. e2e: ``build_serving_models`` at full ResNet-50 width with seeded random
    weights, ``EmbeddingService.embed_batch`` on seeded uint8 320x320 images at
    B = 8 with the launch counts read around it, checks against the same models
@@ -27,20 +33,29 @@ Phases, each printing one JSON line (or one per kernel):
    0.9, weight decay 1e-4), on a seeded synthetic batch of 16 images of
    640 x 640 with 4 boxes each: 1 warm-up and 3 timed steps, with the launch
    counts read around them (K2, K3 and K4 must have run), the loss dict of
-   every step (finite), step ms, images/s and peak memory;
+   every step (finite), step ms, images/s and peak memory; then two steps
+   from one saved state on the same batch and noise, with the count of
+   parameter gradients that differ bitwise (reported, not held);
 5. train_vs_cpu: one step of the same model at 256 x 256, B = 2, reduced
    sampler budgets, from the same weights and sampler noise on the card and on
    the CPU: losses within 1e-3 relative, every gradient within 5e-3 relative
    in norm.
 
-Then a ``kernels`` JSON line (K1-K5), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``, printed only if every phase passed. Every
-number is float32 with TF32 off. A hang becomes a traceback and exit 1
-through ``faulthandler``.
+Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass; ``max_abs_err`` is each
+row's largest absolute difference from its plain version on the card, 0 or 1
+for a keep mask, an integer for the pre-pass), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``, printed only if every phase passed. The
+script leaves torch's TF32 defaults as they are: the entry points
+(``embed_batch``, ``train_step``) turn TF32 off inside themselves, a forward
+pre-hook records the switches their models see (the run fails if TF32 was on
+there, or if the switches were not restored after), and models called
+directly run under ``float32_matmuls``. Every number is float32. A hang
+becomes a traceback and exit 1 through ``faulthandler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import math
@@ -84,6 +99,116 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_us(fn, kernel_name: str, iters: int = 10, strict: bool = True,
+              attempts: int = 3) -> float | None:
+    """Device time per launch of the kernels whose name holds ``kernel_name``
+    (every kernel for ""), in us: the median over ``iters`` calls of ``fn()``
+    (after one) under ``torch.profiler``, which may miss the window's first
+    launch, and now and then every launch of a window: such a window is
+    profiled again, up to ``attempts`` windows. Each call must launch one
+    such kernel; else raise, or return None when not ``strict``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
+        if iters // 2 <= len(times) <= iters:
+            return statistics.median(times)
+        seen.append(len(times))
+    if not strict:
+        return None
+    raise AssertionError(f"profiler saw {seen} launches of {kernel_name} in {attempts} "
+                         f"windows of {iters} calls")
+
+
+def grid_sample_grid(Hs):
+    """``grid_sample``'s ``(B, 224, 224, 2)`` grid (align_corners=True) from the
+    maps ``Hs``: each output pixel's source position ``H^-1 @ (x, y, 1)``."""
+    import torch
+
+    hinv = torch.linalg.inv(Hs)
+    gy, gx = torch.meshgrid(torch.arange(CROP, device=Hs.device, dtype=torch.float32),
+                            torch.arange(CROP, device=Hs.device, dtype=torch.float32),
+                            indexing="ij")
+    h = hinv[:, :, :, None, None]
+    den = h[:, 2, 0] * gx + h[:, 2, 1] * gy + h[:, 2, 2]
+    sx = (h[:, 0, 0] * gx + h[:, 0, 1] * gy + h[:, 0, 2]) / den
+    sy = (h[:, 1, 0] * gx + h[:, 1, 1] * gy + h[:, 1, 2]) / den
+    return torch.stack([2 * sx / (IMAGE - 1) - 1, 2 * sy / (IMAGE - 1) - 1], -1)
+
+
+def grid_sample_route(images, Hs):
+    """The library's whole route for K1's function: NHWC images and maps in,
+    NHWC crops out, through ``grid_sample``."""
+    import torch
+
+    out = torch.nn.functional.grid_sample(images.permute(0, 3, 1, 2), grid_sample_grid(Hs),
+                                          padding_mode="zeros", align_corners=True)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def paired_ms(fn_a, fn_b, rounds: int = 7) -> list[tuple[float, float]]:
+    """``(cuda_ms(fn_a), cuda_ms(fn_b))`` for each of ``rounds`` rounds, ``fn_a``
+    timed first in even rounds and second in odd ones."""
+    out = []
+    for r in range(rounds):
+        if r % 2 == 0:
+            a = cuda_ms(fn_a)
+            b = cuda_ms(fn_b)
+        else:
+            b = cuda_ms(fn_b)
+            a = cuda_ms(fn_a)
+        out.append((a, b))
+    return out
+
+
+def warp_read_bytes(images, Hs) -> int:
+    """Bytes that K1 must read from the source on these inputs: each image's
+    distinct pixels under the crop's bilinear taps that lie inside the image
+    and carry a nonzero weight (the plain version's sample positions), C
+    float32 values each."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops.homography import (_sample_coords,
+                                                                invert_homographies)
+
+    B, H, W, C = images.shape
+    sx, sy = _sample_coords(invert_homographies(Hs), (CROP, CROP))
+    x0, y0 = sx.floor(), sy.floor()
+    fx, fy = sx - x0, sy - y0
+    b = torch.arange(B, device=images.device)[:, None, None]
+    keys = []
+    for yy, wy in ((y0, 1 - fy), (y0 + 1, fy)):
+        for xx, wx in ((x0, 1 - fx), (x0 + 1, fx)):
+            ok = (wy != 0) & (wx != 0) & (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+            flat = (b * H + yy.clamp(0, H - 1).long()) * W + xx.clamp(0, W - 1).long()
+            keys.append(flat[ok])
+    return int(torch.unique(torch.cat(keys)).numel()) * C * 4
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn()`` in us, back to back after warm-up, without
+    waiting for the device inside the loop."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOP_PER_S * 1e3
@@ -115,44 +240,63 @@ def kernel_phase(dev) -> dict[str, dict]:
     g = torch.Generator().manual_seed(0)
     rows = {}
 
-    # K1: (8, 320, 320, 3) -> (8, 224, 224, 3)
-    images = torch.rand(B_KERNELS, IMAGE, IMAGE, 3, generator=g).to(dev)
-    base = torch.tensor([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]])
-    lms = similarity_landmarks(g, B_KERNELS, base, IMAGE).to(dev)
-    Hs = homography.alignment_homographies(lms, base.to(dev))
-    got = homography.warp_perspective_batch_cuda(images, Hs, (CROP, CROP))
-    want = homography.warp_perspective_batch(images, Hs, (CROP, CROP))
-    torch.cuda.synchronize()
-    err, tol = max_err(got, want), 1e-4
-    ms = cuda_ms(lambda: homography.warp_perspective_batch_cuda(images, Hs, (CROP, CROP)))
-    plain = cuda_ms(lambda: homography.warp_perspective_batch(images, Hs, (CROP, CROP)))
-    # the one library call: grid_sample, zero padding, on a grid from H^-1
-    hinv = torch.linalg.inv(Hs)
-    gy, gx = torch.meshgrid(torch.arange(CROP, device=dev, dtype=torch.float32),
-                            torch.arange(CROP, device=dev, dtype=torch.float32),
-                            indexing="ij")
-    h = hinv[:, :, :, None, None]
-    den = h[:, 2, 0] * gx + h[:, 2, 1] * gy + h[:, 2, 2]
-    sx = (h[:, 0, 0] * gx + h[:, 0, 1] * gy + h[:, 0, 2]) / den
-    sy = (h[:, 1, 0] * gx + h[:, 1, 1] * gy + h[:, 1, 2]) / den
-    grid = torch.stack([2 * sx / (IMAGE - 1) - 1, 2 * sy / (IMAGE - 1) - 1], -1)
-    nchw = images.permute(0, 3, 1, 2)
-    lib_out = torch.nn.functional.grid_sample(nchw, grid, padding_mode="zeros",
-                                              align_corners=True)
-    lib_err = max_err(lib_out.permute(0, 2, 3, 1), want)
-    lib_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
-        nchw, grid, padding_mode="zeros", align_corners=True))
-    n_bytes = images.numel() * 4 + Hs.numel() * 4 + got.numel() * 4
-    n_flops = B_KERNELS * CROP * CROP * (24 + 7 * 3)
-    b, by = bound_ms(n_bytes, n_flops)
-    emit("kernel", name="K1 warp_perspective_batch", shape=list(images.shape),
-         max_abs_err=err, atol=tol, ms=ms, plain_ms=plain, library_ms=lib_ms,
-         library="grid_sample(zeros, align_corners=True)", library_max_abs_err=lib_err,
-         bound_ms=b, bound_by=by)
-    if not err <= tol:
-        raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
-    rows["warp_perspective_batch"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                                          bound_by=by, library_ms=lib_ms)
+    # K1: (B, 320, 320, 3) -> (B, 224, 224, 3) at the kernel phase's B = 8 and
+    # the timed serving batch's B = 32; the row keeps B = 8
+    for B in (B_KERNELS, B_TIMED):
+        gb = g if B == B_KERNELS else torch.Generator().manual_seed(4)
+        images = torch.rand(B, IMAGE, IMAGE, 3, generator=gb).to(dev)
+        base = torch.tensor([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]])
+        lms = similarity_landmarks(gb, B, base, IMAGE).to(dev)
+        Hs = homography.alignment_homographies(lms, base.to(dev))
+        got = homography.warp_perspective_batch_cuda(images, Hs, (CROP, CROP))
+        want = homography.warp_perspective_batch(images, Hs, (CROP, CROP))
+        torch.cuda.synchronize()
+        err, tol = max_err(got, want), 1e-4
+        k1 = lambda: homography.warp_perspective_batch_cuda(  # noqa: E731
+            images, Hs, (CROP, CROP))
+        kernel_us = device_us(k1, "warp_perspective_kernel")
+        plain = cuda_ms(lambda: homography.warp_perspective_batch(images, Hs, (CROP, CROP)))
+        # the library: grid_sample (zero padding) on a grid from H^-1, alone on a
+        # grid built beforehand, and as the whole route from Hs (inverse, grid,
+        # grid_sample, layout permutes), which is what the K1 wrapper replaces
+        route = lambda: grid_sample_route(images, Hs)  # noqa: E731
+        lib_out = route()
+        lib_err = max_err(lib_out, want)
+        grid = grid_sample_grid(Hs)
+        nchw = images.permute(0, 3, 1, 2)
+        lib_call = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            nchw, grid, padding_mode="zeros", align_corners=True)
+        # the wrapper against grid_sample alone, in paired rounds; the medians
+        # are the row's ms and library_ms
+        pairs = paired_ms(k1, lib_call)
+        ms = statistics.median(a for a, _ in pairs)
+        lib_ms = statistics.median(b for _, b in pairs)
+        lib_us = device_us(lib_call, "", strict=False)
+        # the wrapper's and the library call's host time: with one small
+        # kernel each, the single-call times above are mostly host work
+        wrap_host = host_us(k1)
+        lib_host = host_us(lib_call)
+        route_ms = cuda_ms(route)
+        # bytes: the source pixels the taps read, the maps, the crops
+        src_bytes = warp_read_bytes(images, Hs)
+        n_bytes = src_bytes + Hs.numel() * 4 + got.numel() * 4
+        n_flops = B * CROP * CROP * (24 + 7 * 3)
+        b, by = bound_ms(n_bytes, n_flops)
+        emit("kernel", name="K1 warp_perspective_batch", shape=list(images.shape),
+             max_abs_err=err, atol=tol, ms=ms, kernel_device_us=kernel_us, plain_ms=plain,
+             wrapper_host_us=wrap_host, library_ms=lib_ms, library_device_us=lib_us,
+             library_host_us=lib_host,
+             library="grid_sample(zeros, align_corners=True) alone, "
+             "on a grid built beforehand", paired_ms=pairs,
+             rounds_k1_not_slower=sum(a <= b for a, b in pairs), library_route_ms=route_ms,
+             library_route="inv + grid from H^-1 + grid_sample + NHWC permutes, from Hs",
+             library_max_abs_err=lib_err, bound_ms=b, bound_by=by,
+             source_bytes_read=src_bytes, source_bytes_total=images.numel() * 4)
+        if not err <= tol:
+            raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
+        if B == B_KERNELS:
+            rows["warp_perspective_batch"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                  bound_ms=b, bound_by=by, library_ms=lib_ms)
 
     # K2: G = 5 levels x 8 images, K = 128 score-sorted boxes, thr 0.7
     G, K = 5 * B_KERNELS, 128
@@ -176,7 +320,7 @@ def kernel_phase(dev) -> dict[str, dict]:
          sequential_steps=K)
     if n_diff:
         raise AssertionError(f"K2 keep mask differs from the plain version in {n_diff}")
-    rows["nms_keep_sorted_batch"] = dict(max_abs_err=float(n_diff), ms=ms, plain_ms=plain,
+    rows["nms_keep_sorted_batch"] = dict(max_abs_err=max_err(got, want), ms=ms, plain_ms=plain,
                                          bound_ms=b, bound_by=by, library_ms=None)
 
     # K3: p2..p5 of a 320 image, C = 256; box RoIs 16/image at 7x7, keypoint
@@ -309,7 +453,7 @@ def train_kernel_phase(dev) -> dict[str, dict]:
              sequential_steps=K)
         if n_diff:
             raise AssertionError(f"{label} keep mask differs from the plain version in {n_diff}")
-        rows[name] = dict(max_abs_err=float(n_diff), ms=ms, plain_ms=plain, bound_ms=b,
+        rows[name] = dict(max_abs_err=max_err(got, ref), ms=ms, plain_ms=plain, bound_ms=b,
                           bound_by=by, library_ms=None)
     del boxes, valid, want
 
@@ -323,6 +467,7 @@ def train_kernel_phase(dev) -> dict[str, dict]:
     level_bytes = sum(f.numel() for f in levels) * 4
     fwd = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
     bwd = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
+    pre = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
     for n_per, out in ((512, 7), (128, 14)):
         n = B_TRAIN * n_per
         rois = random_rois(g, n, IMAGE_TRAIN, 5.0).to(dev)
@@ -338,21 +483,57 @@ def train_kernel_phase(dev) -> dict[str, dict]:
         del want
         grad = torch.randn(n, out, out, C, generator=g).to(dev)
         bargs = (grad, shapes, rois, bidx, (out, out), strides)
+        # K4's pre-pass kernel against its plain twin: the same integers
+        lvl = roi_align.roi_levels(rois, 2, 5)
+        pargs = (shapes, rois, bidx, lvl, (out, out), strides)
+        key, fp = roi_align.roi_footprints_cuda(*pargs)
+        b64 = bidx.long()
+        want_key = torch.where((b64 >= 0) & (b64 < B_TRAIN), lvl.long() * B_TRAIN + b64,
+                               torch.full_like(b64, 4 * B_TRAIN))
+        plain_pre = lambda: (want_key.to(torch.int32),  # noqa: E731
+                             roi_align.roi_footprints(shapes, rois, lvl, (out, out), strides))
+        want_fp = plain_pre()[1]
+        pre_diff = int((key != want_key).sum()) + int((fp != want_fp).sum())
+        pre_err = max(max_err(key, want_key), max_err(fp, want_fp))
+        tp = dict(ms=cuda_ms(lambda: roi_align.roi_footprints_cuda(*pargs)),
+                  plain=cuda_ms(plain_pre))
+        p_bytes = n * (16 + 4 + 4 + 4 + 16)
+        b, by = bound_ms(p_bytes, n * 2 * 12)
+        emit("kernel", name=f"K4 pre-pass roi_footprints {out}x{out}", rois=n,
+             mismatches=pre_diff, max_abs_err=pre_err, ms=tp["ms"], plain_ms=tp["plain"],
+             library_ms=None,
+             library="none", bound_ms=b, bound_by=by)
+        if pre_diff:
+            raise AssertionError(f"K4 pre-pass {out}x{out} differs from its plain twin in "
+                                 f"{pre_diff} integers")
+        pre["ms"] += tp["ms"]
+        pre["plain"] += tp["plain"]
+        pre["bytes"] += p_bytes
+        pre["flops"] += n * 2 * 12
+        pre["err"] = max(pre["err"], pre_err)
         got_b = roi_align.multilevel_roi_align_backward_cuda(*bargs)
+        again_b = roi_align.multilevel_roi_align_backward_cuda(*bargs)
         want_b = roi_align.multilevel_roi_align_backward(*bargs)
         torch.cuda.synchronize()
         err_b = max(max_err(a, w) for a, w in zip(got_b, want_b))
         scale_b = max(float(w.abs().max()) for w in want_b)
-        del got_b, want_b
-        # float atomics sum in a run-to-run order: float32 rounding of sums of
-        # up to a few hundred contributions, hence 1e-4 absolute
+        # K4 owns each output element and sums in a fixed order: two launches
+        # on the same inputs must agree to the bit
+        bit_diff = sum(int((a != r).sum()) for a, r in zip(got_b, again_b))
+        del got_b, again_b, want_b
+        # float32 rounding of sums of up to a few hundred contributions, in
+        # another order than the plain version's, hence 1e-4 absolute
         tol_f, tol_b = 1e-4, 1e-4
         t = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args), iters=10),
-                 plain=cuda_ms(lambda: roi_align.multilevel_roi_align(*args), warmup=1, iters=3))
+                 plain=cuda_ms(lambda: roi_align.multilevel_roi_align(*args), warmup=1, iters=3),
+                 us=device_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
+                              "multilevel_roi_align_kernel", iters=5))
         tb = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*bargs),
                              iters=10),
                   plain=cuda_ms(lambda: roi_align.multilevel_roi_align_backward(*bargs),
-                                warmup=1, iters=3))
+                                warmup=1, iters=3),
+                  us=device_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*bargs),
+                               "multilevel_roi_align_backward_kernel", iters=5))
         cells = touched_cells(levels, rois, bidx, (out, out), strides)
         out_bytes = n * out * out * C * 4
         io_bytes = rois.numel() * 4 + bidx.numel() * 4
@@ -365,11 +546,15 @@ def train_kernel_phase(dev) -> dict[str, dict]:
             b, by = bound_ms(nb, nf)
             emit("kernel", name=label, rois=n, shape=[B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, C],
                  rois_per_level=per_level.tolist(), max_abs_err=err, atol=tol, ms=tm["ms"],
-                 plain_ms=tm["plain"], library_ms=None, library="none (no torchvision)",
-                 bound_ms=b, bound_by=by, **({"grad_max_abs": scale_b} if "K4" in label else
-                                             {"touched_cells": cells}))
+                 kernel_device_us=tm["us"], plain_ms=tm["plain"], library_ms=None,
+                 library="none (no torchvision)", bound_ms=b, bound_by=by,
+                 **({"grad_max_abs": scale_b, "second_launch_bits_differ": bit_diff}
+                    if "K4" in label else {"touched_cells": cells}))
             if not err <= tol:
                 raise AssertionError(f"{label} disagrees with its plain version: {err} > {tol}")
+        if bit_diff:
+            raise AssertionError(f"K4 {out}x{out}: two launches on the same inputs differ in "
+                                 f"{bit_diff} elements")
         for acc, tm, nb, nf, err in ((fwd, t, f_bytes, f_flops, err_f),
                                      (bwd, tb, b_bytes, b_flops, err_b)):
             acc["ms"] += tm["ms"]
@@ -377,14 +562,16 @@ def train_kernel_phase(dev) -> dict[str, dict]:
             acc["bytes"] += nb
             acc["flops"] += nf
             acc["err"] = max(acc["err"], err)
-    for name, acc in (("multilevel_roi_align", fwd), ("multilevel_roi_align_backward", bwd)):
+    for name, acc in (("multilevel_roi_align", fwd), ("multilevel_roi_align_backward", bwd),
+                      ("roi_footprints", pre)):
         b, by = bound_ms(acc["bytes"], acc["flops"])
         rows[name] = dict(max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain"],
                           bound_ms=b, bound_by=by, library_ms=None)
     # K5 is one row: the grid entry point at the training shapes; the
     # single-group entry point's numbers are in its own phase line
     single = rows.pop("nms_keep_sorted")
-    rows["nms_keep_sorted_grid"]["max_abs_err"] += single["max_abs_err"]
+    rows["nms_keep_sorted_grid"]["max_abs_err"] = max(rows["nms_keep_sorted_grid"]["max_abs_err"],
+                                                      single["max_abs_err"])
     return rows
 
 
@@ -419,9 +606,34 @@ def touched_cells(levels, rois, bidx, output_size, strides, s: int = 2) -> int:
     return int(torch.unique(torch.cat(keys)).numel()) if keys else 0
 
 
+@contextlib.contextmanager
+def tf32_watch(model):
+    """Record the TF32 switches that ``model``'s forward sees (a forward
+    pre-hook) while the block calls an entry point; raise if TF32 was on in
+    any call, or if the caller's switches were not back afterwards."""
+    from pets_face_recognition_tpu_torch.device import float32_flags, tf32_flags
+
+    seen = []
+    caller = tf32_flags()
+    handle = model.register_forward_pre_hook(lambda m, a: seen.append(tf32_flags()))
+    record = {"caller": caller, "inside": seen}
+    try:
+        yield record
+    finally:
+        handle.remove()
+    record["after"] = tf32_flags()
+    record["inside"] = seen[0] if seen else None
+    if not seen or any(s != float32_flags() for s in seen):
+        raise AssertionError(f"TF32 switches inside the entry point: {seen[:1]}, "
+                             f"expected {float32_flags()}")
+    if record["after"] != caller:
+        raise AssertionError(f"TF32 switches not restored: {record['after']} != {caller}")
+
+
 def e2e_phase(dev, kernels_mod, smi: str) -> dict:
     """Phase 3: the serving path at full width, its launch counts and checks."""
     import torch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
     from pets_face_recognition_tpu_torch.ops.homography import align_crop
     from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
 
@@ -435,10 +647,11 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
 
-    kernels_mod.reset_launch_counts()
-    emb, valid = service.embed_batch(imgs8, ok8)
-    torch.cuda.synchronize()
-    launches = kernels_mod.launch_counts()
+    with tf32_watch(detector) as flags:
+        kernels_mod.reset_launch_counts()
+        emb, valid = service.embed_batch(imgs8, ok8)
+        torch.cuda.synchronize()
+        launches = kernels_mod.launch_counts()
     if emb.shape != (B_KERNELS, 512) or valid.shape != (B_KERNELS,):
         raise AssertionError(f"bad shapes {tuple(emb.shape)} {tuple(valid.shape)}")
     if not bool(torch.isfinite(emb[valid]).all()):
@@ -448,12 +661,13 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the serving path: {missing}")
     emit("e2e", batch=B_KERNELS, launches=launches, valid_rows=int(valid.sum()),
-         model_build_s=build_s)
+         model_build_s=build_s, tf32_flags=flags)
 
     # reference: the same seeded models on the CPU (plain versions), B = 2
     det_cpu, emb_cpu, base_cpu = build_serving_models(device="cpu", seed=0)
     x = imgs8[:2].float() / 255.0
-    with torch.inference_mode():
+    # the models called directly, not through an entry point: float32 as there
+    with torch.inference_mode(), float32_matmuls():
         d_gpu = detector(x)
         d_cpu = det_cpu(x.cpu())
         feats_gpu = detector.backbone(x.permute(0, 3, 1, 2))
@@ -501,7 +715,7 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
     step = statistics.median(times)
     emit("e2e_timed", batch=B_TIMED, step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in times],
          crops_per_s=B_TIMED / step, valid_rows=int(valid.sum()), card=smi,
-         precision="float32, cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False",
+         precision="float32: TF32 off inside embed_batch, torch's defaults outside",
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return launches
 
@@ -522,11 +736,12 @@ def train_phase(dev, kernels_mod, smi: str) -> dict:
         kernels_mod.reset_launch_counts()
         try:
             steps = []
-            for _ in range(4):
-                t = time.perf_counter()
-                metrics = ctl.train_step(state, batch)
-                torch.cuda.synchronize()
-                steps.append((time.perf_counter() - t, metrics))
+            with tf32_watch(state.model) as flags:
+                for _ in range(4):
+                    t = time.perf_counter()
+                    metrics = ctl.train_step(state, batch)
+                    torch.cuda.synchronize()
+                    steps.append((time.perf_counter() - t, metrics))
             break
         except torch.cuda.OutOfMemoryError:
             if B == 1:
@@ -540,7 +755,7 @@ def train_phase(dev, kernels_mod, smi: str) -> dict:
     for i, (_, m) in enumerate(steps):
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite loss at step {i}: {m}")
-    missing = [k for k in ("nms_keep_sorted_batch", "multilevel_roi_align",
+    missing = [k for k in ("nms_keep_sorted_batch", "multilevel_roi_align", "roi_footprints",
                            "multilevel_roi_align_backward") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched in the training steps: {missing}")
@@ -552,10 +767,70 @@ def train_phase(dev, kernels_mod, smi: str) -> dict:
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          losses=[m for _, m in steps], launches=launches,
          launches_per_step={k: v / len(steps) for k, v in launches.items()}, card=smi,
-         precision="float32, cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
+         precision="float32: TF32 off inside train_step, torch's defaults outside",
+         tf32_flags=flags)
+    repro_phase(ctl, state, batch, B)
     del state
     torch.cuda.empty_cache()
     return launches
+
+
+def repro_phase(ctl, state, batch, B: int) -> None:
+    """Phase 4b: two training steps from one saved state on the same batch and
+    sampler noise; reports how many parameter gradients differ bitwise (a
+    reported number, not a gate: cuDNN and PyTorch may pick kernels that sum
+    in a run-dependent order). Then the same with deterministic cuDNN
+    algorithms only, and with ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` as well, whose warnings name the ops that have no
+    deterministic implementation."""
+    import copy
+    import warnings
+
+    import torch
+
+    model = state.model
+    n_anchors = 3 * sum((IMAGE_TRAIN // st) ** 2 for st in (4, 8, 16, 32, 64))
+    noise = model.draw_sampler_noise(B, n_anchors, MAX_BOXES, torch.Generator().manual_seed(2))
+    saved = (copy.deepcopy(model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
+             state.step)
+
+    def two_steps():
+        runs = []
+        for _ in range(2):
+            model.load_state_dict(saved[0])
+            state.optimizer.load_state_dict(saved[1])
+            state.step = saved[2]
+            losses = ctl.train_step(state, batch, sampler_noise=noise)
+            runs.append((losses, {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters() if p.grad is not None}))
+        (l1, g1), (l2, g2) = runs
+        differ = sorted(n for n in g1 if not torch.equal(g1[n], g2[n]))
+        worst = max((float((g1[n] - g2[n]).abs().max() / g1[n].abs().max().clamp(min=1e-30)),
+                     n) for n in differ) if differ else (0.0, None)
+        return dict(grads=len(g1), grads_bitwise_different=len(differ),
+                    grads_bitwise_equal=sorted(set(g1) - set(differ))[:32], worst_rel_diff=worst[0],
+                    worst=worst[1], losses_bitwise_equal=l1 == l2)
+
+    default = two_steps()
+    torch.backends.cudnn.deterministic = True
+    try:
+        cudnn_only = two_steps()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            deterministic = two_steps()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+    deterministic["ops_without_deterministic_kernel"] = sorted(
+        {str(w.message).split(" does not have")[0] for w in caught
+         if "does not have a deterministic" in str(w.message)})
+    emit("train_repro", batch=B, default=default, cudnn_deterministic=cudnn_only,
+         deterministic_algorithms=deterministic)
 
 
 # softmax CE over a heatmap's positions has a gradient that sums to 0, the 2x
@@ -607,7 +882,7 @@ def train_vs_cpu_phase(dev) -> None:
          grad_tensors=len(grad_rel), step_s_gpu=t_gpu, step_s_cpu=t_cpu,
          tolerances=dict(loss_rel=1e-3, grad_rel_norm=5e-3, zero_by_construction_abs=1e-5))
     # the card and the CPU run other convolution algorithms and sum in other
-    # orders (and K4 with atomics); both see the same samples. Gradients: the
+    # orders (K4 too); both see the same samples. Gradients: the
     # worst tensor measured 9.5e-4 on an H100 (a trunk BN bias, which sums a
     # whole feature map), held at 5e-3 for other cuDNN algorithm choices
     bad = {k: v for k, v in loss_rel.items() if not v <= 1e-3}
@@ -628,6 +903,9 @@ KERNEL_ROWS = (
      "pets_face_recognition_tpu/ops/pallas_roi_align.py:120"),
     ("multilevel_roi_align_backward", ("multilevel_roi_align_backward",),
      "csrc/roi_align_backward.cu", "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
+    # K4's pre-pass (sort keys and footprints), part of the same port of _roi_backward
+    ("roi_footprints", ("roi_footprints",), "csrc/roi_align_backward.cu",
+     "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
     ("nms_keep_sorted_grid", ("nms_keep_sorted", "nms_keep_sorted_grid"), "csrc/nms.cu",
      "pets_face_recognition_tpu/ops/pallas_nms.py:75,191"),
 )
@@ -645,8 +923,6 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from pets_face_recognition_tpu_torch import kernels
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"], capture_output=True,

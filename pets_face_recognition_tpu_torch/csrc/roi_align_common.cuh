@@ -5,7 +5,9 @@
 // and sum is rounded on its own (no FMA contraction), in the plain version's
 // order. A sample with pos <= -1 or pos >= limit is out of bounds and counts 0;
 // low positions clamp to 0; a low tap on the last row or column uses weight 0
-// for its (clamped) high neighbour.
+// for its (clamped) high neighbour. These rules act on each axis alone, so a
+// sample's taps are the product of a row tap and a column tap (axis_tap): K4
+// builds its separable tables from axis_tap, K3 its 2-D taps (make_tap).
 
 #pragma once
 
@@ -31,6 +33,26 @@ inline Pyramid make_pyramid(const int* hs, const int* ws, const int* strides) {
   return pyr;
 }
 
+// The two taps of one axis: weight w_low on index low, w_high on index high.
+struct AxisTap {
+  int low, high;
+  float w_low, w_high;
+  bool oob;
+};
+
+__device__ __forceinline__ AxisTap axis_tap(float pos, int limit) {
+  AxisTap a;
+  a.oob = pos <= -1.0f || pos >= (float)limit;
+  float c = fmaxf(pos, 0.0f);
+  int l = a.oob ? 0 : (int)floorf(c);  // no int cast of a far-out position
+  bool edge = l >= limit - 1;
+  a.low = edge ? limit - 1 : l;
+  a.high = edge ? a.low : a.low + 1;
+  a.w_high = edge ? 0.0f : __fsub_rn(c, (float)a.low);
+  a.w_low = __fsub_rn(1.0f, a.w_high);
+  return a;
+}
+
 struct Tap {
   int y_low, y_high, x_low, x_high;
   float w00, w01, w10, w11;
@@ -38,26 +60,18 @@ struct Tap {
 };
 
 __device__ __forceinline__ Tap make_tap(float yy, float xx, int H, int W) {
+  const AxisTap ay = axis_tap(yy, H);
+  const AxisTap ax = axis_tap(xx, W);
   Tap t;
-  t.oob = yy <= -1.0f || yy >= (float)H || xx <= -1.0f || xx >= (float)W;
-  float yc = fmaxf(yy, 0.0f);
-  float xc = fmaxf(xx, 0.0f);
-  int yl = t.oob ? 0 : (int)floorf(yc);
-  int xl = t.oob ? 0 : (int)floorf(xc);
-  bool ye = yl >= H - 1;
-  bool xe = xl >= W - 1;
-  t.y_low = ye ? H - 1 : yl;
-  t.x_low = xe ? W - 1 : xl;
-  t.y_high = ye ? t.y_low : t.y_low + 1;
-  t.x_high = xe ? t.x_low : t.x_low + 1;
-  float ly = ye ? 0.0f : __fsub_rn(yc, (float)t.y_low);
-  float lx = xe ? 0.0f : __fsub_rn(xc, (float)t.x_low);
-  float hy = __fsub_rn(1.0f, ly);
-  float hx = __fsub_rn(1.0f, lx);
-  t.w00 = __fmul_rn(hy, hx);
-  t.w01 = __fmul_rn(hy, lx);
-  t.w10 = __fmul_rn(ly, hx);
-  t.w11 = __fmul_rn(ly, lx);
+  t.oob = ay.oob || ax.oob;
+  t.y_low = ay.low;
+  t.y_high = ay.high;
+  t.x_low = ax.low;
+  t.x_high = ax.high;
+  t.w00 = __fmul_rn(ay.w_low, ax.w_low);
+  t.w01 = __fmul_rn(ay.w_low, ax.w_high);
+  t.w10 = __fmul_rn(ay.w_high, ax.w_low);
+  t.w11 = __fmul_rn(ay.w_high, ax.w_high);
   return t;
 }
 

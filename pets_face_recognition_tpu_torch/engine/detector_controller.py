@@ -18,7 +18,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import float32_matmuls, resolve_device
 from ..losses import sum_detection_loss
 from ..models.rcnn import GeneralizedRCNN, keypointrcnn_resnet50_fpn
 from ..utils.optim import (clip_by_global_norm_, detection_sgd_optimizer,
@@ -69,9 +69,11 @@ class KeyPointsController:
             [p for p in model.parameters() if p.requires_grad])
         return TrainState(model, optimizer, schedule, torch.Generator().manual_seed(seed))
 
+    @float32_matmuls()
     def train_step(self, state: TrainState, batch: dict,
                    sampler_noise: dict | None = None) -> dict[str, float]:
-        """One step; returns the loss and each term as floats."""
+        """One step in float32 (TF32 off inside, the caller's flags back after);
+        returns the loss and each term as floats."""
         model = state.model
         dev = next(model.parameters()).device
         images = torch.as_tensor(batch["images"], dtype=torch.float32).to(dev)

@@ -9,6 +9,7 @@ import json
 import time
 from typing import Callable, Iterable
 
+from ..device import float32_matmuls
 from .train_state import TrainState
 
 
@@ -17,10 +18,12 @@ class Trainer:
         self.log = log
         self.history: list[dict[str, float]] = []
 
+    @float32_matmuls()
     def fit(self, controller, batches: Iterable[dict], max_steps: int,
             state: TrainState | None = None, seed: int = 0,
             device: str = "cuda") -> TrainState:
-        """Run up to ``max_steps`` steps, cycling over ``batches``."""
+        """Run up to ``max_steps`` steps, cycling over ``batches``, in float32
+        (TF32 off inside, the caller's flags back after)."""
         if state is None:
             state = controller.init_state(seed, device)
         batches = list(batches)

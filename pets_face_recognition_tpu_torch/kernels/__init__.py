@@ -2,21 +2,19 @@
 
 ``library()`` builds ``csrc/*.cu`` with one ``nvcc`` call at first use and loads
 the shared library with ``ctypes`` (see ``_build.py``). Each kernel wrapper
-(in ``ops/``) adds one to its entry in the launch counts every time it launches
-its kernel, and nowhere else, so a run can show which kernels its main path went
-through.
+(in ``ops/``) launches through :func:`launch`, which adds one to the wrapper's
+entry in the launch counts every time it launches its kernel, and nowhere else,
+so a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ._build import build, library
 
 KERNELS = ("warp_perspective_batch", "nms_keep_sorted_batch", "nms_keep_sorted",
-           "nms_keep_sorted_grid", "multilevel_roi_align",
+           "nms_keep_sorted_grid", "multilevel_roi_align", "roi_footprints",
            "multilevel_roi_align_backward")
 
 _launches = {name: 0 for name in KERNELS}
@@ -31,16 +29,24 @@ def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
-def count_launch(name: str) -> None:
+def launch(name: str, symbol: str, device: torch.device, *args) -> None:
+    """Call ``symbol`` of the kernel library with ``args`` and, last, the raw
+    handle of ``device``'s current stream, with ``device`` current; raise if the
+    launch failed; count one launch of ``name``.
+
+    Host time matters for small kernels such as K1's: the raw stream handle
+    costs far less than building a ``torch.cuda.Stream`` object, and the device
+    guard is entered only when another device is current.
+    """
+    fn = getattr(library(), symbol)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
     _launches[name] += 1
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def check_cuda_f32(name: str, t: torch.Tensor, shape_rank: int) -> None:
@@ -55,11 +61,5 @@ def check_cuda_f32(name: str, t: torch.Tensor, shape_rank: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def raise_on_error(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
-
-
 __all__ = ["KERNELS", "build", "library", "reset_launch_counts",
-           "launch_counts", "count_launch", "ptr", "stream_of",
-           "check_cuda_f32", "raise_on_error"]
+           "launch_counts", "launch", "check_cuda_f32"]

@@ -90,7 +90,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    # (src, hinv, out, B, H, W, C, OH, OW, stream)
+    # (src, hs, out, B, H, W, C, OH, OW, stream)
     "pfr_warp_perspective_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (boxes, valid, keep, G, K, iou_threshold, stream)
     "pfr_nms_keep_sorted_batch": (_P, _P, _P, _I, _I, _F, _P),
@@ -99,11 +99,15 @@ _SIGNATURES = {
     "pfr_multilevel_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                                  _I, _I, _I, _P, _P),
+    # (rois, batch_idx, level, H0..H3, W0..W3, stride0..stride3, n_levels, B, K,
+    #  OH, OW, sampling_ratio, key, footprint, stream)
+    "pfr_roi_footprints": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # (g, d0..d3, H0..H3, W0..W3, stride0..stride3, n_levels, B, C,
-    #  rois, batch_idx, level, K, OH, OW, sampling_ratio, stream)
+    #  rois, order, footprint, group_start, OH, OW, sampling_ratio, stream)
     "pfr_multilevel_roi_align_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                                          _P, _I, _I, _I, _I, _P),
+                                          _P, _P, _I, _I, _I, _P),
 }
 
 

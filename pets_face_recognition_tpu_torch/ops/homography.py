@@ -3,7 +3,8 @@ and of ``ops/pallas_warp.py::warp_affine_batch_pallas``).
 
 Images are NHWC; landmarks are ``(B, 3, 2)`` as ``(x, y)``. ``warp_perspective``
 (one image) and ``warp_perspective_batch`` are the plain PyTorch version of
-kernel K1; ``warp_perspective_batch_cuda`` is its wrapper, which launches
+kernel K1 (with :func:`invert_homographies`, the closed-form inverse the
+kernel repeats); ``warp_perspective_batch_cuda`` is its wrapper, which launches
 ``csrc/warp.cu`` for CUDA tensors and calls the plain version for CPU tensors.
 ``align_crop`` is the reference ``align()``: centroid-augmented 4-point
 homography, then the projective warp.
@@ -91,6 +92,19 @@ def _bilinear_sample(images: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
             + tap(y0 + 1, x0) * w10 + tap(y0 + 1, x0 + 1) * w11)
 
 
+def invert_homographies(Hs: torch.Tensor) -> torch.Tensor:
+    """Closed-form float32 inverse of each ``(B, 3, 3)`` matrix: adjugate over
+    determinant, in the K1 kernel's order of operations (each product, sum and
+    quotient rounded on its own; division by tensors, which PyTorch's CUDA
+    kernels round correctly, not by Python scalars)."""
+    a, b, c, d, e, f, g, h, i = Hs.float().reshape(-1, 9).unbind(-1)
+    adj = torch.stack([e * i - f * h, c * h - b * i, b * f - c * e,
+                       f * g - d * i, a * i - c * g, c * d - a * f,
+                       d * h - e * g, b * g - a * h, a * e - b * d], dim=-1)
+    det = a * adj[:, 0] + b * adj[:, 3] + c * adj[:, 6]
+    return (adj / det[:, None]).reshape(-1, 3, 3)
+
+
 def _sample_coords(Hinv: torch.Tensor, dsize: tuple[int, int]):
     """Source coords ``(sx, sy)``, each ``(B, oh, ow)``, of the output grid."""
     out_h, out_w = dsize
@@ -111,10 +125,10 @@ def warp_perspective_batch(images: torch.Tensor, Hs: torch.Tensor,
     """Plain K1: ``(B, H, W, C) x (B, 3, 3) -> (B, out_h, out_w, C)`` float32.
 
     cv2 ``warpPerspective`` semantics: output pixel ``(x, y)`` bilinearly samples
-    the source at ``H^-1 @ (x, y, 1)``, zero outside the image.
+    the source at ``H^-1 @ (x, y, 1)``, zero outside the image; ``H^-1`` from
+    :func:`invert_homographies`.
     """
-    Hinv = torch.linalg.inv_ex(Hs.float()).inverse
-    sx, sy = _sample_coords(Hinv, dsize)
+    sx, sy = _sample_coords(invert_homographies(Hs), dsize)
     return _bilinear_sample(images.float(), sx, sy)
 
 
@@ -128,28 +142,25 @@ def warp_perspective_batch_cuda(images: torch.Tensor, Hs: torch.Tensor,
                                 dsize: tuple[int, int]) -> torch.Tensor:
     """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
-    ``H^-1`` is computed here per image in float32, as the plain version does.
-    Takes contiguous float32 ``(B, H, W, C<=4)`` images.
+    One launch: the kernel inverts each ``H`` itself, as :func:`invert_homographies`
+    does. Takes contiguous float32 ``(B, H, W, C<=4)`` images and ``(B, 3, 3)``
+    maps on the same device.
     """
     if images.device.type == "cpu":
         return warp_perspective_batch(images, Hs, dsize)
     kernels.check_cuda_f32("warp images", images, 4)
+    kernels.check_cuda_f32("warp maps", Hs, 3)
     B, H, W, C = images.shape
     if C > 4 or Hs.shape != (B, 3, 3) or Hs.device != images.device:
         raise ValueError(f"warp: expected (B,H,W,C<=4) images and (B,3,3) H, got "
                          f"{tuple(images.shape)} and {tuple(Hs.shape)}")
-    Hinv = torch.linalg.inv_ex(Hs.float()).inverse.contiguous()
     out_h, out_w = dsize
-    out = torch.empty((B, out_h, out_w, C), dtype=torch.float32, device=images.device)
+    out = images.new_empty((B, out_h, out_w, C))
     if out.numel() == 0:
         return out
-    lib = kernels.library()
-    with torch.cuda.device(images.device):
-        rc = lib.pfr_warp_perspective_batch(
-            kernels.ptr(images), kernels.ptr(Hinv), kernels.ptr(out), B, H, W, C,
-            out_h, out_w, kernels.stream_of(images))
-    kernels.raise_on_error("warp_perspective_batch", rc)
-    kernels.count_launch("warp_perspective_batch")
+    kernels.launch("warp_perspective_batch", "pfr_warp_perspective_batch", images.device,
+                   images.data_ptr(), Hs.data_ptr(), out.data_ptr(), B, H, W, C,
+                   out_h, out_w)
     return out
 
 

@@ -67,13 +67,8 @@ def _launch_nms(name: str, boxes: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((G, K), dtype=torch.bool, device=boxes.device)
     if G == 0 or K == 0:
         return keep
-    lib = kernels.library()
-    with torch.cuda.device(boxes.device):
-        rc = lib.pfr_nms_keep_sorted_batch(
-            kernels.ptr(boxes), kernels.ptr(valid), kernels.ptr(keep), G, K,
-            float(iou_threshold), kernels.stream_of(boxes))
-    kernels.raise_on_error(name, rc)
-    kernels.count_launch(name)
+    kernels.launch(name, "pfr_nms_keep_sorted_batch", boxes.device, boxes.data_ptr(),
+                   valid.data_ptr(), keep.data_ptr(), G, K, float(iou_threshold))
     return keep
 
 

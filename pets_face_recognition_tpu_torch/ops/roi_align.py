@@ -10,7 +10,9 @@ version for CPU tensors. ``multilevel_roi_align_backward`` (scatter-add of the
 same taps) is the plain version of kernel K4, the gradient with respect to the
 levels (counterpart of ``pallas_roi_align.py::_roi_backward``), and
 ``multilevel_roi_align_backward_cuda`` its wrapper over
-``csrc/roi_align_backward.cu``. ``MultilevelRoIAlign`` ties the two into one
+``csrc/roi_align_backward.cu``, whose pre-pass (``roi_footprints_cuda``, plain
+twin ``roi_footprints``) sorts the RoIs by level and image and bounds the cells
+each can reach. ``MultilevelRoIAlign`` ties the two into one
 ``torch.autograd.Function``. Numerics: torchvision ``aligned=False`` with a
 fixed ``sampling_ratio``.
 """
@@ -175,6 +177,69 @@ def multilevel_roi_align_backward(grad_out: torch.Tensor,
     return grads
 
 
+def roi_footprints(level_shapes: list[tuple[int, int, int, int]], rois: torch.Tensor,
+                   lvl: torch.Tensor, output_size: tuple[int, int],
+                   strides: tuple[int, ...], sampling_ratio: int = 2) -> torch.Tensor:
+    """K4's pre-pass: the footprint of each RoI on its level ``lvl`` (from
+    :func:`roi_levels`), ``(K, 4)`` int32 ``(y_lo, y_hi, x_lo, x_hi)``, inclusive.
+
+    It holds every row and column that a tap of the RoI with a nonzero weight
+    can reach (the clamped high neighbour included), with one more on each
+    side so that rounding in the sample positions cannot leave one out, clipped
+    to the level. ``y_hi = -1`` where no sample can be in bounds. Plain tensor
+    ops: the same code runs on the CPU and on the card.
+    """
+    dev = rois.device
+    oh, ow = output_size
+    li = lvl.long()
+    # (W, H) and 1 / stride of each RoI's level, x before y like the RoI
+    lim = torch.tensor([[sh[2], sh[1]] for sh in level_shapes], dtype=torch.float32,
+                       device=dev)[li]
+    scale = torch.tensor([1.0 / st for st in strides[:len(level_shapes)]],
+                         dtype=torch.float32, device=dev)[li]
+    r = rois.float() * scale[:, None]
+    n = torch.tensor([ow, oh], dtype=torch.float32, device=dev)
+    bins = (r[:, 2:] - r[:, :2]).clamp(min=1.0) / n
+    # first and last sample of each axis: i + (p + .5) / s for i = 0, p = 0 and
+    # for i = n - 1, p = s - 1; taps reach floor(pos) and the row after it
+    lo = torch.floor(r[:, :2] + bins * (0.5 / sampling_ratio)) - 1
+    hi = torch.floor(r[:, :2] + bins * (n - 0.5 / sampling_ratio)) + 2
+    empty = ((hi < 0) | (lo > lim - 1)).any(dim=1, keepdim=True)
+    lo = torch.minimum(lo.clamp(min=0), lim - 1)
+    hi = torch.where(empty, torch.full_like(hi, -1), torch.minimum(hi.clamp(min=0), lim - 1))
+    return torch.stack([lo[:, 1], hi[:, 1], lo[:, 0], hi[:, 0]], dim=1).to(torch.int32)
+
+
+def roi_footprints_cuda(level_shapes: list[tuple[int, int, int, int]], rois: torch.Tensor,
+                        roi_batch_idx: torch.Tensor, lvl: torch.Tensor,
+                        output_size: tuple[int, int], strides: tuple[int, ...],
+                        sampling_ratio: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's pre-pass in one launch: ``(key (K,) int32, footprint (K, 4) int32)``,
+    where ``key`` is ``level * B + image`` (``n_levels * B`` for an image index
+    outside ``[0, B)``) and ``footprint`` is :func:`roi_footprints`, which the
+    kernel repeats operation for operation. Plain torch ops for CPU tensors.
+    """
+    B, n_levels = level_shapes[0][0], len(level_shapes)
+    if rois.device.type == "cpu":
+        b = roi_batch_idx.long()
+        key = torch.where((b >= 0) & (b < B), lvl.long() * B + b,
+                          torch.full_like(b, n_levels * B)).to(torch.int32)
+        return key, roi_footprints(level_shapes, rois, lvl, output_size, strides,
+                                   sampling_ratio)
+    hs, ws, sts = _level_args(level_shapes, strides, 0, n_levels - 1)  # lvl is 0-based
+    _check_rois(rois, roi_batch_idx)
+    K = rois.shape[0]
+    bidx = roi_batch_idx.to(torch.int32).contiguous()
+    lvl = lvl.to(torch.int32).contiguous()
+    key = torch.empty(K, dtype=torch.int32, device=rois.device)
+    footprint = torch.empty((K, 4), dtype=torch.int32, device=rois.device)
+    if K:
+        kernels.launch("roi_footprints", "pfr_roi_footprints", rois.device, rois.data_ptr(),
+                       bidx.data_ptr(), lvl.data_ptr(), *hs, *ws, *sts, n_levels, B, K,
+                       *output_size, sampling_ratio, key.data_ptr(), footprint.data_ptr())
+    return key, footprint
+
+
 def _level_args(level_shapes, strides, min_level, max_level):
     """Per-level ``H``, ``W`` and stride, padded to the kernels' 4 levels."""
     n = len(level_shapes)
@@ -225,15 +290,11 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
     bidx = roi_batch_idx.to(torch.int32).contiguous()
     lvl = roi_levels(rois, min_level, max_level, canonical_scale,
                      canonical_level).contiguous()
-    ptrs = [kernels.ptr(f) for f in features] + [None] * (4 - len(features))
-    lib = kernels.library()
-    with torch.cuda.device(rois.device):
-        rc = lib.pfr_multilevel_roi_align(
-            *ptrs, *hs, *ws, *sts, len(features), C, kernels.ptr(rois),
-            kernels.ptr(bidx), kernels.ptr(lvl), K, oh, ow, sampling_ratio,
-            kernels.ptr(out), kernels.stream_of(rois))
-    kernels.raise_on_error("multilevel_roi_align", rc)
-    kernels.count_launch("multilevel_roi_align")
+    ptrs = [f.data_ptr() for f in features] + [None] * (4 - len(features))
+    kernels.launch("multilevel_roi_align", "pfr_multilevel_roi_align", rois.device,
+                   *ptrs, *hs, *ws, *sts, len(features), C, rois.data_ptr(),
+                   bidx.data_ptr(), lvl.data_ptr(), K, oh, ow, sampling_ratio,
+                   out.data_ptr())
     return out
 
 
@@ -247,9 +308,13 @@ def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
                                        max_level: int = 5) -> list[torch.Tensor]:
     """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
-    Same arguments and result as :func:`multilevel_roi_align_backward`. The
-    kernel sums with float atomics, so its result is not bit-stable from run to
-    run; it agrees with the plain version to float32 rounding of a short sum.
+    Same arguments and result as :func:`multilevel_roi_align_backward`; at most
+    4 levels and 32 x 32 output cells. The RoIs are sorted by (level, image),
+    stably, and given their :func:`roi_footprints`; the kernel writes every
+    element of the level gradients once, summing in a fixed order, so its
+    result is the same to the bit from launch to launch. It agrees with the
+    plain version to float32 rounding of a short sum. A RoI whose batch index
+    is outside ``[0, B)`` adds nothing.
     """
     if grad_out.device.type == "cpu":
         return multilevel_roi_align_backward(grad_out, level_shapes, rois, roi_batch_idx,
@@ -265,20 +330,22 @@ def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
     B = level_shapes[0][0]
     if any(sh[0] != B or sh[3] != C for sh in level_shapes):
         raise ValueError("roi_align_backward: levels must share B and the grad's C")
-    grads = [torch.empty(tuple(sh), dtype=torch.float32, device=rois.device)
-             for sh in level_shapes]
-    bidx = roi_batch_idx.to(torch.int32).contiguous()
-    lvl = roi_levels(rois, min_level, max_level, canonical_scale,
-                     canonical_level).contiguous()
-    ptrs = [kernels.ptr(d) for d in grads] + [None] * (4 - len(grads))
-    lib = kernels.library()
-    with torch.cuda.device(rois.device):
-        rc = lib.pfr_multilevel_roi_align_backward(
-            kernels.ptr(grad_out), *ptrs, *hs, *ws, *sts, len(grads), B, C,
-            kernels.ptr(rois), kernels.ptr(bidx), kernels.ptr(lvl), K, oh, ow,
-            sampling_ratio, kernels.stream_of(rois))
-    kernels.raise_on_error("multilevel_roi_align_backward", rc)
-    kernels.count_launch("multilevel_roi_align_backward")
+    if max(oh, ow) > 32:
+        raise ValueError(f"roi_align_backward: at most 32 x 32 output cells, got {oh} x {ow}")
+    dev = rois.device
+    grads = [torch.empty(tuple(sh), dtype=torch.float32, device=dev) for sh in level_shapes]
+    lvl = roi_levels(rois, min_level, max_level, canonical_scale, canonical_level)
+    key, footprint = roi_footprints_cuda(level_shapes, rois, roi_batch_idx, lvl,
+                                         output_size, strides, sampling_ratio)
+    key, order = torch.sort(key, stable=True)
+    group_start = torch.searchsorted(
+        key, torch.arange(len(level_shapes) * B + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    ptrs = [d.data_ptr() for d in grads] + [None] * (4 - len(grads))
+    kernels.launch("multilevel_roi_align_backward", "pfr_multilevel_roi_align_backward", dev,
+                   grad_out.data_ptr(), *ptrs, *hs, *ws, *sts, len(grads), B, C,
+                   rois.data_ptr(), order.data_ptr(), footprint.data_ptr(),
+                   group_start.data_ptr(), oh, ow, sampling_ratio)
     return grads
 
 

@@ -31,7 +31,8 @@ from .serving import EmbeddingService, build_serving_models
 OWN_KERNELS = {"warp_perspective_kernel": "K1 warp",
                "nms_keep_sorted_batch_kernel": "K2 nms",
                "multilevel_roi_align_kernel": "K3 roi_align",
-               "multilevel_roi_align_backward_kernel": "K4 roi_align_backward"}
+               "multilevel_roi_align_backward_kernel": "K4 roi_align_backward",
+               "roi_footprints_kernel": "K4 pre-pass roi_footprints"}
 
 
 def kind_of(name: str) -> str:

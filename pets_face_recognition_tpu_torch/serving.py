@@ -6,7 +6,7 @@ uint8 NHWC images and a decode-ok mask and returns ``(B, 512)`` embeddings and
 a ``(B,)`` validity mask. Validity follows the reference's assert-and-skip: the
 top detection must score above ``score_thr`` and its landmarks, rounded to the
 pixel grid, must be pairwise more than 5 px apart. Everything
-runs in float32. On a CUDA device the path goes through kernels K2 and K3 (in
+runs in float32, with TF32 off inside ``embed_batch`` whatever the caller set. On a CUDA device the path goes through kernels K2 and K3 (in
 the detector) and K1 (in ``align_crop``).
 """
 
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .device import resolve_device
+from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
 from .models.rcnn import keypointrcnn_resnet50_fpn
 from .ops.homography import align_crop
@@ -61,6 +61,7 @@ class EmbeddingService:
         self.score_thr = score_thr
 
     @torch.inference_mode()
+    @float32_matmuls()
     def embed_batch(self, images_u8: torch.Tensor, ok: torch.Tensor):
         """``images_u8 (B, H, W, 3)`` uint8, ``ok (B,)`` bool ->
         ``(embeddings (B, 512) float32, valid (B,) bool)``."""
