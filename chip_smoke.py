@@ -10,19 +10,22 @@ Phases, each printing one JSON line (or one per kernel):
 1. build: the one ``nvcc`` call over ``pets_face_recognition_tpu_torch/csrc``;
 2. kernel: K1 warp (B = 8 and 32), K2 NMS and K3 RoIAlign at the serving
    path's shapes (B = 8); then K2 at the training budget (80 groups of 2000
-   boxes), the two K5 entry points over the same kernel, and K3 and K4
+   boxes), the two K5 entry points over the same kernels, and K3 and K4
    (RoIAlign forward and backward) at the training step's shapes (16 images
    of 640 x 640, 8192 box RoIs at 7 x 7 and 2048 keypoint RoIs at 14 x 14).
    Each is held against its plain PyTorch version on the card and timed with
    CUDA events (median after warm-up) beside the plain version, the one
    library call that computes the same function where there is one, and its
-   bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32); K1, K3 and K4 also
-   with their kernel's device time from ``torch.profiler``, K1 also beside the
+   bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32), and (but K4's
+   pre-pass) with its kernels' device time per call from ``torch.profiler``
+   (for K2 and K5 the sum of K2's two kernels), K1 also beside the
    library's whole route from the maps (inverse, grid, ``grid_sample``,
    permutes), and against ``grid_sample`` alone in paired rounds (the two
    timed one after the other, in alternating order). K4 must give the same
    bits in two launches on the same inputs, and its pre-pass the same
-   integers as its plain twin;
+   integers as its plain twin; last, K2 and K3 at edge shapes (ragged and
+   long groups, narrow channels, a non-square output, 2 levels, sampling
+   ratios 1 and 3) against their plain versions;
 3. e2e: ``build_serving_models`` at full ResNet-50 width with seeded random
    weights, ``EmbeddingService.embed_batch`` on seeded uint8 320x320 images at
    B = 8 with the launch counts read around it, checks against the same models
@@ -35,7 +38,10 @@ Phases, each printing one JSON line (or one per kernel):
    counts read around them (K2, K3 and K4 must have run), the loss dict of
    every step (finite), step ms, images/s and peak memory; then two steps
    from one saved state on the same batch and noise, with the count of
-   parameter gradients that differ bitwise (reported, not held);
+   parameter gradients that differ bitwise (reported, not held), by default,
+   with deterministic cuDNN and with ``torch.use_deterministic_algorithms``
+   (every warning's text kept), and the step time of deterministic
+   algorithms against the default in 3 alternating rounds;
 5. train_vs_cpu: one step of the same model at 256 x 256, B = 2, reduced
    sampler budgets, from the same weights and sampler noise on the card and on
    the CPU: losses within 1e-3 relative, every gradient within 5e-3 relative
@@ -75,58 +81,11 @@ CROP = 224
 B_TRAIN = 16                       # keypoint config: train_batch_size
 IMAGE_TRAIN = 640                  # keypoint config: image_size
 MAX_BOXES = 4                      # keypoint config: max_boxes
+K2_KERNELS = "nms_keep_sorted_batch_"  # K2's two kernels: the IoU words, the sweep
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
-
-
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_us(fn, kernel_name: str, iters: int = 10, strict: bool = True,
-              attempts: int = 3) -> float | None:
-    """Device time per launch of the kernels whose name holds ``kernel_name``
-    (every kernel for ""), in us: the median over ``iters`` calls of ``fn()``
-    (after one) under ``torch.profiler``, which may miss the window's first
-    launch, and now and then every launch of a window: such a window is
-    profiled again, up to ``attempts`` windows. Each call must launch one
-    such kernel; else raise, or return None when not ``strict``."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    seen = []
-    for _ in range(attempts):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
-        if iters // 2 <= len(times) <= iters:
-            return statistics.median(times)
-        seen.append(len(times))
-    if not strict:
-        return None
-    raise AssertionError(f"profiler saw {seen} launches of {kernel_name} in {attempts} "
-                         f"windows of {iters} calls")
 
 
 def grid_sample_grid(Hs):
@@ -158,6 +117,8 @@ def grid_sample_route(images, Hs):
 def paired_ms(fn_a, fn_b, rounds: int = 7) -> list[tuple[float, float]]:
     """``(cuda_ms(fn_a), cuda_ms(fn_b))`` for each of ``rounds`` rounds, ``fn_a``
     timed first in even rounds and second in odd ones."""
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+
     out = []
     for r in range(rounds):
         if r % 2 == 0:
@@ -235,7 +196,9 @@ def similarity_landmarks(g, B: int, base, image: int):
 def kernel_phase(dev) -> dict[str, dict]:
     """Phase 2, serving: K1-K3 against their plain versions at serving shapes."""
     import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, device_us, random_rois
     from pets_face_recognition_tpu_torch.ops import homography, nms, roi_align
+    from pets_face_recognition_tpu_torch.profile_serving import nms_work
 
     g = torch.Generator().manual_seed(0)
     rows = {}
@@ -309,13 +272,17 @@ def kernel_phase(dev) -> dict[str, dict]:
     torch.cuda.synchronize()
     n_diff = int((got != want).sum())
     ms = cuda_ms(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7))
+    k2_us = device_us(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7), K2_KERNELS)
+    # at this size the call is mostly host work
+    k2_host = host_us(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7))
     plain = cuda_ms(lambda: nms.nms_keep_sorted_batch(boxes, valid, 0.7), iters=5)
     # IoUs this data needs: each live pivot against the live boxes after it
-    n_iou = nms_iou_count(boxes, valid, want, 0.7)
+    n_iou = int(nms_work(boxes, valid, want, 0.7)["ious"].sum())
     n_bytes = boxes.numel() * 4 + valid.numel() + got.numel()
     b, by = bound_ms(n_bytes, n_iou * 13)
     emit("kernel", name="K2 nms_keep_sorted_batch", shape=[G, K, 4], mismatches=n_diff,
-         kept=int(got.sum()), ms=ms, plain_ms=plain, library_ms=None,
+         kept=int(got.sum()), ms=ms, kernel_device_us=k2_us, wrapper_host_us=k2_host,
+         plain_ms=plain, library_ms=None,
          library="none (no torchvision)", bound_ms=b, bound_by=by, ious=n_iou,
          sequential_steps=K)
     if n_diff:
@@ -330,19 +297,10 @@ def kernel_phase(dev) -> dict[str, dict]:
     levels = [torch.randn(B_KERNELS, s, s, C, generator=g).to(dev) for s in (80, 40, 20, 10)]
     strides = (4, 8, 16, 32)
 
-    def make_rois(n):
-        cx = torch.rand(n, generator=g) * 360 - 20
-        cy = torch.rand(n, generator=g) * 360 - 20
-        size = 16 * 2 ** (torch.rand(n, generator=g) * 4.5)
-        aspect = torch.where(torch.rand(n, generator=g) < 0.25, torch.tensor(5.0),
-                             0.5 + torch.rand(n, generator=g))
-        w, h = size * aspect.sqrt(), size / aspect.sqrt()
-        return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
-
     k3_ms = k3_plain = k3_bound_b = k3_flops = 0.0
     k3_err = 0.0
     for n_per, out in ((16, 7), (1, 14)):
-        rois = make_rois(B_KERNELS * n_per).to(dev)
+        rois = random_rois(g, B_KERNELS * n_per, IMAGE, 4.5).to(dev)
         bidx = torch.arange(B_KERNELS, device=dev).repeat_interleave(n_per).to(torch.int32)
         args = (levels, rois, bidx, (out, out), strides)
         got = roi_align.multilevel_roi_align_cuda(*args)
@@ -351,14 +309,16 @@ def kernel_phase(dev) -> dict[str, dict]:
         err, tol = max_err(got, want), 1e-4
         k3_err = max(k3_err, err)
         ms = cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args))
+        us = device_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
+                       "multilevel_roi_align_kernel")
         plain = cuda_ms(lambda: roi_align.multilevel_roi_align(*args))
         cells = touched_cells(levels, rois, bidx, (out, out), strides)
         n_bytes = cells * C * 4 + rois.numel() * 4 + bidx.numel() * 4 + got.numel() * 4
         n_flops = got.numel() * (8 * 4 + 1)
         b, by = bound_ms(n_bytes, n_flops)
         emit("kernel", name=f"K3 multilevel_roi_align {out}x{out}", rois=rois.shape[0],
-             max_abs_err=err, atol=tol, ms=ms, plain_ms=plain, library_ms=None,
-             library="none (no torchvision)", bound_ms=b, bound_by=by,
+             max_abs_err=err, atol=tol, ms=ms, kernel_device_us=us, plain_ms=plain,
+             library_ms=None, library="none (no torchvision)", bound_ms=b, bound_by=by,
              touched_cells=cells)
         if not err <= tol:
             raise AssertionError(f"K3 {out}x{out} disagrees: {err} > {tol}")
@@ -372,51 +332,13 @@ def kernel_phase(dev) -> dict[str, dict]:
     return rows
 
 
-def random_rois(g, n: int, image: int, max_log2: float):
-    """``(n, 4)`` RoIs around the image: sizes 16 * 2 ** U(0, max_log2), a
-    quarter of them 5:1 wide, centres up to 1/16 of the image off its edges."""
-    import torch
-
-    margin = image / 16
-    cx = torch.rand(n, generator=g) * (image + 2 * margin) - margin
-    cy = torch.rand(n, generator=g) * (image + 2 * margin) - margin
-    size = 16 * 2 ** (torch.rand(n, generator=g) * max_log2)
-    aspect = torch.where(torch.rand(n, generator=g) < 0.25, torch.tensor(5.0),
-                         0.5 + torch.rand(n, generator=g))
-    w, h = size * aspect.sqrt(), size / aspect.sqrt()
-    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
-
-
-def nms_iou_count(boxes, valid, keep, thr: float) -> int:
-    """IoUs a greedy sweep computes on these inputs: for each kept pivot i, the
-    boxes j > i still alive at step i (valid, and first suppressed at step i or
-    later)."""
-    import torch
-
-    def overlap(lo, hi):                                            # [g, i, j]
-        return (torch.minimum(hi[:, :, None], hi[:, None])
-                - torch.maximum(lo[:, :, None], lo[:, None])).clamp(min=0)
-
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-    inter = overlap(x1, x2) * overlap(y1, y2)
-    union = area[:, :, None] + area[:, None] - inter
-    iou = torch.where(union > 0, inter / union, torch.zeros_like(inter))
-    K = boxes.shape[1]
-    later = torch.ones(K, K, dtype=torch.bool, device=boxes.device).triu(1)
-    sup = (iou > thr) & later & keep[:, :, None]
-    never = torch.full_like(keep, K, dtype=torch.long)
-    first = torch.where(sup.any(1), sup.float().argmax(1), never)
-    i = torch.arange(K, device=boxes.device)
-    alive_at = later & valid[:, None, :] & (first[:, None, :] >= i[None, :, None])
-    return int((alive_at & keep[:, :, None]).sum())
-
-
 def train_kernel_phase(dev) -> dict[str, dict]:
     """Phase 2, training: K2 at the training budget, K5, and K3/K4 at the
     training step's shapes, each against its plain version."""
     import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, device_us, random_rois
     from pets_face_recognition_tpu_torch.ops import nms, roi_align
+    from pets_face_recognition_tpu_torch.profile_serving import nms_work
 
     g = torch.Generator().manual_seed(3)
     rows = {}
@@ -426,7 +348,7 @@ def train_kernel_phase(dev) -> dict[str, dict]:
     boxes = random_rois(g, G * K, IMAGE_TRAIN, 4.0).reshape(G, K, 4).contiguous().to(dev)
     valid = (torch.rand(G, K, generator=g) > 0.1).to(dev)
     want = nms.nms_keep_sorted_batch(boxes, valid, thr)
-    n_iou = nms_iou_count(boxes, valid, want, thr)
+    n_iou = int(nms_work(boxes, valid, want, thr)["ious"].sum())
     n_bytes = boxes.numel() * 4 + valid.numel() * 2
     entries = (
         ("K2 nms_keep_sorted_batch", "nms_keep_sorted_batch",
@@ -438,17 +360,18 @@ def train_kernel_phase(dev) -> dict[str, dict]:
         ("K5 nms_keep_sorted", "nms_keep_sorted",
          lambda: nms.nms_keep_sorted(boxes[0], valid[0], thr),
          lambda: nms.nms_keep_sorted_batch(boxes[:1], valid[:1], thr)[0], want[0],
-         nms_iou_count(boxes[:1], valid[:1], want[:1], thr), n_bytes // G, 1),
+         int(nms_work(boxes[:1], valid[:1], want[:1], thr)["ious"].sum()), n_bytes // G, 1),
     )
     for label, name, fn, plain_fn, ref, ious, nb, groups in entries:
         got = fn()
         torch.cuda.synchronize()
         n_diff = int((got != ref).sum())
         ms = cuda_ms(fn, warmup=2, iters=10)
+        us = device_us(fn, K2_KERNELS)
         plain = cuda_ms(plain_fn, warmup=1, iters=3)
         b, by = bound_ms(nb, ious * 13)
         emit("kernel", name=label, groups=groups, boxes_per_group=K, mismatches=n_diff,
-             kept=int(got.sum()), ms=ms, plain_ms=plain, library_ms=None,
+             kept=int(got.sum()), ms=ms, kernel_device_us=us, plain_ms=plain, library_ms=None,
              library="none (no torchvision)", bound_ms=b, bound_by=by, ious=ious,
              sequential_steps=K)
         if n_diff:
@@ -573,6 +496,41 @@ def train_kernel_phase(dev) -> dict[str, dict]:
     rows["nms_keep_sorted_grid"]["max_abs_err"] = max(rows["nms_keep_sorted_grid"]["max_abs_err"],
                                                       single["max_abs_err"])
     return rows
+
+
+def edge_phase(dev) -> None:
+    """Phase 2, edges: K2 and K3 at shapes no path of the port gives them yet,
+    each against its plain version: K2 at K = 1, 65 (a ragged last word),
+    2049 (two words a lane) and 5000 (past the default 48 KB of shared
+    memory), and at threshold 0 (outside the IoU test's division-free
+    range); K3 with C = 12 (channel groups that do not fill a warp), a 7 x 5
+    output, 2 levels and sampling ratios 1 and 3 (the kernel's generic S, a
+    mean that is not a power of two)."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import random_rois
+    from pets_face_recognition_tpu_torch.ops import nms, roi_align
+
+    g = torch.Generator().manual_seed(5)
+    k2 = {}
+    for K, thr in ((1, 0.7), (65, 0.7), (65, 0.0), (2049, 0.5), (5000, 0.7)):
+        boxes = random_rois(g, 3 * K, IMAGE_TRAIN, 4.0).reshape(3, K, 4).contiguous().to(dev)
+        valid = (torch.rand(3, K, generator=g) > 0.1).to(dev)
+        got = nms.nms_keep_sorted_batch_cuda(boxes, valid, thr)
+        k2[f"K={K} thr={thr}"] = int((got != nms.nms_keep_sorted_batch(boxes, valid, thr)).sum())
+    levels = [torch.randn(2, s, s, 12, generator=g).to(dev) for s in (40, 20)]
+    rois = random_rois(g, 40, IMAGE, 3.0).to(dev)
+    bidx = (torch.arange(40) % 2).to(torch.int32).to(dev)
+    k3 = {}
+    for S in (1, 3):
+        args = (levels, rois, bidx, (7, 5), (8, 16), S, 224.0, 4, 3, 4)
+        k3[S] = max_err(roi_align.multilevel_roi_align_cuda(*args),
+                        roi_align.multilevel_roi_align(*args))
+    torch.cuda.synchronize()
+    emit("edge", k2_mismatches=k2, k3_max_abs_err=k3, k3_atol=1e-4)
+    if any(k2.values()):
+        raise AssertionError(f"K2 keep masks differ from the plain version: {k2}")
+    if not all(e <= 1e-4 for e in k3.values()):
+        raise AssertionError(f"K3 disagrees with its plain version: {k3}")
 
 
 def touched_cells(levels, rois, bidx, output_size, strides, s: int = 2) -> int:
@@ -775,14 +733,34 @@ def train_phase(dev, kernels_mod, smi: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` and
+    deterministic cuDNN inside the block; the caller's settings back after."""
+    import torch
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+
+
 def repro_phase(ctl, state, batch, B: int) -> None:
     """Phase 4b: two training steps from one saved state on the same batch and
     sampler noise; reports how many parameter gradients differ bitwise (a
     reported number, not a gate: cuDNN and PyTorch may pick kernels that sum
     in a run-dependent order). Then the same with deterministic cuDNN
     algorithms only, and with ``torch.use_deterministic_algorithms(True,
-    warn_only=True)`` as well, whose warnings name the ops that have no
-    deterministic implementation."""
+    warn_only=True)`` as well, each with the text of every warning the steps
+    raised (an op without a deterministic kernel, cuBLAS's workspace alert).
+    Last, what determinism costs: 3 rounds of one default and one
+    deterministic step, in alternating order."""
     import copy
     import warnings
 
@@ -794,22 +772,33 @@ def repro_phase(ctl, state, batch, B: int) -> None:
     saved = (copy.deepcopy(model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
              state.step)
 
+    def step():
+        model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(saved[1])
+        state.step = saved[2]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = ctl.train_step(state, batch, sampler_noise=noise)
+        torch.cuda.synchronize()
+        return losses, (time.perf_counter() - t) * 1e3
+
     def two_steps():
         runs = []
-        for _ in range(2):
-            model.load_state_dict(saved[0])
-            state.optimizer.load_state_dict(saved[1])
-            state.step = saved[2]
-            losses = ctl.train_step(state, batch, sampler_noise=noise)
-            runs.append((losses, {n: p.grad.detach().clone()
-                                  for n, p in model.named_parameters() if p.grad is not None}))
-        (l1, g1), (l2, g2) = runs
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                losses, ms = step()
+                runs.append((losses, ms, {n: p.grad.detach().clone()
+                                          for n, p in model.named_parameters()
+                                          if p.grad is not None}))
+        (l1, ms1, g1), (l2, ms2, g2) = runs
         differ = sorted(n for n in g1 if not torch.equal(g1[n], g2[n]))
         worst = max((float((g1[n] - g2[n]).abs().max() / g1[n].abs().max().clamp(min=1e-30)),
                      n) for n in differ) if differ else (0.0, None)
         return dict(grads=len(g1), grads_bitwise_different=len(differ),
                     grads_bitwise_equal=sorted(set(g1) - set(differ))[:32], worst_rel_diff=worst[0],
-                    worst=worst[1], losses_bitwise_equal=l1 == l2)
+                    worst=worst[1], losses_bitwise_equal=l1 == l2, step_ms=[ms1, ms2],
+                    warnings=sorted({str(w.message)[:400] for w in caught}))
 
     default = two_steps()
     torch.backends.cudnn.deterministic = True
@@ -817,20 +806,23 @@ def repro_phase(ctl, state, batch, B: int) -> None:
         cudnn_only = two_steps()
     finally:
         torch.backends.cudnn.deterministic = False
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        torch.backends.cudnn.deterministic = True
-        try:
-            deterministic = two_steps()
-        finally:
-            torch.use_deterministic_algorithms(False)
-            torch.backends.cudnn.deterministic = False
-    deterministic["ops_without_deterministic_kernel"] = sorted(
-        {str(w.message).split(" does not have")[0] for w in caught
-         if "does not have a deterministic" in str(w.message)})
+    with deterministic_algorithms():
+        deterministic = two_steps()
+    rounds = []
+    for r in range(3):
+        pair = {}
+        for mode in (("default", "deterministic") if r % 2 == 0
+                     else ("deterministic", "default")):
+            ctx = (deterministic_algorithms() if mode == "deterministic"
+                   else contextlib.nullcontext())
+            with ctx, warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                pair[mode] = step()[1]
+        rounds.append(pair)
+    cost = statistics.median(p["deterministic"] / p["default"] - 1 for p in rounds)
     emit("train_repro", batch=B, default=default, cudnn_deterministic=cudnn_only,
-         deterministic_algorithms=deterministic)
+         deterministic_algorithms=deterministic, step_ms_rounds=rounds,
+         deterministic_cost_median=cost)
 
 
 # softmax CE over a heatmap's positions has a gradient that sums to 0, the 2x
@@ -938,6 +930,7 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     rows.update(train_kernel_phase(dev))   # K2 and K3 at the training shapes, K4, K5
+    edge_phase(dev)
     launches = e2e_phase(dev, kernels, smi)
     train_launches = train_phase(dev, kernels, smi)
     train_vs_cpu_phase(dev)

@@ -7,7 +7,10 @@
 // low positions clamp to 0; a low tap on the last row or column uses weight 0
 // for its (clamped) high neighbour. These rules act on each axis alone, so a
 // sample's taps are the product of a row tap and a column tap (axis_tap): K4
-// builds its separable tables from axis_tap, K3 its 2-D taps (make_tap).
+// builds its separable tables from axis_tap; K3 keeps each RoI's row and
+// column taps and multiplies a row weight by a column weight for each of a
+// sample's four taps (w00 = row low x column low, w01 = row low x column
+// high, w10, w11), and is out of bounds where the row or the column is.
 
 #pragma once
 
@@ -51,28 +54,6 @@ __device__ __forceinline__ AxisTap axis_tap(float pos, int limit) {
   a.w_high = edge ? 0.0f : __fsub_rn(c, (float)a.low);
   a.w_low = __fsub_rn(1.0f, a.w_high);
   return a;
-}
-
-struct Tap {
-  int y_low, y_high, x_low, x_high;
-  float w00, w01, w10, w11;
-  bool oob;
-};
-
-__device__ __forceinline__ Tap make_tap(float yy, float xx, int H, int W) {
-  const AxisTap ay = axis_tap(yy, H);
-  const AxisTap ax = axis_tap(xx, W);
-  Tap t;
-  t.oob = ay.oob || ax.oob;
-  t.y_low = ay.low;
-  t.y_high = ay.high;
-  t.x_low = ax.low;
-  t.x_high = ax.high;
-  t.w00 = __fmul_rn(ay.w_low, ax.w_low);
-  t.w01 = __fmul_rn(ay.w_low, ax.w_high);
-  t.w10 = __fmul_rn(ay.w_high, ax.w_low);
-  t.w11 = __fmul_rn(ay.w_high, ax.w_high);
-  return t;
 }
 
 // Top-left corner and bin size of RoI k on a level of the given scale.

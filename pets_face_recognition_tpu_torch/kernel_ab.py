@@ -1,0 +1,202 @@
+"""Time kernels K2 (NMS) and K3 (RoIAlign forward) of one tree of the port on
+the GPU, so that two trees can be compared in one run on one card.
+
+    python pets_face_recognition_tpu_torch/kernel_ab.py [--tree DIR] [--label NAME]
+
+Imports ``pets_face_recognition_tpu_torch`` from ``--tree`` (default: the tree
+that holds this file), builds its kernels and runs each wrapper on seeded
+random inputs at the shapes of ``chip_smoke.py``: K2 at 40 groups of 128 boxes
+(serving, B = 8) and 80 of 2000 (training), the latter also with only the
+first 1000 boxes of a group valid, as the step's padded small levels give; K3
+on p2-p5 of 320 x 320 images (B = 8: 128 RoIs at 7 x 7 and 8 at 14 x 14;
+B = 32: 512 and 32) and of 16 images of 640 x 640 (8192 RoIs at 7 x 7, 2048 at
+14 x 14), C = 256. Each is held against its plain version (keep-mask
+mismatches, largest absolute error) and timed: the wrapper's median
+CUDA-event time and its kernels' device time per call from ``torch.profiler``
+(for K2 also by kernel). K3's lines add the bytes that a kernel sharing no
+data between RoIs must move (each RoI's distinct tapped cells, and the
+output) and that over the device time. Prints one JSON line per shape.
+Compare trees only within one run, in turns (old, new, new, old). Needs a
+CUDA device. ``chip_smoke.py`` times its kernels with the same helpers
+(``cuda_ms``, ``device_us``) on the same RoIs (``random_rois``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+
+def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median CUDA-event time of ``fn()`` in ms, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_us_by_kernel(fn, kernel_name: str, iters: int = 10, strict: bool = True,
+                        attempts: int = 3) -> dict[str, float] | None:
+    """Device time per call of ``fn()`` of each kernel whose name holds
+    ``kernel_name`` (every kernel for ""), in us: the median of its launches
+    over ``iters`` calls (after one) under ``torch.profiler``. The profiler may
+    miss the window's first launch, and now and then every launch of a window:
+    such a window is profiled again, up to ``attempts`` windows. Each call must
+    launch each such kernel once; else raise, or return None when not
+    ``strict``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        counts = [len(t) for t in by_name.values()]
+        if counts and all(iters // 2 <= n <= iters for n in counts):
+            return {name: statistics.median(t) for name, t in by_name.items()}
+        seen.append(counts)
+    if not strict:
+        return None
+    raise AssertionError(f"profiler saw {seen} launches of {kernel_name} in {attempts} "
+                         f"windows of {iters} calls")
+
+
+def device_us(fn, kernel_name: str, **kw) -> float | None:
+    """:func:`device_us_by_kernel` summed over the kernels (K2 launches two a
+    call)."""
+    by_kernel = device_us_by_kernel(fn, kernel_name, **kw)
+    return None if by_kernel is None else sum(by_kernel.values())
+
+
+def random_rois(g, n: int, image: int, max_log2: float):
+    """``(n, 4)`` RoIs around the image: sizes 16 * 2 ** U(0, max_log2), a
+    quarter of them 5:1 wide, centres up to 1/16 of the image off its edges."""
+    import torch
+
+    margin = image / 16
+    cx = torch.rand(n, generator=g) * (image + 2 * margin) - margin
+    cy = torch.rand(n, generator=g) * (image + 2 * margin) - margin
+    size = 16 * 2 ** (torch.rand(n, generator=g) * max_log2)
+    aspect = torch.where(torch.rand(n, generator=g) < 0.25, torch.tensor(5.0),
+                         0.5 + torch.rand(n, generator=g))
+    w, h = size * aspect.sqrt(), size / aspect.sqrt()
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def roi_distinct_cells(levels, rois, out: int, strides, s: int = 2) -> int:
+    """Sum over the RoIs of the distinct cells that each one's taps read (its
+    in-bounds sample rows' taps times its sample columns' taps): what a kernel
+    that shares no data between RoIs must bring to the SM at least."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops.roi_align import _sample_offsets, roi_levels
+
+    lvl = roi_levels(rois, 2, 5).long()
+    total = 0
+    for li, f in enumerate(levels):
+        sel = lvl == li
+        if not sel.any():
+            continue
+        r = rois[sel] * (1.0 / strides[li])
+        counts = []
+        for lo, hi, lim in ((r[:, 1], r[:, 3], f.shape[1]), (r[:, 0], r[:, 2], f.shape[2])):
+            bins = (hi - lo).clamp(min=1.0) / out
+            pos = lo[:, None] + _sample_offsets(out, s, rois.device)[None] * bins[:, None]
+            ok = (pos > -1) & (pos < lim)
+            low = pos.clamp(min=0).floor().clamp(max=lim - 1)
+            taps = torch.cat([torch.where(ok, low, -1.0),
+                              torch.where(ok, (low + 1).clamp(max=lim - 1), -1.0)], 1)
+            taps = taps.sort(1).values
+            new = torch.cat([taps[:, :1] >= 0, (taps[:, 1:] != taps[:, :-1]) & (taps[:, 1:] >= 0)], 1)
+            counts.append(new.sum(1))
+        total += int((counts[0] * counts[1]).sum())
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    # the tree, not this file's folder (python put it first), is where the
+    # package comes from
+    here = str(Path(__file__).resolve().parent)
+    sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != Path(here)]
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from pets_face_recognition_tpu_torch import kernels
+    from pets_face_recognition_tpu_torch.ops import nms, roi_align
+
+    label = args.label or args.tree
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                           "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
+    kernels.library()
+    print(json.dumps({"tree": label, "package": kernels.__file__, "card": card}), flush=True)
+    dev = torch.device("cuda", 0)
+
+    g = torch.Generator().manual_seed(0)
+    for G, K, image, max_log2, n_valid in ((40, 128, 320, 3.0, 128), (80, 2000, 640, 4.0, 2000),
+                                           (80, 2000, 640, 4.0, 1000)):
+        boxes = random_rois(g, G * K, image, max_log2).reshape(G, K, 4).contiguous().to(dev)
+        valid = ((torch.rand(G, K, generator=g) > 0.1) & (torch.arange(K) < n_valid)).to(dev)
+        fn = lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7)  # noqa: E731
+        want = nms.nms_keep_sorted_batch(boxes, valid, 0.7)
+        got = fn()
+        split = device_us_by_kernel(fn, "nms_keep_sorted")
+        print(json.dumps({"tree": label, "kernel": "K2", "groups": G, "boxes": K,
+                          "valid": int(valid.sum()),
+                          "mismatches": int((got != want).sum()), "kept": int(want.sum()),
+                          "ms": cuda_ms(fn), "device_us": sum(split.values()),
+                          "device_us_by_kernel": split}),
+              flush=True)
+
+    C, strides = 256, (4, 8, 16, 32)
+    for B, image, counts in ((8, 320, ((16, 7), (1, 14))), (32, 320, ((16, 7), (1, 14))),
+                             (16, 640, ((512, 7), (128, 14)))):
+        levels = [torch.randn(B, image // s, image // s, C, generator=g).to(dev) for s in strides]
+        for n_per, out in counts:
+            rois = random_rois(g, B * n_per, image, 5.0 if image == 640 else 4.5).to(dev)
+            bidx = torch.arange(B, device=dev).repeat_interleave(n_per).to(torch.int32)
+            a = (levels, rois, bidx, (out, out), strides)
+            fn = lambda: roi_align.multilevel_roi_align_cuda(*a)  # noqa: E731
+            err = float((fn() - roi_align.multilevel_roi_align(*a)).abs().max())
+            us = device_us(fn, "multilevel_roi_align_kernel")
+            cells = roi_distinct_cells(levels, rois, out, strides)
+            per_roi_bytes = cells * C * 4 + rois.shape[0] * out * out * C * 4
+            print(json.dumps({"tree": label, "kernel": "K3", "images": B, "image": image,
+                              "rois": rois.shape[0], "out": out, "max_abs_err": err,
+                              "ms": cuda_ms(fn), "device_us": us,
+                              "per_roi_distinct_bytes": per_roi_bytes,
+                              "per_roi_tb_per_s": per_roi_bytes / us / 1e6 if us else None}),
+                  flush=True)
+        del levels
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -92,8 +92,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (src, hs, out, B, H, W, C, OH, OW, stream)
     "pfr_warp_perspective_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (boxes, valid, keep, G, K, iou_threshold, stream)
-    "pfr_nms_keep_sorted_batch": (_P, _P, _P, _I, _I, _F, _P),
+    # (boxes, valid, words, keep, G, K, iou_threshold, stream)
+    "pfr_nms_keep_sorted_batch": (_P, _P, _P, _P, _I, _I, _F, _P),
     # (p0..p3, H0..H3, W0..W3, stride0..stride3, n_levels, C,
     #  rois, batch_idx, level, K, OH, OW, sampling_ratio, out, stream)
     "pfr_multilevel_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

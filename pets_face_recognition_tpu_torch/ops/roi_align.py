@@ -267,8 +267,10 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
                               max_level: int = 5) -> torch.Tensor:
     """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
-    Same arguments and result as :func:`multilevel_roi_align`; at most 4 levels.
-    The level of each RoI comes from :func:`roi_levels`, as in the plain version.
+    Same arguments and result as :func:`multilevel_roi_align`; at most 4 levels,
+    ``C`` a multiple of 4 and 16-byte aligned levels (the kernel moves 4
+    channels at a time). The level of each RoI comes from :func:`roi_levels`,
+    as in the plain version; the result is bit-equal to the plain version's.
     Not differentiable: :class:`MultilevelRoIAlign` is.
     """
     if rois.device.type == "cpu":
@@ -281,6 +283,9 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
         kernels.check_cuda_f32(f"roi_align level {i}", f, 4)
         if f.shape[0] != B or f.shape[3] != C or f.device != rois.device:
             raise ValueError("roi_align: levels must share B, C and the device")
+        if C % 4 or f.data_ptr() % 16:
+            raise ValueError("roi_align: the kernel reads 4 channels as 16 aligned bytes; "
+                             f"needs C % 4 == 0 and 16-byte aligned levels (C = {C})")
     _check_rois(rois, roi_batch_idx)
     K = rois.shape[0]
     oh, ow = output_size

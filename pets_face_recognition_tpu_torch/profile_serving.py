@@ -13,8 +13,12 @@ under the profiler. Float32, TF32 off. Prints JSON lines: the card, host wall
 time per batch (or step) and peak memory, the device-busy share of the
 profiled window (union of kernel intervals over its span), device time per
 batch by kind (convolution, matrix product, the hand-written kernels, other),
-the top kernels, and the device time per launch of each hand-written kernel.
-Needs a CUDA device.
+the top kernels, the device time per launch of each hand-written kernel, and
+for each call of K2 (NMS) in the profiled window its device time (both
+passes) beside the work its data gave a greedy sweep: valid boxes, kept
+boxes, the IoUs of kept pivots against boxes still alive, and the columns a
+sweep that tests every later box visits (every box after each kept pivot), in
+all and in the busiest group. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,13 +30,50 @@ import time
 
 import torch
 
+from .ops.nms import suppress_matrix
 from .serving import EmbeddingService, build_serving_models
 
+# K2's kernels share the prefix "nms_keep_sorted_batch"
+K2_PREFIX = "nms_keep_sorted_batch"
 OWN_KERNELS = {"warp_perspective_kernel": "K1 warp",
-               "nms_keep_sorted_batch_kernel": "K2 nms",
+               K2_PREFIX: "K2 nms",
                "multilevel_roi_align_kernel": "K3 roi_align",
                "multilevel_roi_align_backward_kernel": "K4 roi_align_backward",
                "roi_footprints_kernel": "K4 pre-pass roi_footprints"}
+
+
+def nms_work(boxes, valid, keep, thr: float, chunk: int = 8) -> dict[str, torch.Tensor]:
+    """Work that a greedy sweep does on these inputs, per group ``(G,)``:
+    ``ious``, for each kept pivot i the boxes j > i still alive at step i
+    (valid, and first suppressed at step i or later); ``columns``, for each
+    kept pivot i every box after it (K - 1 - i); ``valid`` and ``kept``."""
+    G, K = keep.shape
+    i = torch.arange(K, device=boxes.device)
+    later = i[None, :] > i[:, None]                                 # [i, j]
+    ious = []
+    for s in range(0, G, chunk):
+        b, v, k = boxes[s:s + chunk], valid[s:s + chunk], keep[s:s + chunk]
+        sup = suppress_matrix(b, thr) & k[:, :, None]               # [g, i, j]
+        first = torch.where(sup.any(1), sup.float().argmax(1), K)   # step j dies
+        alive_at = later & v[:, None, :] & (first[:, None, :] >= i[None, :, None])
+        ious.append((alive_at & k[:, :, None]).sum((1, 2)))
+    return {"valid": valid.sum(1), "kept": keep.sum(1), "ious": torch.cat(ious),
+            "columns": (keep * (K - 1 - i)).sum(1)}
+
+
+def record_nms_calls(calls: list) -> None:
+    """Make the RPN's K2 call append copies of its inputs and keep mask to
+    ``calls``."""
+    from .models import rpn
+
+    inner = rpn.nms_keep_sorted_batch_cuda
+
+    def recording(boxes, valid, thr):
+        keep = inner(boxes, valid, thr)
+        calls.append((boxes.clone(), valid.clone(), keep.clone(), thr))
+        return keep
+
+    rpn.nms_keep_sorted_batch_cuda = recording
 
 
 def kind_of(name: str) -> str:
@@ -106,6 +147,8 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    calls = []
+    record_nms_calls(calls)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -136,6 +179,21 @@ def main() -> None:
     print(json.dumps({"own_kernels": {
         label: [round(t, 2) for n, ts in by_name.items() if key in n for t in ts]
         for key, label in OWN_KERNELS.items()}, "unit": "us per launch"}), flush=True)
+    # K2 calls in order: the device time of each call's kernels (one or more
+    # passes) beside the work its data gave a greedy sweep
+    k2 = sorted((e for e in kernels if K2_PREFIX in e.name), key=lambda e: e.time_range.start)
+    per_call = len({e.name for e in k2}) or 1
+    us = [sum(e.time_range.elapsed_us() for e in k2[n:n + per_call])
+          for n in range(0, len(k2), per_call)]
+    rows = []
+    for n, (boxes, valid, keep, thr) in enumerate(calls):
+        w = nms_work(boxes, valid, keep, thr)
+        rows.append({"device_us": us[n] if len(us) == len(calls) else None,
+                     "groups": keep.shape[0], "boxes_per_group": keep.shape[1],
+                     **{f"{k}": int(v.sum()) for k, v in w.items()},
+                     **{f"{k}_max_group": int(v.max()) for k, v in w.items()}})
+    print(json.dumps({"k2_calls": rows, "kernels_per_call": per_call,
+                      "launches_seen": len(k2)}), flush=True)
 
 
 if __name__ == "__main__":

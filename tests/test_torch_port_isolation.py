@@ -39,7 +39,7 @@ def test_importing_the_port_loads_no_jax():
         "serving", "device", "weights", "kernels", "ops.nms", "ops.roi_align", "ops.homography",
         "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder", "losses", "data",
         "utils.optim", "engine.train_state", "engine.detector_controller",
-        "engine.trainer", "profile_serving")]
+        "engine.trainer", "profile_serving", "kernel_ab")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] == 'pets_face_recognition_tpu']\n"

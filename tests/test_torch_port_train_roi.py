@@ -189,8 +189,9 @@ def test_k4_and_k5_wrappers_have_no_fallback(monkeypatch):
 
 def test_nms_accepts_the_training_budget():
     """K2's guard lets the training budget through (K = 2000 boxes a group) and
-    refuses only what a block's shared memory cannot hold."""
-    assert nms.NMS_MAX_K == 232448 // 24 >= 2000
+    refuses only what a block's shared memory cannot hold: the sweep's two
+    chunks of 64 (padded to 65) rows of ceil(K / 64) 8-byte words."""
+    assert nms.NMS_MAX_K == 64 * (232448 // (2 * 65 * 8)) >= 2000
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="CUDA"):  # K = 2000 passes the shape guard
         nms.nms_keep_sorted_batch_cuda(torch.empty(2, 2000, 4, **meta),
