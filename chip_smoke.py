@@ -30,7 +30,33 @@ Phases, each printing one JSON line (or one per kernel):
    weights, ``EmbeddingService.embed_batch`` on seeded uint8 320x320 images at
    B = 8 with the launch counts read around it, checks against the same models
    on the CPU on a B = 2 input, then crops/s at B = 32;
-4. train: keypoint R-CNN ResNet-50-FPN training steps at full width with the
+4. tsv: the head-only retrieval chain of ``generate_tsv`` over the committed
+   kashtanka corpus (``pets_face_recognition_tpu_torch/testdata``, 32 JPEGs
+   of 320 x 320) and over 16 camera-sized JPEGs (1280 x 960, 960 x 1280,
+   4032 x 3024) that the script writes with PIL from a seed under the
+   git-ignored ``smoke_out/photos``: first the native decode's route (libjpeg
+   or nvJPEG, by what is installed), what the machine has (g++, libjpeg,
+   nvJPEG, PIL, cv2, pandas) and the native decode's pixel difference from
+   PIL's libjpeg; then, on each set, the chain at full width with seeded
+   random weights and the detection threshold 0 (decode, letterbox, detect,
+   K1 on each kept photo at its own shape, the dog or cat embedder, centroid
+   scores, top 100, a tsv under ``smoke_out/tsv``) on the card, with the
+   launch counts read around it (K1 once per kept photo, K2 and K3
+   launched), images/s and each step's ms a photo by photo size, timed inside
+   the chain's own pass; and the same chain on the CPU from the same weights:
+   the same kept photos and rounded landmarks, crops within 1e-3 on [0, 1],
+   embeddings within 1e-5 relative, scores within 1e-6 and rank flips only
+   across gaps below that, finite values, at least one scored query. Two
+   planted faults on the camera photos (the dog and cat embedders swapped, the
+   map moved one pixel) must each break that agreement. K1 at B = 1 on a 12
+   MP and a portrait photo is held against its plain version and timed;
+   jpeg_stream: crops/s from JPEG files, ``EmbeddingService.stream`` at B = 32
+   over 1024 corpus paths and over the camera photos of each size, decoding
+   overlapped, through the native route and through PIL (the port's fallback,
+   as a measurement), and one photo's decode by each; retrieval:
+   ``calc_scores`` ms for 1000 query cards against 10000 gallery cards of
+   1-4 images;
+5. train: keypoint R-CNN ResNet-50-FPN training steps at full width with the
    training defaults (RPN 2000/2000, 512 box samples at 0.25, keypoint head on
    128 positives an image) and the keypoint config's SGD (lr 5e-3, momentum
    0.9, weight decay 1e-4), on a seeded synthetic batch of 16 images of
@@ -42,7 +68,7 @@ Phases, each printing one JSON line (or one per kernel):
    with deterministic cuDNN and with ``torch.use_deterministic_algorithms``
    (every warning's text kept), and the step time of deterministic
    algorithms against the default in 3 alternating rounds;
-5. train_vs_cpu: one step of the same model at 256 x 256, B = 2, reduced
+6. train_vs_cpu: one step of the same model at 256 x 256, B = 2, reduced
    sampler budgets, from the same weights and sampler noise on the card and on
    the CPU: losses within 1e-3 relative, every gradient within 5e-3 relative
    in norm.
@@ -65,6 +91,7 @@ import contextlib
 import faulthandler
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -88,9 +115,10 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def grid_sample_grid(Hs):
+def grid_sample_grid(Hs, hw: tuple[int, int] = (IMAGE, IMAGE)):
     """``grid_sample``'s ``(B, 224, 224, 2)`` grid (align_corners=True) from the
-    maps ``Hs``: each output pixel's source position ``H^-1 @ (x, y, 1)``."""
+    maps ``Hs`` on ``hw = (H, W)`` images: each output pixel's source position
+    ``H^-1 @ (x, y, 1)``."""
     import torch
 
     hinv = torch.linalg.inv(Hs)
@@ -101,7 +129,7 @@ def grid_sample_grid(Hs):
     den = h[:, 2, 0] * gx + h[:, 2, 1] * gy + h[:, 2, 2]
     sx = (h[:, 0, 0] * gx + h[:, 0, 1] * gy + h[:, 0, 2]) / den
     sy = (h[:, 1, 0] * gx + h[:, 1, 1] * gy + h[:, 1, 2]) / den
-    return torch.stack([2 * sx / (IMAGE - 1) - 1, 2 * sy / (IMAGE - 1) - 1], -1)
+    return torch.stack([2 * sx / (hw[1] - 1) - 1, 2 * sy / (hw[0] - 1) - 1], -1)
 
 
 def grid_sample_route(images, Hs):
@@ -678,6 +706,563 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
     return launches
 
 
+CORPUS = REPO / "pets_face_recognition_tpu_torch" / "testdata" / "kashtanka_test"
+VARIANTS = REPO / "pets_face_recognition_tpu_torch" / "testdata" / "jpeg_variants"
+OUT_DIR = REPO / "smoke_out" / "tsv"        # git-ignored
+PHOTOS = REPO / "smoke_out" / "photos"      # git-ignored: written at run time
+# camera photos (width, height): 4:3 at 1.2 MP, landscape and portrait, and a
+# 12 MP phone photo
+PHOTO_SIZES = ((1280, 960), (960, 1280), (4032, 3024))
+B_STREAM, N_STREAM = 32, 1024      # crops/s from JPEG files: batch, paths of the corpus
+N_STREAM_PHOTOS = {(1280, 960): 128, (960, 1280): 128, (4032, 3024): 64}
+# paths through PIL, for each set: one fallback run that measures the route
+N_STREAM_PIL = {"320x320": 128, "1280x960": 64, "960x1280": 64, "4032x3024": 32}
+Q_RETRIEVAL, G_RETRIEVAL, D_EMB = 1000, 10000, 512
+# card against CPU on the same photos: aligned crops on [0, 1], embeddings
+# relative to their largest magnitude, and scores (the gap across which a
+# rank may flip is held to the score budget too)
+CROP_DRIFT, EMB_DRIFT, SCORE_DRIFT = 1e-3, 1e-5, 1e-6
+
+
+def probe_host() -> dict:
+    """What this machine offers the native decode: the compiler, libjpeg's
+    header and library, nvJPEG's header and library, PIL, cv2 and pandas."""
+    import importlib.util
+
+    from pets_face_recognition_tpu_torch import native
+
+    def run(cmd):
+        try:
+            return subprocess.run(cmd, capture_output=True, text=True, timeout=60).stdout
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return f"{type(e).__name__}: {e}"
+
+    root = native.cuda_root()
+    return {
+        "g++": run(["g++", "--version"]).splitlines()[:1],
+        "jpeglib.h": [str(d / "jpeglib.h") for d in native._include_dirs()
+                      if (d / "jpeglib.h").is_file()],
+        "ldconfig_jpeg": [line.strip() for line in run(["ldconfig", "-p"]).splitlines()
+                          if "jpeg" in line],
+        "nvjpeg.h": str(root / "include" / "nvjpeg.h") if root and (
+            root / "include" / "nvjpeg.h").is_file() else None,
+        "python_modules": {m: importlib.util.find_spec(m) is not None
+                           for m in ("PIL", "cv2", "pandas")},
+    }
+
+
+def pil_decode(path):
+    from PIL import Image
+    import numpy as np
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def decode_vs_pil(paths) -> dict | None:
+    """Pixel difference of this machine's native decode from PIL's libjpeg,
+    where PIL is installed (a measurement, not a gate)."""
+    import numpy as np
+
+    from pets_face_recognition_tpu_torch import native
+
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return None
+    diffs, failed = [], []
+    for p in paths:
+        ref = pil_decode(p).astype(np.int16)
+        got = native.decode_single(p)
+        if got is None or got.shape != ref.shape:
+            failed.append(p.name)
+            continue
+        diffs.append(np.abs(got.astype(np.int16) - ref).ravel())
+    d = np.concatenate(diffs) if diffs else np.zeros(1, np.int16)
+    return {"images": len(paths), "failed": failed, "max_abs": int(d.max()),
+            "mean_abs": float(d.mean()), "share_differing": float((d > 0).mean())}
+
+
+def make_photo_corpus(root: Path, seed: int = 7) -> Path:
+    """Write a kashtanka-layout test split of camera-sized JPEGs with PIL, from
+    ``seed``: on each side 2 query and 2 gallery cards (a dog and a cat each),
+    2 photos a card, their sizes cycling through ``PHOTO_SIZES``. A photo is a
+    smooth random colour field with a darker ellipse and per-pixel noise of
+    +-10 levels, saved at quality 90 with 4:2:0 chroma (a 12 MP one is ~3 MB,
+    as a phone's). Returns ``root``."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(seed)
+    k = 0
+    for side, prefix in (("found", "rf"), ("lost", "rl")):
+        for j, sub in enumerate((side, f"extra_{side}")):
+            for i in range(2):
+                card = root / side / sub / f"{prefix}9{j}{i:04d}"
+                card.mkdir(parents=True)
+                (card / "card.json").write_text('{"animal": %d}' % (1 + i))
+                for n in range(2):
+                    w, h = PHOTO_SIZES[k % len(PHOTO_SIZES)]
+                    k += 1
+                    field = rng.uniform(40, 215, (3, 4, 3)).astype(np.uint8)
+                    img = Image.fromarray(field).resize((w, h), Image.BICUBIC)
+                    cx, cy = rng.uniform(0.3, 0.7) * w, rng.uniform(0.3, 0.7) * h
+                    r = rng.uniform(0.15, 0.3) * min(w, h)
+                    fill = tuple(int(v) for v in rng.uniform(20, 90, 3))
+                    ImageDraw.Draw(img).ellipse((cx - r, cy - 0.8 * r, cx + r, cy + 0.8 * r),
+                                                fill=fill)
+                    px = np.asarray(img, np.int16) + rng.randint(-10, 11, (h, w, 3),
+                                                                 dtype=np.int16)
+                    Image.fromarray(np.clip(px, 0, 255).astype(np.uint8)).save(
+                        card / f"{n}.jpg", quality=90, subsampling=2)
+    return root
+
+
+def photo_sizes() -> dict:
+    """``{path: (width, height)}`` of the camera photos, from their headers."""
+    from PIL import Image
+
+    sizes = {}
+    for p in sorted(PHOTOS.rglob("*.jpg")):
+        with Image.open(p) as im:
+            sizes[p] = im.size
+    return sizes
+
+
+@contextlib.contextmanager
+def chain_probe(sync):
+    """Record each photo's steps inside ``generate_tsv.prepare_data`` in the
+    order it reads them: the photo's (width, height), the seconds of its decode
+    (``read_image``), of ``Preproc3`` (``Preproc3.batch``, the device
+    synchronised after it) and of the whole head pipeline call, and what they
+    gave (valid, rounded landmarks, the aligned crop, the vector). The timers
+    wrap the chain's own calls, so the steps are timed in the pass whose total
+    is the chain's time. Yields ``(records, wrap)``: ``wrap(head)`` is the head
+    pipeline with its timer."""
+    from pets_face_recognition_tpu_torch import generate_tsv
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc3
+
+    rec: list[dict] = []
+    read, batch = generate_tsv.read_image, Preproc3.batch
+
+    def timed_read(path):
+        t = time.perf_counter()
+        img = read(path)
+        rec.append(dict(size=(img.shape[1], img.shape[0]), decode=time.perf_counter() - t))
+        return img
+
+    def timed_batch(self, images):
+        t = time.perf_counter()
+        aligned, valid, raw = batch(self, images)
+        sync()
+        rec[-1].update(preproc3=time.perf_counter() - t, valid=bool(valid[0]),
+                       kps=raw["keypoints"][0], crop=aligned[0])
+        return aligned, valid, raw
+
+    def wrap(head):
+        def timed_head(img, animal):
+            t = time.perf_counter()
+            v = head(img, animal)
+            rec[-1].update(head=time.perf_counter() - t, vec=v)
+            return v
+        return timed_head
+
+    generate_tsv.read_image, Preproc3.batch = timed_read, timed_batch
+    try:
+        yield rec, wrap
+    finally:
+        generate_tsv.read_image, Preproc3.batch = read, batch
+
+
+def run_chain(root: Path, device, head, kernels_mod, label: str) -> dict:
+    """``generate_tsv``'s steps over ``root`` with the head pipeline ``head``
+    (the launch counts read around them), its tsv and score dump under
+    ``OUT_DIR``, and each photo's record (``chain_probe``)."""
+    import torch
+    from pets_face_recognition_tpu_torch import generate_tsv, retrieval
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:   # first calls at each photo size: cuDNN's and the allocator's set-up
+        firsts = {}
+        for p in sorted(root.rglob("*.jpg")):
+            img = generate_tsv.read_image(p)
+            firsts.setdefault(img.shape, img)
+        for img in firsts.values():
+            for animal in (1, 2):
+                head(img, animal)
+        sync()
+    kernels_mod.reset_launch_counts()
+    with chain_probe(sync) as (rec, wrap):
+        t = time.perf_counter()
+        db = generate_tsv.prepare_data(root, wrap(head))
+        sync()
+        chain_s = time.perf_counter() - t
+    launches = kernels_mod.launch_counts()
+    for r in rec:
+        r["crop"] = r["crop"].cpu() / 255.0
+    dump = {}
+    rows = retrieval.create_table(db, device, dump)
+    retrieval.write_tsv(rows, OUT_DIR / f"pred_scores_test2_{label}.tsv")
+    retrieval.write_scores_dump(dump, OUT_DIR / f"scores_{label}.npz")
+    return dict(db=db, rows=rows, dump=dump, chain_s=chain_s, launches=launches, rec=rec)
+
+
+def chain_diff(run, ref) -> dict:
+    """How far ``run`` is from ``ref`` on the same photos: kept photos, rounded
+    landmarks, crops, embeddings, the score dumps' near-tie report, and which
+    budget each breaks."""
+    import numpy as np
+    from pets_face_recognition_tpu_torch import retrieval
+
+    a, b = run["rec"], ref["rec"]
+    if [r["size"] for r in a] != [r["size"] for r in b]:
+        raise AssertionError("the two runs read other photos")
+    both = [(x, y) for x, y in zip(a, b) if x["valid"] and y["valid"]]
+    crop = max((max_err(x["crop"], y["crop"]) for x, y in both), default=0.0)
+    emb = max((float(np.abs(x["vec"] - y["vec"]).max() / np.abs(y["vec"]).max())
+               for x, y in both), default=0.0)
+    report = retrieval.near_tie_report(ref["dump"], run["dump"])
+    finite = all(np.isfinite(x["vec"]).all() for x in a if x["valid"]) and all(
+        np.isfinite(row["scores"][row["include"]]).all() for row in run["dump"].values())
+    d = dict(valid_differ=sum(x["valid"] != y["valid"] for x, y in zip(a, b)),
+             landmarks_differ=sum(bool((x["kps"] != y["kps"]).any()) for x, y in both),
+             max_crop_err=crop, max_embedding_rel_err=emb,
+             max_score_drift=report["max_score_drift"],
+             max_flip_gap=report["max_flip_float_gap"],
+             other_cards=bool(report["only_a"] or report["only_b"] or report["gallery_only_a"]
+                              or report["gallery_only_b"]))
+    d["breaks"] = [k for k, bad in (
+        ("finite", not finite), ("valid", d["valid_differ"] > 0), ("landmarks", d["landmarks_differ"] > 0),
+        ("crops", not crop <= CROP_DRIFT), ("embeddings", not emb <= EMB_DRIFT),
+        ("scores", not report["max_score_drift"] <= SCORE_DRIFT),
+        ("flips", not report["max_flip_float_gap"] <= SCORE_DRIFT),
+        ("cards", d["other_cards"])) if bad]
+    return d | dict(near_tie=report)
+
+
+def split_by_size(run) -> dict:
+    """Per photo size: photos, kept photos, and the mean ms of each step inside
+    the chain (decode, ``Preproc3``, the embedder: the head call less
+    ``Preproc3``, on kept photos), and photos/s over decode + head calls."""
+    import numpy as np
+
+    out = {}
+    for size in sorted({r["size"] for r in run["rec"]}):
+        rs = [r for r in run["rec"] if r["size"] == size]
+        kept = [r for r in rs if r["valid"]]
+        total = sum(r["decode"] + r["head"] for r in rs)
+        out["x".join(map(str, size))] = dict(
+            photos=len(rs), kept=len(kept),
+            decode_ms=float(np.mean([r["decode"] for r in rs])) * 1e3,
+            preproc3_ms=float(np.mean([r["preproc3"] for r in rs])) * 1e3,
+            embed_ms=float(np.mean([r["head"] - r["preproc3"] for r in kept])) * 1e3
+            if kept else None,
+            photos_per_s=len(rs) / total)
+    return out
+
+
+def shifted_head(detector, dog, cat, dev):
+    """A planted fault for the chain's gate: the head pipeline with each map
+    moved one pixel to the right in the crop."""
+    import torch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.ops.homography import (alignment_homographies,
+                                                                warp_perspective_batch_cuda)
+    from pets_face_recognition_tpu_torch.preprocessor import DEFAULT_BASE_PTS, Preproc3
+
+    shift = torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device=dev)
+    base = torch.from_numpy(DEFAULT_BASE_PTS).to(dev)
+
+    class Shifted(Preproc3):
+        def batch(self, images):
+            aligned, valid, raw = super().batch(images)
+            if valid[0]:
+                photo = torch.as_tensor(images[0]).to(dev).float()[None].contiguous()
+                H = shift @ alignment_homographies(
+                    torch.from_numpy(raw["keypoints"][:1]).to(dev), base)
+                aligned[0] = warp_perspective_batch_cuda(photo, H.contiguous(), (CROP, CROP))[0]
+            return aligned, valid, raw
+
+    pre = Shifted(detector, thr=0.0, device=dev)
+    scale = torch.full((), 255.0, device=dev)
+
+    @torch.inference_mode()
+    @float32_matmuls()
+    def head(img, animal):
+        try:
+            aligned = pre(img)
+        except (AssertionError, ValueError, OSError):
+            return None
+        fe = dog if animal == 1 else cat
+        return fe(aligned[None] / scale)[0].cpu().numpy()
+
+    return head
+
+
+def k1_photo_rows(dev, paths) -> list[dict]:
+    """K1 at B = 1 on camera photos at their own shape, as ``Preproc3`` launches
+    it: held against its plain version on the card (values on [0, 1], 1e-4 as
+    in the kernel phase) and timed beside it and ``grid_sample``."""
+    import torch
+    from pets_face_recognition_tpu_torch import native
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+    from pets_face_recognition_tpu_torch.ops import homography
+
+    base = torch.tensor([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]])
+    rows = []
+    for p in paths:
+        img = torch.from_numpy(native.decode_single(p)).to(dev).float()[None] / 255.0
+        _, H, W, _ = img.shape
+        # a head a fifth of the short side wide, turned 10 degrees, off centre
+        th = math.radians(10.0)
+        rot = torch.tensor([[math.cos(th), -math.sin(th)], [math.sin(th), math.cos(th)]])
+        lms = (base - base.mean(0)) * (min(H, W) / 5 / 84) @ rot.T \
+            + torch.tensor([W * 0.4, H * 0.6])
+        Hs = homography.alignment_homographies(lms[None].to(dev), base.to(dev))
+        k1 = lambda: homography.warp_perspective_batch_cuda(img, Hs, (CROP, CROP))  # noqa: E731
+        got = k1()
+        want = homography.warp_perspective_batch(img, Hs, (CROP, CROP))
+        err = max_err(got, want)
+        grid = grid_sample_grid(Hs, (H, W))
+        nchw = img.permute(0, 3, 1, 2)
+        lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            nchw, grid, padding_mode="zeros", align_corners=True)
+        lib_err = max_err(lib().permute(0, 2, 3, 1), want)
+        # as the K1 row: the source pixels the taps read, the map, the crop
+        b_ms, by = bound_ms(warp_read_bytes(img, Hs) + 9 * 4 + CROP * CROP * 3 * 4,
+                            CROP * CROP * (24 + 7 * 3))
+        rows.append(dict(photo=f"{W}x{H}", max_abs_err=err, tolerance=1e-4,
+                         grid_sample_abs_err=lib_err, ms=cuda_ms(k1),
+                         plain_ms=cuda_ms(lambda: homography.warp_perspective_batch(
+                             img, Hs, (CROP, CROP))),
+                         library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=by))
+        if not err <= 1e-4:
+            raise AssertionError(f"K1 on a {W}x{H} photo differs from its plain version: {err}")
+    return rows
+
+
+def tsv_phase(dev, kernels_mod, smi: str) -> tuple[dict, tuple]:
+    """Phase 4: the head-only retrieval chain: ``generate_tsv``'s steps over the
+    committed kashtanka corpus (320 x 320) and over camera-sized photos written
+    at run time, each on the card (the launch counts read around them) and on
+    the CPU from the same weights, and their agreement; two planted faults
+    that the agreement must catch; K1 at B = 1 on camera photos against its
+    plain version. Returns the launch counts of both card runs and the card's
+    models."""
+    import torch
+    from pets_face_recognition_tpu_torch import native
+    from pets_face_recognition_tpu_torch.pipelines import (build_head_pipeline,
+                                                           build_retrieval_models)
+
+    t = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t
+    paths = sorted(CORPUS.rglob("*.jpg"))
+    variants = sorted(VARIANTS.glob("*.jpg"))
+    t = time.perf_counter()
+    make_photo_corpus(PHOTOS)
+    photo_paths = sorted(PHOTOS.rglob("*.jpg"))
+    emit("tsv_probe", route=native.route(), native_library=lib.name, native_build_s=build_s,
+         probe=probe_host(), photos_written_s=time.perf_counter() - t,
+         photo_mb=[round(p.stat().st_size / 2 ** 20, 3) for p in photo_paths],
+         decode_vs_pil_libjpeg={
+             "corpus": decode_vs_pil(paths), "photos": decode_vs_pil(photo_paths),
+             **{p.stem: decode_vs_pil([p]) for p in variants}}, card=smi)
+
+    # random weights rarely score above the reference's 0.9
+    os.environ["PFR_RETRIEVAL_THR"] = "0.0"
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    cpu = torch.device("cpu")
+    models = {"card": build_retrieval_models(dev, seed=0), "cpu": build_retrieval_models(cpu, 0)}
+    heads = {"card": build_head_pipeline(*models["card"], device=dev),
+             "cpu": build_head_pipeline(*models["cpu"], device=cpu)}
+    total = {k: 0 for k in kernels_mod.launch_counts()}
+    refs = {}
+    for name, root in (("corpus", CORPUS), ("photos", PHOTOS)):
+        gpu = run_chain(root, dev, heads["card"], kernels_mod, f"{name}_gpu")
+        ref = refs[name] = run_chain(root, cpu, heads["cpu"], kernels_mod, f"{name}_cpu")
+        diff = chain_diff(gpu, ref)
+        k = gpu["launches"]
+        n = len(gpu["rec"])
+        n_valid = sum(r["valid"] for r in gpu["rec"])
+        emit("tsv", corpus=name, images=n, valid_images=n_valid, queries=len(gpu["rows"]),
+             chain_s=gpu["chain_s"], images_per_s=n / gpu["chain_s"],
+             chain_s_cpu=ref["chain_s"], launches=k, card=smi,
+             by_size=split_by_size(gpu),
+             loop_rest_ms_per_image=(gpu["chain_s"] - sum(r["decode"] + r["head"]
+                                                          for r in gpu["rec"])) / n * 1e3,
+             vs_cpu=diff, budget=dict(max_crop_err=CROP_DRIFT, max_embedding_rel_err=EMB_DRIFT,
+                                      max_score_drift=SCORE_DRIFT, max_flip_gap=SCORE_DRIFT),
+             same_queries=[r[0] for r in gpu["rows"]] == [r[0] for r in ref["rows"]],
+             same_answers=[r[4] for r in gpu["rows"]] == [r[4] for r in ref["rows"]],
+             tsv=str(OUT_DIR / f"pred_scores_test2_{name}_gpu.tsv"),
+             rows=[list(r[:4]) for r in gpu["rows"]])
+        if diff["breaks"]:
+            raise AssertionError(f"{name}: the card's chain differs from the CPU's in "
+                                 f"{diff['breaks']}: {diff}")
+        if not gpu["rows"]:
+            raise AssertionError(f"{name}: no query was scored")
+        if k["warp_perspective_batch"] != n_valid:
+            raise AssertionError(f"{name}: K1 launched {k['warp_perspective_batch']} times "
+                                 f"for {n_valid} valid images")
+        if not (k["nms_keep_sorted_batch"] and k["multilevel_roi_align"]):
+            raise AssertionError(f"{name}: K2 or K3 not launched on the chain: {k}")
+        total = {key: total[key] + k[key] for key in total}
+
+    # the gate against planted faults, on the camera photos: each must break it
+    det, dog, cat = models["card"]
+    faults = {}
+    for fault, head in (("embedders_swapped", build_head_pipeline(det, cat, dog, device=dev)),
+                        ("map_shifted_1px", shifted_head(det, dog, cat, dev))):
+        faults[fault] = chain_diff(run_chain(PHOTOS, dev, head, kernels_mod, fault),
+                                   refs["photos"])
+        faults[fault].pop("near_tie")
+    emit("tsv_faults", corpus="photos", faults=faults)
+    missed = [f for f, d in faults.items() if not d["breaks"]]
+    if missed:
+        raise AssertionError(f"the card-against-CPU gate misses planted faults: {missed}")
+
+    first = {}
+    for p, size in photo_sizes().items():
+        first.setdefault(size, p)
+    emit("k1_photo", rows=k1_photo_rows(dev, [first[(4032, 3024)], first[(960, 1280)]]),
+         card=smi)
+    return total, models["card"]
+
+
+@contextlib.contextmanager
+def pil_route():
+    """Decode through PIL (the port's fallback for hosts without a native
+    route) instead of the native route, to measure the two."""
+    from pets_face_recognition_tpu_torch import native
+
+    is_available = native.is_available
+    native.is_available = lambda: False
+    try:
+        yield
+    finally:
+        native.is_available = is_available
+
+
+def stream_rate(service, paths, windows: int) -> dict:
+    """``windows`` passes of ``service.stream`` over ``paths``: crops/s over all
+    of them (every path over the whole time), and each pass's."""
+    times, n = [], 0
+    for _ in range(windows):
+        t = time.perf_counter()
+        for chunk, _, _ in service.stream(paths):
+            n += len(chunk)
+        times.append(time.perf_counter() - t)
+    if n != windows * len(paths):
+        raise AssertionError(f"stream returned {n} of {windows * len(paths)} paths")
+    return dict(paths=len(paths), windows=windows, crops_per_s=n / sum(times),
+                crops_per_s_each=[len(paths) / x for x in times])
+
+
+def jpeg_stream_phase(dev, smi: str, detector, embedder) -> None:
+    """Crops/s from JPEG files: ``EmbeddingService.stream`` at B = 32 over the
+    committed corpus repeated to 1024 paths and over camera photos of each
+    size, decoding overlapped on its producer thread, through the native
+    route and through PIL; beside them, each route's decode of one photo and
+    the native decode of one batch alone."""
+    import torch
+    from pets_face_recognition_tpu_torch import native
+    from pets_face_recognition_tpu_torch.serving import EmbeddingService
+
+    corpus = sorted(CORPUS.rglob("*.jpg"))
+    sets = {"320x320": (corpus * (N_STREAM // len(corpus) + 1))[:N_STREAM]}
+    photos = {}
+    for p, size in photo_sizes().items():
+        photos.setdefault(size, []).append(p)
+    for size, ps in photos.items():
+        sets["x".join(map(str, size))] = (ps * (N_STREAM_PHOTOS[size] // len(ps) + 1)
+                                          )[:N_STREAM_PHOTOS[size]]
+    service = EmbeddingService(detector, embedder, device=dev, batch_size=B_STREAM)
+    for _ in service.stream(corpus[:B_STREAM]):
+        pass
+    torch.cuda.synchronize()
+    decode_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        native.decode_batch(corpus[:B_STREAM], service.input_size)
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+    single_ms = {}
+    for name, ps in sets.items():
+        one = {}
+        for route, fn in ((native.route(), native.decode_single), ("pil", pil_decode)):
+            ts = []
+            for p in ps[:4]:
+                t = time.perf_counter()
+                fn(p)
+                ts.append((time.perf_counter() - t) * 1e3)
+            one[route] = statistics.median(ts)
+        single_ms[name] = one
+    batch_ms = {}
+    for name, ps in sets.items():
+        t = time.perf_counter()
+        native.decode_batch(ps[:B_STREAM], service.input_size)
+        batch_ms[name] = (time.perf_counter() - t) * 1e3
+    # one pass of the 1024 corpus paths; two of the shorter camera sets
+    rates = {name: stream_rate(service, ps, 1 if len(ps) >= N_STREAM else 2)
+             for name, ps in sets.items()}
+    with pil_route():
+        rates_pil = {name: stream_rate(service, ps[:N_STREAM_PIL[name]], 1)
+                     for name, ps in sets.items()}
+    emit("jpeg_stream", batch=B_STREAM, route=native.route(), crops_per_s={
+        name: r["crops_per_s"] for name, r in rates.items()}, by_size=rates,
+        pil_route=rates_pil, decode_one_photo_ms=single_ms,
+        decode_batch_ms=statistics.median(decode_ms), decode_batch_ms_by_size=batch_ms,
+        card=smi,
+        precision="float32: TF32 off inside embed_batch")
+
+
+def retrieval_phase(dev, smi: str) -> None:
+    """Retrieval ms: ``calc_scores`` on seeded vectors, 1000 query cards
+    against 10000 gallery cards of 1-4 images each (types 1 and 2 at random),
+    and the centroid product alone (CUDA events)."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import retrieval
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+
+    rng = np.random.RandomState(0)
+
+    def cards(prefix, n):
+        sizes = rng.randint(1, 5, n)
+        types = rng.randint(1, 3, n)
+        vecs = rng.randn(int(sizes.sum()), D_EMB).astype(np.float32)
+        ends = np.cumsum(sizes)
+        return [retrieval.CardRecord(f"{prefix}{i}", int(types[i]), vecs[e - s:e],
+                                     np.zeros((0, D_EMB), np.float32))
+                for i, (s, e) in enumerate(zip(sizes, ends))]
+
+    queries, gallery = cards("q", Q_RETRIEVAL), cards("g", G_RETRIEVAL)
+    retrieval.calc_scores(queries[:10], gallery[:100], dev)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        rows = retrieval.calc_scores(queries, gallery, dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    if len(rows) != Q_RETRIEVAL or not all(len(r[4].split(",")) == 100 for r in rows):
+        raise AssertionError("retrieval did not rank 100 cards for every query")
+    q = torch.from_numpy(retrieval.build_card_matrix(queries, D_EMB)[0]).to(dev)
+    g = torch.from_numpy(retrieval.build_card_matrix(gallery, D_EMB)[0]).to(dev)
+    with float32_matmuls():
+        product_ms = cuda_ms(lambda: torch.matmul(q, g.T))
+    emit("retrieval", queries=Q_RETRIEVAL, gallery=G_RETRIEVAL, dim=D_EMB,
+         gallery_images=sum(len(c.head_vectors) for c in gallery), calc_scores_ms=times,
+         ms=statistics.median(times), product_all_cards_ms=product_ms,
+         product_flops=2 * Q_RETRIEVAL * G_RETRIEVAL * D_EMB, card=smi,
+         note="calc_scores splits by animal type: two products of about half the "
+              "queries by half the gallery, head and body each (body centroids are zero)")
+
+
 def train_phase(dev, kernels_mod, smi: str) -> dict:
     """Phase 4: full-width training steps on one synthetic batch."""
     import torch
@@ -932,13 +1517,18 @@ def main() -> int:
     rows.update(train_kernel_phase(dev))   # K2 and K3 at the training shapes, K4, K5
     edge_phase(dev)
     launches = e2e_phase(dev, kernels, smi)
+    tsv_launches, (detector, dog, _) = tsv_phase(dev, kernels, smi)
+    jpeg_stream_phase(dev, smi, detector, dog)
+    del detector, dog
+    retrieval_phase(dev, smi)
     train_launches = train_phase(dev, kernels, smi)
     train_vs_cpu_phase(dev)
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
         table.append(dict(rows[name], name=name, route="cuda",
                           source=f"pets_face_recognition_tpu_torch/{src}", replaces=replaces,
-                          launches=sum(launches[k] + train_launches[k] for k in counted)))
+                          launches=sum(launches[k] + tsv_launches[k] + train_launches[k]
+                                       for k in counted)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit("done", seconds=time.perf_counter() - t_start)

@@ -1,0 +1,128 @@
+"""Head-only retrieval over a kashtanka test split -> a predictions tsv
+(counterpart of the JAX ``generate_tsv_to_reproduce1.py`` run with
+``body=False``, which is ``generate_tsv_to_reproduce2.py``).
+
+    python -m pets_face_recognition_tpu_torch.generate_tsv [--data <test>] \\
+        [--output pred_scores_test2.tsv] [--stock-preds preds.tsv] \\
+        [--cache db.pickle] [--seed 0] [--device cuda]
+
+Walks ``<test>/{found,lost}/{<same name>,<extra>}/<card>/{card.json,*.jpg}``,
+reads each photo with ``native.decode_single`` (PIL where no native route is
+installed or the file is not a JPEG), embeds it with the head pipeline
+(``pipelines.build_head_pipeline``: detect, align with kernel K1, embed with
+the dog or cat ResNet-50), scores every lost/found query card against its
+gallery by card centroids, keeps the top 100, backfills queries without a
+prediction from the stock tsv when it exists, and writes the tsv. The models
+are the serving detector and two embedders with weights random from
+``--seed``: no trained torch weights exist. ``PFR_RETRIEVAL_THR`` sets the
+detection threshold (default 0.9); ``PFR_SCORES_DUMP=<path.npz>`` also
+writes every query's full score row.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+
+from . import native
+from .device import resolve_device
+from .pipelines import build_head_pipeline, build_retrieval_models
+from .retrieval import (CardRecord, backfill_missing, create_table, write_scores_dump,
+                        write_tsv)
+
+OUTPUT = "pred_scores_test2.tsv"
+# the committed miniature kashtanka test split (32 photos)
+DEFAULT_DATA = Path(__file__).resolve().parent / "testdata" / "kashtanka_test"
+
+
+def read_image(path: Path) -> np.ndarray:
+    """An ``(H, W, 3)`` uint8 RGB photo; ``OSError`` if it does not decode."""
+    if native.is_available() and path.suffix.lower() in (".jpg", ".jpeg"):
+        img = native.decode_single(path)
+        if img is None:
+            raise OSError(f"cannot decode {path}")
+        return img
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.array(im.convert("RGB"))
+
+
+def process_base(base: Path, head_pipeline: Callable) -> list[CardRecord]:
+    """Each card folder of ``base`` -> a record of its images' head vectors;
+    cards where no image gave one are left out."""
+    records = []
+    for folder in sorted(base.iterdir()):
+        if not folder.is_dir():
+            continue
+        type_ = int(json.loads((folder / "card.json").read_text())["animal"])
+        head = []
+        for p in folder.iterdir():
+            if p.name == "card.json":
+                continue
+            v = head_pipeline(read_image(p), type_)
+            if v is not None:
+                head.append(np.asarray(v))
+        if head:
+            records.append(CardRecord(name=folder.name, type=type_, head_vectors=np.stack(head),
+                                      body_vectors=np.zeros((0, 512))))
+    return records
+
+
+def prepare_data(path: Path, head_pipeline: Callable, cache: Path | None = None) -> dict:
+    """``{found, lost}`` -> ``(query records, gallery records)``: the folder
+    named as its parent holds the queries, the other one the gallery. With
+    ``cache``, a pickle that this function wrote before is read instead."""
+    if cache is not None and cache.exists():
+        with open(cache, "rb") as f:
+            return pickle.load(f)
+    if not ((path / "found").exists() and (path / "lost").exists()):
+        raise FileNotFoundError(f"{path}: expected found/ and lost/")
+    db = {}
+    for big_folder in ((path / "found").resolve(), (path / "lost").resolve()):
+        initial_base = big_folder / big_folder.name
+        extra_base = [p for p in big_folder.iterdir() if p.resolve() != initial_base][0]
+        db[big_folder] = (process_base(initial_base, head_pipeline),
+                          process_base(extra_base, head_pipeline))
+    if cache is not None:
+        with open(cache, "wb") as f:
+            pickle.dump(db, f)
+    return db
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--data", type=Path, default=DEFAULT_DATA,
+                        help="kashtanka test split (default: the package's miniature)")
+    parser.add_argument("--output", type=Path, default=Path(OUTPUT))
+    parser.add_argument("--stock-preds", type=Path, default=Path("preds.tsv"))
+    parser.add_argument("--cache", type=Path, default=None,
+                        help="pickle cache of the embedding DB")
+    parser.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    head_pipeline = build_head_pipeline(*build_retrieval_models(dev, args.seed), device=dev)
+    db = prepare_data(args.data.resolve(), head_pipeline, args.cache)
+    dump_path = os.environ.get("PFR_SCORES_DUMP")
+    dump = {} if dump_path else None
+    rows = create_table(db, dev, dump)
+    if args.stock_preds.exists():
+        rows = backfill_missing(rows, args.stock_preds)
+    args.output.parent.mkdir(parents=True, exist_ok=True)
+    write_tsv(rows, args.output)
+    if dump is not None:
+        print(f"scores dump: {len(dump)} queries -> {write_scores_dump(dump, dump_path)}")
+    print(f"wrote {args.output} ({len(rows)} rows)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

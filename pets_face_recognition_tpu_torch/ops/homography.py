@@ -77,10 +77,11 @@ def _bilinear_sample(images: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
     zero = torch.zeros((), device=images.device)
 
     def tap(yy, xx):
-        # bounds on the float coordinates, then a safe int cast
+        # bounds on the float coordinates (false for NaN, as from a degenerate
+        # map), then index 0 where out of bounds, as K1 does
         inb = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
-        yi = yy.clamp(0, H - 1).long()
-        xi = xx.clamp(0, W - 1).long()
+        yi = torch.where(inb, yy, 0.0).long()
+        xi = torch.where(inb, xx, 0.0).long()
         vals = flat[(bofs + yi * W + xi).reshape(-1)].reshape(*yy.shape, C)
         return torch.where(inb[..., None], vals, zero)
 

@@ -1,0 +1,66 @@
+"""The head retrieval pipeline: photo -> ``Preproc3`` -> the species' embedder
+-> a 512-d vector (counterpart of the head half of the JAX
+``configs/retrieval_common.py::build_pipelines``).
+
+The models come in as arguments: one keypoint detector and two embedders, for
+dogs (animal type 1) and cats (type 2). :func:`build_retrieval_models` makes
+them at full width with seeded random weights (no trained torch weights
+exist); ``weights.retrieval_state_dicts`` carries the JAX package's over.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from .device import float32_matmuls, resolve_device
+from .models.embedder import resnet50_embedder
+from .preprocessor import Preproc3
+from .serving import build_serving_models
+from .weights import init_random_
+
+DOG, CAT = 1, 2
+
+
+def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
+                           ) -> tuple[nn.Module, nn.Module, nn.Module]:
+    """``(detector, dog_embedder, cat_embedder)``: the serving detector of
+    ``serving.build_serving_models`` and two ResNet-50 -> 512 embedders, with
+    weights from ``seed``, ``seed + 1`` and ``seed + 2``, in eval mode."""
+    dev = resolve_device(device)
+    detector, dog, _ = build_serving_models(dev, seed)
+    cat = init_random_(resnet50_embedder(512), seed + 2).eval().requires_grad_(False).to(dev)
+    return detector, dog, cat
+
+
+def build_head_pipeline(detector: nn.Module, dog_embedder: nn.Module, cat_embedder: nn.Module,
+                        device: str | torch.device = "cuda",
+                        ) -> Callable[[np.ndarray, int], np.ndarray | None]:
+    """``head_pipeline(img, animal_type)``: detect the head, align it, embed it
+    with the species' embedder, and return the ``(512,)`` float32 vector, or
+    ``None`` when the image fails (``AssertionError``, ``ValueError`` or
+    ``OSError``, as the reference's loop skips them).
+
+    The detection threshold is ``PFR_RETRIEVAL_THR`` (default 0.9, the
+    reference's; lower it for random or weak detectors).
+    """
+    dev = resolve_device(device)
+    thr = float(os.environ.get("PFR_RETRIEVAL_THR", 0.9))
+    preproc3 = Preproc3(detector, thr=thr, device=dev)
+    scale = torch.full((), 255.0, device=dev)  # a true division, as in Preproc3
+
+    @torch.inference_mode()
+    @float32_matmuls()
+    def head_pipeline(img: np.ndarray, animal_type: int) -> np.ndarray | None:
+        try:
+            aligned = preproc3(img)
+        except (AssertionError, ValueError, OSError):
+            return None
+        fe = dog_embedder if animal_type == DOG else cat_embedder
+        return fe(aligned[None] / scale)[0].cpu().numpy()
+
+    return head_pipeline

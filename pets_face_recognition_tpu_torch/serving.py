@@ -1,17 +1,28 @@
-"""Serving: batched detect -> align -> embed (counterpart of the JAX ``serving.py``
-``EmbeddingService._embed_impl`` and of ``bench.py::build_serving_models``).
+"""Serving: batched detect -> align -> embed over decoded images or JPEG files
+(counterpart of the JAX ``serving.py`` and of ``bench.py::build_serving_models``).
 
-One synchronous call per batch, no thread and no queue: ``embed_batch`` takes
-uint8 NHWC images and a decode-ok mask and returns ``(B, 512)`` embeddings and
-a ``(B,)`` validity mask. Validity follows the reference's assert-and-skip: the
-top detection must score above ``score_thr`` and its landmarks, rounded to the
-pixel grid, must be pairwise more than 5 px apart. Everything
-runs in float32, with TF32 off inside ``embed_batch`` whatever the caller set. On a CUDA device the path goes through kernels K2 and K3 (in
-the detector) and K1 (in ``align_crop``).
+``embed_batch`` takes uint8 NHWC images and a decode-ok mask and returns
+``(B, 512)`` embeddings and a ``(B,)`` validity mask. Validity follows the
+reference's assert-and-skip: the top detection must score above
+``score_thr`` and its landmarks, rounded to the pixel grid, must be pairwise
+more than 5 px apart. Everything runs in float32, with TF32 off inside
+``embed_batch`` whatever the caller set. On a CUDA device the path goes
+through kernels K2 and K3 (in the detector) and K1 (in ``align_crop``).
+
+``stream`` runs ``embed_batch`` over image files: one producer thread decodes
+and letterboxes the next batches (``native.decode_batch``, PIL where no
+native route is installed) into a queue of ``prefetch`` batches while the
+device embeds the current one; the tail batch is padded with its last path.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from pathlib import Path
+from typing import Iterable, Iterator, Sequence
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -19,6 +30,7 @@ from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
 from .models.rcnn import keypointrcnn_resnet50_fpn
 from .ops.homography import align_crop
+from .utils.collate import letterbox_image
 from .weights import init_random_
 
 DEFAULT_BASE_PTS = ((70.0, 92.0), (154.0, 92.0), (112.0, 160.0))
@@ -47,18 +59,54 @@ def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
     return detector, embedder, torch.tensor(DEFAULT_BASE_PTS, device=dev)
 
 
+def _decode_batch_host(paths: Sequence[Path], input_size: tuple[int, int]):
+    """Decode and letterbox image files: ``(images (N, H, W, 3) uint8, ok (N,),
+    scales (N,), pads (N, 2))``. The native route where one is installed and
+    every file is a JPEG, else PIL with :func:`utils.collate.letterbox_image`;
+    a file that does not decode comes back with ``ok`` False."""
+    from . import native
+
+    if native.is_available() and all(str(p).lower().endswith((".jpg", ".jpeg"))
+                                     for p in paths):
+        return native.decode_batch(list(paths), input_size)
+
+    from PIL import Image
+
+    H, W = input_size
+    images = np.zeros((len(paths), H, W, 3), np.uint8)
+    ok = np.zeros(len(paths), bool)
+    scales = np.zeros(len(paths), np.float32)
+    pads = np.zeros((len(paths), 2), np.float32)
+    for i, p in enumerate(paths):
+        try:
+            with Image.open(p) as im:
+                img = torch.from_numpy(np.array(im.convert("RGB")))
+        except OSError:
+            continue
+        canvas, s, (px, py) = letterbox_image(img, (H, W))
+        images[i] = canvas.numpy()
+        ok[i] = True
+        scales[i] = s
+        pads[i] = (px, py)
+    return images, ok, scales, pads
+
+
 class EmbeddingService:
-    """Synchronous head-embedding service over decoded uint8 image batches."""
+    """Head-embedding service over decoded uint8 image batches or image files."""
 
     def __init__(self, detector: nn.Module, embedder: nn.Module,
                  base_pts: torch.Tensor | None = None, score_thr: float = 0.9,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", batch_size: int = 64,
+                 input_size: tuple[int, int] = (320, 320), prefetch: int = 2):
         self.device = resolve_device(device)
         self.detector = detector
         self.embedder = embedder
         self.base_pts = torch.tensor(DEFAULT_BASE_PTS) if base_pts is None else base_pts
         self.base_pts = self.base_pts.to(self.device, torch.float32)
         self.score_thr = score_thr
+        self.batch_size = batch_size
+        self.input_size = tuple(input_size)
+        self.prefetch = prefetch
 
     @torch.inference_mode()
     @float32_matmuls()
@@ -79,3 +127,55 @@ class EmbeddingService:
         crops = align_crop(imgs, kps, self.base_pts, CROP_SIZE)
         emb = self.embedder(crops)
         return emb, ok.to(self.device) & det_ok & kp_ok
+
+    def stream(self, paths: Iterable[str | Path]
+               ) -> Iterator[tuple[list[Path], np.ndarray, np.ndarray]]:
+        """Yield ``(batch_paths, embeddings (n, 512), valid (n,))`` per batch of
+        ``batch_size`` files, decoding ahead on one producer thread. Files
+        that do not decode come back invalid."""
+        paths = [Path(p) for p in paths]
+        batches = [paths[i:i + self.batch_size] for i in range(0, len(paths), self.batch_size)]
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def produce():
+            try:
+                for chunk in batches:
+                    padded = chunk + [chunk[-1]] * (self.batch_size - len(chunk))
+                    images, ok, _, _ = _decode_batch_host(padded, self.input_size)
+                    q.put((chunk, images, ok))
+                    if stop.is_set():
+                        return
+                q.put(done)
+            except Exception as e:  # handed to the consumer, which raises it
+                q.put(e)
+
+        producer = threading.Thread(target=produce, name="decode", daemon=True)
+        producer.start()
+        try:
+            while (item := q.get()) is not done:
+                if isinstance(item, Exception):
+                    raise item
+                chunk, images, ok = item
+                emb, valid = self.embed_batch(torch.from_numpy(images), torch.from_numpy(ok))
+                n = len(chunk)
+                yield chunk, emb[:n].cpu().numpy(), valid[:n].cpu().numpy()
+        finally:
+            stop.set()
+            while producer.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            producer.join()
+
+    def embed_paths(self, paths: Sequence[str | Path]) -> tuple[np.ndarray, np.ndarray]:
+        """Embed every file: ``(embeddings (N, 512), valid (N,))``."""
+        embs, valids = [], []
+        for _, e, v in self.stream(paths):
+            embs.append(e)
+            valids.append(v)
+        if not embs:
+            return np.zeros((0, 512), np.float32), np.zeros(0, bool)
+        return np.concatenate(embs), np.concatenate(valids)

@@ -204,3 +204,13 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
             draw(m.running_mean, lambda s: torch.randn(s, generator=g) * 0.1)
             draw(m.running_var, lambda s: torch.rand(s, generator=g) + 0.5)
     return module
+
+
+def retrieval_state_dicts(detector_vars: Mapping, dog_vars: Mapping, cat_vars: Mapping,
+                          ) -> tuple[dict[str, torch.Tensor], ...]:
+    """The JAX head retrieval chain's variables -> ``(detector, dog embedder,
+    cat embedder)`` ``state_dict``s for ``pipelines.build_retrieval_models``'
+    modules: one keypoint R-CNN and two ``EmbeddingModel``s."""
+    return (to_tensors(detection_state_dict(detector_vars)),
+            to_tensors(embedder_state_dict(dog_vars)),
+            to_tensors(embedder_state_dict(cat_vars)))

@@ -8,12 +8,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from pets_face_recognition_tpu_torch import resolve_device
+from pets_face_recognition_tpu_torch import generate_tsv, resolve_device, retrieval
 from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
 from pets_face_recognition_tpu_torch.kernels import _build
+from pets_face_recognition_tpu_torch.pipelines import build_retrieval_models
+from pets_face_recognition_tpu_torch.preprocessor import Preproc3
 from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
 
 torch.set_num_threads(1)
@@ -39,15 +42,29 @@ def test_importing_the_port_loads_no_jax():
         "serving", "device", "weights", "kernels", "ops.nms", "ops.roi_align", "ops.homography",
         "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder", "losses", "data",
         "utils.optim", "engine.train_state", "engine.detector_controller",
-        "engine.trainer", "profile_serving", "kernel_ab")]
+        "engine.trainer", "profile_serving", "kernel_ab", "retrieval", "native",
+        "utils.collate", "preprocessor", "preprocessor.align", "pipelines", "generate_tsv")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-              " or m.split('.')[0] == 'pets_face_recognition_tpu']\n"
+              " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL')]\n"
               "assert not bad, bad\nprint('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+NOT_ON_THE_CARD_PATH = re.compile(r"^(\s*)(import|from)\s+(cv2|pandas|PIL)\b", re.MULTILINE)
+# PIL only as the CPU fallback where no native JPEG route is installed, and in
+# chip_smoke.py to measure the native decode against PIL's libjpeg where PIL is
+PIL_FALLBACKS = {"serving.py", "generate_tsv.py", "chip_smoke.py"}
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_cv2_pandas_or_pil_on_the_card_path(path):
+    for indent, _, name in NOT_ON_THE_CARD_PATH.findall(path.read_text()):
+        assert name == "PIL" and indent and path.name in PIL_FALLBACKS, \
+            f"{path} imports {name}"
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -60,6 +77,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         EmbeddingService(torch.nn.Identity(), torch.nn.Identity())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KeyPointsController().init_state(0, model=torch.nn.Linear(1, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_retrieval_models()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Preproc3(torch.nn.Identity())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        retrieval.pairwise_card_scores(np.zeros((1, 2), np.float32), np.zeros((1, 2), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_tsv.main(["--data", str(REPO)])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
