@@ -7,7 +7,8 @@ Phases, each printing one JSON line (or one per kernel):
 
 0. device: the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions; exits 1 without a CUDA device (it never falls back to the CPU);
-1. build: the one ``nvcc`` call over ``pets_face_recognition_tpu_torch/csrc``;
+1. build: ``nvcc`` over ``pets_face_recognition_tpu_torch/csrc``, one process a
+   source, all started together, then one link;
 2. kernel: K1 warp (B = 8 and 32), K2 NMS and K3 RoIAlign at the serving
    path's shapes (B = 8); then K2 at the training budget (80 groups of 2000
    boxes), the two K5 entry points over the same kernels, and K3 and K4
@@ -73,9 +74,28 @@ Phases, each printing one JSON line (or one per kernel):
    the CPU: losses within 1e-3 relative, every gradient within 5e-3 relative
    in norm.
 
-Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass; ``max_abs_err`` is each
+The MobileNetV3-Large keypoint R-CNN (the JAX package's default serving
+detector: p4, p5 and a max-pool p6, 15 anchors a location) has phases of its
+own: mobile_kernel, K3 (7 x 7, 14 x 14), K4 and K4's pre-pass on p4 and p5
+(strides 16 and 32, ``min_level`` 4) at the training step's RoI counts, each
+against its plain version (K4 also bit-identical across two launches);
+mobile_e2e, serving as in phase 3 with ``detector_kind="mobile"``, timed at
+B = 32 and at B = 128 (the JAX ``bench.py`` default), with peak memory;
+mobile_tsv, the chain with ``PFR_KEYPOINT_ARCH=mobile`` over the committed
+corpus on the card and on the CPU under ``tsv``'s gates; mobile_train, the
+keypoint config's ``arch="mobile"`` steps (live BatchNorm, momentum 0.9) as
+in phase 5, whose running statistics must move in every step; and
+mobile_train_vs_cpu, a reduced live-BN step on the card and on the CPU:
+losses within 1e-3, running statistics within 1e-4, and gradients within
+5e-3 relative in norm or within twice the card's own spread when its input
+is rounded differently (the step is ill-conditioned in float32).
+
+Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
+pre-pass again on the mobile pyramid, ``_mobile``; ``max_abs_err`` is each
 row's largest absolute difference from its plain version on the card, 0 or 1
-for a keep mask, an integer for the pre-pass), the ``nvidia-smi`` line, and last
+for a keep mask, an integer for the pre-pass; ``launches`` sums every path's
+counts, the ``_mobile`` rows the mobile paths' alone), the ``nvidia-smi``
+line, and last
 ``{"ok": true, "device": {...}}``, printed only if every phase passed. The
 script leaves torch's TF32 defaults as they are: the entry points
 (``embed_batch``, ``train_step``) turn TF32 off inside themselves, a forward
@@ -103,6 +123,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 B_KERNELS = 8                      # batch of the kernel phase
 B_TIMED = 32                       # batch of the end-to-end timing
+B_BENCH = 128                      # the JAX bench.py's --batch-size default
 IMAGE = 320
 CROP = 224
 B_TRAIN = 16                       # keypoint config: train_batch_size
@@ -411,11 +432,34 @@ def train_kernel_phase(dev) -> dict[str, dict]:
     # K3 / K4: p2..p5 of 16 images of 640 x 640, C = 256; 512 box RoIs an image
     # at 7 x 7 and 128 keypoint RoIs an image at 14 x 14, over every level,
     # with RoIs off the image's edges and 5:1 ones
-    C, strides = 256, (4, 8, 16, 32)
+    rows.update(roi_kernel_rows(dev, g, (4, 8, 16, 32), 2, 5))
+    # K5 is one row: the grid entry point at the training shapes; the
+    # single-group entry point's numbers are in its own phase line
+    single = rows.pop("nms_keep_sorted")
+    rows["nms_keep_sorted_grid"]["max_abs_err"] = max(rows["nms_keep_sorted_grid"]["max_abs_err"],
+                                                      single["max_abs_err"])
+    return rows
+
+
+def roi_kernel_rows(dev, g, strides, min_level: int, max_level: int,
+                    label: str = "") -> dict[str, dict]:
+    """K3, K4 and K4's pre-pass on the levels ``p{min_level}..p{max_level}``
+    (``strides``) of B_TRAIN images of IMAGE_TRAIN x IMAGE_TRAIN, C = 256, at
+    the training step's RoI counts (512 box RoIs an image at 7 x 7, 128
+    keypoint RoIs at 14 x 14, off the edges and 5:1 ones among them), each
+    against its plain version and timed: rows ``multilevel_roi_align``,
+    ``multilevel_roi_align_backward`` and ``roi_footprints``, each summed
+    over the two RoI sets."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, device_us, random_rois
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    C, n_levels = 256, len(strides)
     levels = [torch.randn(B_TRAIN, IMAGE_TRAIN // st, IMAGE_TRAIN // st, C, generator=g).to(dev)
               for st in strides]
     shapes = [tuple(f.shape) for f in levels]
     level_bytes = sum(f.numel() for f in levels) * 4
+    span = dict(min_level=min_level, max_level=max_level)
     fwd = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
     bwd = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
     pre = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
@@ -423,24 +467,24 @@ def train_kernel_phase(dev) -> dict[str, dict]:
         n = B_TRAIN * n_per
         rois = random_rois(g, n, IMAGE_TRAIN, 5.0).to(dev)
         bidx = torch.arange(B_TRAIN, device=dev).repeat_interleave(n_per).to(torch.int32)
-        per_level = torch.bincount(roi_align.roi_levels(rois, 2, 5).long(), minlength=4)
+        lvl = roi_align.roi_levels(rois, min_level, max_level)
+        per_level = torch.bincount(lvl.long(), minlength=n_levels)
         if not bool((per_level > 0).all()):
             raise AssertionError(f"RoIs miss a level: {per_level.tolist()}")
         args = (levels, rois, bidx, (out, out), strides)
-        got = roi_align.multilevel_roi_align_cuda(*args)
-        want = roi_align.multilevel_roi_align(*args)
+        got = roi_align.multilevel_roi_align_cuda(*args, **span)
+        want = roi_align.multilevel_roi_align(*args, **span)
         torch.cuda.synchronize()
         err_f = max_err(got, want)
         del want
         grad = torch.randn(n, out, out, C, generator=g).to(dev)
         bargs = (grad, shapes, rois, bidx, (out, out), strides)
         # K4's pre-pass kernel against its plain twin: the same integers
-        lvl = roi_align.roi_levels(rois, 2, 5)
         pargs = (shapes, rois, bidx, lvl, (out, out), strides)
         key, fp = roi_align.roi_footprints_cuda(*pargs)
         b64 = bidx.long()
         want_key = torch.where((b64 >= 0) & (b64 < B_TRAIN), lvl.long() * B_TRAIN + b64,
-                               torch.full_like(b64, 4 * B_TRAIN))
+                               torch.full_like(b64, n_levels * B_TRAIN))
         plain_pre = lambda: (want_key.to(torch.int32),  # noqa: E731
                              roi_align.roi_footprints(shapes, rois, lvl, (out, out), strides))
         want_fp = plain_pre()[1]
@@ -450,21 +494,21 @@ def train_kernel_phase(dev) -> dict[str, dict]:
                   plain=cuda_ms(plain_pre))
         p_bytes = n * (16 + 4 + 4 + 4 + 16)
         b, by = bound_ms(p_bytes, n * 2 * 12)
-        emit("kernel", name=f"K4 pre-pass roi_footprints {out}x{out}", rois=n,
-             mismatches=pre_diff, max_abs_err=pre_err, ms=tp["ms"], plain_ms=tp["plain"],
-             library_ms=None,
-             library="none", bound_ms=b, bound_by=by)
+        emit("kernel", name=f"K4 pre-pass roi_footprints {out}x{out}{label}", rois=n,
+             levels=[min_level, max_level], mismatches=pre_diff, max_abs_err=pre_err,
+             ms=tp["ms"], plain_ms=tp["plain"], library_ms=None, library="none",
+             bound_ms=b, bound_by=by)
         if pre_diff:
-            raise AssertionError(f"K4 pre-pass {out}x{out} differs from its plain twin in "
-                                 f"{pre_diff} integers")
+            raise AssertionError(f"K4 pre-pass {out}x{out}{label} differs from its plain twin "
+                                 f"in {pre_diff} integers")
         pre["ms"] += tp["ms"]
         pre["plain"] += tp["plain"]
         pre["bytes"] += p_bytes
         pre["flops"] += n * 2 * 12
         pre["err"] = max(pre["err"], pre_err)
-        got_b = roi_align.multilevel_roi_align_backward_cuda(*bargs)
-        again_b = roi_align.multilevel_roi_align_backward_cuda(*bargs)
-        want_b = roi_align.multilevel_roi_align_backward(*bargs)
+        got_b = roi_align.multilevel_roi_align_backward_cuda(*bargs, **span)
+        again_b = roi_align.multilevel_roi_align_backward_cuda(*bargs, **span)
+        want_b = roi_align.multilevel_roi_align_backward(*bargs, **span)
         torch.cuda.synchronize()
         err_b = max(max_err(a, w) for a, w in zip(got_b, want_b))
         scale_b = max(float(w.abs().max()) for w in want_b)
@@ -475,37 +519,42 @@ def train_kernel_phase(dev) -> dict[str, dict]:
         # float32 rounding of sums of up to a few hundred contributions, in
         # another order than the plain version's, hence 1e-4 absolute
         tol_f, tol_b = 1e-4, 1e-4
-        t = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args), iters=10),
-                 plain=cuda_ms(lambda: roi_align.multilevel_roi_align(*args), warmup=1, iters=3),
-                 us=device_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
+        t = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args, **span),
+                            iters=10),
+                 plain=cuda_ms(lambda: roi_align.multilevel_roi_align(*args, **span), warmup=1,
+                               iters=3),
+                 us=device_us(lambda: roi_align.multilevel_roi_align_cuda(*args, **span),
                               "multilevel_roi_align_kernel", iters=5))
-        tb = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*bargs),
-                             iters=10),
-                  plain=cuda_ms(lambda: roi_align.multilevel_roi_align_backward(*bargs),
+        tb = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(
+                      *bargs, **span), iters=10),
+                  plain=cuda_ms(lambda: roi_align.multilevel_roi_align_backward(*bargs, **span),
                                 warmup=1, iters=3),
-                  us=device_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*bargs),
-                               "multilevel_roi_align_backward_kernel", iters=5))
-        cells = touched_cells(levels, rois, bidx, (out, out), strides)
+                  us=device_us(lambda: roi_align.multilevel_roi_align_backward_cuda(
+                      *bargs, **span), "multilevel_roi_align_backward_kernel", iters=5))
+        cells = touched_cells(levels, rois, bidx, (out, out), strides, min_level=min_level,
+                              max_level=max_level)
         out_bytes = n * out * out * C * 4
         io_bytes = rois.numel() * 4 + bidx.numel() * 4
         f_bytes, f_flops = cells * C * 4 + io_bytes + out_bytes, n * out * out * C * (8 * 4 + 1)
         b_bytes, b_flops = out_bytes + io_bytes + level_bytes, n * out * out * C * (8 * 4 + 1)
-        for label, tm, nb, nf, err, tol in (
-                (f"K3 multilevel_roi_align {out}x{out}", t, f_bytes, f_flops, err_f, tol_f),
-                (f"K4 multilevel_roi_align_backward {out}x{out}", tb, b_bytes, b_flops, err_b,
-                 tol_b)):
+        for name, tm, nb, nf, err, tol in (
+                (f"K3 multilevel_roi_align {out}x{out}{label}", t, f_bytes, f_flops, err_f,
+                 tol_f),
+                (f"K4 multilevel_roi_align_backward {out}x{out}{label}", tb, b_bytes, b_flops,
+                 err_b, tol_b)):
             b, by = bound_ms(nb, nf)
-            emit("kernel", name=label, rois=n, shape=[B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, C],
-                 rois_per_level=per_level.tolist(), max_abs_err=err, atol=tol, ms=tm["ms"],
-                 kernel_device_us=tm["us"], plain_ms=tm["plain"], library_ms=None,
-                 library="none (no torchvision)", bound_ms=b, bound_by=by,
+            emit("kernel", name=name, rois=n, shape=[B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, C],
+                 levels=[min_level, max_level], rois_per_level=per_level.tolist(),
+                 max_abs_err=err, atol=tol, ms=tm["ms"], kernel_device_us=tm["us"],
+                 plain_ms=tm["plain"], library_ms=None, library="none (no torchvision)",
+                 bound_ms=b, bound_by=by,
                  **({"grad_max_abs": scale_b, "second_launch_bits_differ": bit_diff}
-                    if "K4" in label else {"touched_cells": cells}))
+                    if "K4" in name else {"touched_cells": cells}))
             if not err <= tol:
-                raise AssertionError(f"{label} disagrees with its plain version: {err} > {tol}")
+                raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
         if bit_diff:
-            raise AssertionError(f"K4 {out}x{out}: two launches on the same inputs differ in "
-                                 f"{bit_diff} elements")
+            raise AssertionError(f"K4 {out}x{out}{label}: two launches on the same inputs "
+                                 f"differ in {bit_diff} elements")
         for acc, tm, nb, nf, err in ((fwd, t, f_bytes, f_flops, err_f),
                                      (bwd, tb, b_bytes, b_flops, err_b)):
             acc["ms"] += tm["ms"]
@@ -513,17 +562,26 @@ def train_kernel_phase(dev) -> dict[str, dict]:
             acc["bytes"] += nb
             acc["flops"] += nf
             acc["err"] = max(acc["err"], err)
+    rows = {}
     for name, acc in (("multilevel_roi_align", fwd), ("multilevel_roi_align_backward", bwd),
                       ("roi_footprints", pre)):
         b, by = bound_ms(acc["bytes"], acc["flops"])
         rows[name] = dict(max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain"],
                           bound_ms=b, bound_by=by, library_ms=None)
-    # K5 is one row: the grid entry point at the training shapes; the
-    # single-group entry point's numbers are in its own phase line
-    single = rows.pop("nms_keep_sorted")
-    rows["nms_keep_sorted_grid"]["max_abs_err"] = max(rows["nms_keep_sorted_grid"]["max_abs_err"],
-                                                      single["max_abs_err"])
     return rows
+
+
+def mobile_kernel_phase(dev) -> dict[str, dict]:
+    """Phase mobile_kernel: K3 (7 x 7 and 14 x 14), K4 and K4's pre-pass on
+    the MobileNetV3 detector's pooled pyramid, p4 and p5 (strides 16 and 32,
+    ``min_level`` 4) of 16 images of 640 x 640, at the training step's RoI
+    counts, each against its plain version: rows with the suffix
+    ``_mobile``."""
+    import torch
+
+    rows = roi_kernel_rows(dev, torch.Generator().manual_seed(9), (16, 32), 4, 5,
+                           label=" mobile p4-p5")
+    return {f"{name}_mobile": row for name, row in rows.items()}
 
 
 def edge_phase(dev) -> None:
@@ -561,13 +619,14 @@ def edge_phase(dev) -> None:
         raise AssertionError(f"K3 disagrees with its plain version: {k3}")
 
 
-def touched_cells(levels, rois, bidx, output_size, strides, s: int = 2) -> int:
+def touched_cells(levels, rois, bidx, output_size, strides, s: int = 2, min_level: int = 2,
+                  max_level: int = 5) -> int:
     """Distinct (image, level, y, x) cells that the bilinear taps read."""
     import torch
     from pets_face_recognition_tpu_torch.ops.roi_align import _sample_offsets, roi_levels
 
     oh, ow = output_size
-    lvl = roi_levels(rois, 2, 5).long()
+    lvl = roi_levels(rois, min_level, max_level).long()
     keys = []
     for li, f in enumerate(levels):
         sel = lvl == li
@@ -616,15 +675,17 @@ def tf32_watch(model):
         raise AssertionError(f"TF32 switches not restored: {record['after']} != {caller}")
 
 
-def e2e_phase(dev, kernels_mod, smi: str) -> dict:
-    """Phase 3: the serving path at full width, its launch counts and checks."""
+def e2e_phase(dev, kernels_mod, smi: str, kind: str = "resnet50", phase: str = "e2e",
+              timed_batches: tuple[int, ...] = (B_TIMED,)) -> dict:
+    """Phase 3: the serving path at full width (``detector_kind`` ``kind``),
+    its launch counts and checks, then crops/s at each of ``timed_batches``."""
     import torch
     from pets_face_recognition_tpu_torch.device import float32_matmuls
     from pets_face_recognition_tpu_torch.ops.homography import align_crop
     from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
 
     t0 = time.perf_counter()
-    detector, embedder, base = build_serving_models(device=dev, seed=0)
+    detector, embedder, base = build_serving_models(device=dev, seed=0, detector_kind=kind)
     service = EmbeddingService(detector, embedder, base, device=dev)
     g = torch.Generator().manual_seed(1)
     imgs8 = torch.randint(0, 256, (B_KERNELS, IMAGE, IMAGE, 3), generator=g,
@@ -646,11 +707,13 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
                            "multilevel_roi_align") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the serving path: {missing}")
-    emit("e2e", batch=B_KERNELS, launches=launches, valid_rows=int(valid.sum()),
+    if detector.training or any(m.training for m in detector.modules()):
+        raise AssertionError("the serving detector is not in eval mode")
+    emit(phase, detector=kind, batch=B_KERNELS, launches=launches, valid_rows=int(valid.sum()),
          model_build_s=build_s, tf32_flags=flags)
 
     # reference: the same seeded models on the CPU (plain versions), B = 2
-    det_cpu, emb_cpu, base_cpu = build_serving_models(device="cpu", seed=0)
+    det_cpu, emb_cpu, base_cpu = build_serving_models(device="cpu", seed=0, detector_kind=kind)
     x = imgs8[:2].float() / 255.0
     # the models called directly, not through an entry point: float32 as there
     with torch.inference_mode(), float32_matmuls():
@@ -674,7 +737,7 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
     # ~1e-3 px on a [0, 1] noise image, hence 1e-3 (as the CPU parity test)
     checks = dict(pyramid_rel_err=pyr_rel, top_score_abs_err=score_err,
                   crop_abs_err=crop_err, embedding_rel_err=emb_rel)
-    emit("e2e_reference", batch=2, **checks, tolerances=dict(
+    emit(f"{phase}_reference", batch=2, **checks, tolerances=dict(
         pyramid_rel_err=1e-3, top_score_abs_err=1e-3, crop_abs_err=1e-3,
         embedding_rel_err=1e-3), top_box_abs_err_px=box_err,
         keypoint_abs_err_px=kp_err,
@@ -685,24 +748,31 @@ def e2e_phase(dev, kernels_mod, smi: str) -> dict:
         if not checks[name] <= tol:
             raise AssertionError(f"{name} {checks[name]} > {tol}")
 
-    imgs = torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
-                         dtype=torch.uint8).to(dev)
-    ok = torch.ones(B_TIMED, dtype=torch.bool, device=dev)
-    service.embed_batch(imgs, ok)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        t = time.perf_counter()
-        emb, valid = service.embed_batch(imgs, ok)
+    del det_cpu, emb_cpu
+    for B in timed_batches:
+        imgs = torch.randint(0, 256, (B, IMAGE, IMAGE, 3), generator=g,
+                             dtype=torch.uint8).to(dev)
+        ok = torch.ones(B, dtype=torch.bool, device=dev)
+        service.embed_batch(imgs, ok)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    if not bool(torch.isfinite(emb[valid]).all()):
-        raise AssertionError("non-finite embeddings on valid rows at B=32")
-    step = statistics.median(times)
-    emit("e2e_timed", batch=B_TIMED, step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in times],
-         crops_per_s=B_TIMED / step, valid_rows=int(valid.sum()), card=smi,
-         precision="float32: TF32 off inside embed_batch, torch's defaults outside",
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            emb, valid = service.embed_batch(imgs, ok)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if not bool(torch.isfinite(emb[valid]).all()):
+            raise AssertionError(f"non-finite embeddings on valid rows at B={B}")
+        step = statistics.median(times)
+        emit(f"{phase}_timed", detector=kind, batch=B, step_ms=step * 1e3,
+             step_ms_all=[t * 1e3 for t in times], crops_per_s=B / step,
+             valid_rows=int(valid.sum()), card=smi,
+             precision="float32: TF32 off inside embed_batch, torch's defaults outside",
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del imgs, emb, valid
+    del detector, embedder, service
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1263,16 +1333,20 @@ def retrieval_phase(dev, smi: str) -> None:
               "queries by half the gallery, head and body each (body centroids are zero)")
 
 
-def train_phase(dev, kernels_mod, smi: str) -> dict:
-    """Phase 4: full-width training steps on one synthetic batch."""
+def train_phase(dev, kernels_mod, smi: str, arch: str = "resnet50", phase: str = "train"
+                ) -> dict:
+    """Phase 4: full-width training steps of the keypoint config's ``arch``
+    model on one synthetic batch; for ``mobile`` the live norms' running
+    statistics must move in every step."""
     import torch
     from pets_face_recognition_tpu_torch.data import synthetic_keypoint_batch
     from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
 
-    ctl = KeyPointsController()
+    ctl = KeyPointsController(arch=arch)
     B = B_TRAIN
     while True:
         state = ctl.init_state(seed=0, device=dev)
+        stats = [{n: b.clone() for n, b in state.model.named_buffers()}]
         batch = synthetic_keypoint_batch(B, IMAGE_TRAIN, IMAGE_TRAIN, MAX_BOXES, seed=0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1285,6 +1359,8 @@ def train_phase(dev, kernels_mod, smi: str) -> dict:
                     metrics = ctl.train_step(state, batch)
                     torch.cuda.synchronize()
                     steps.append((time.perf_counter() - t, metrics))
+                    if arch == "mobile":
+                        stats.append({n: b.clone() for n, b in state.model.named_buffers()})
             break
         except torch.cuda.OutOfMemoryError:
             if B == 1:
@@ -1302,17 +1378,26 @@ def train_phase(dev, kernels_mod, smi: str) -> dict:
                            "multilevel_roi_align_backward") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched in the training steps: {missing}")
+    stats_moved = None
+    if arch == "mobile":
+        # each step moves every running statistic of the live norms once
+        stats_moved = [sum(not torch.equal(a[n], b[n]) for n in a)
+                       for a, b in zip(stats, stats[1:])]
+        if not stats[0] or any(k != len(stats[0]) for k in stats_moved):
+            raise AssertionError(f"running statistics did not move in every step: "
+                                 f"{stats_moved} of {len(stats[0])}")
     timed = [t for t, _ in steps[1:]]
     step = statistics.median(timed)
-    emit("train", batch=B, image=IMAGE_TRAIN, max_boxes=MAX_BOXES, cut=B != B_TRAIN,
+    emit(phase, arch=arch, batch=B, image=IMAGE_TRAIN, max_boxes=MAX_BOXES, cut=B != B_TRAIN,
          steps=len(steps), warmup_steps=1, step_ms=step * 1e3,
          step_ms_all=[t * 1e3 for t, _ in steps], images_per_s=B / step,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          losses=[m for _, m in steps], launches=launches,
          launches_per_step={k: v / len(steps) for k, v in launches.items()}, card=smi,
          precision="float32: TF32 off inside train_step, torch's defaults outside",
-         tf32_flags=flags)
-    repro_phase(ctl, state, batch, B)
+         tf32_flags=flags, running_stats=len(stats[0]), running_stats_moved_per_step=stats_moved)
+    if arch == "resnet50":
+        repro_phase(ctl, state, batch, B)
     del state
     torch.cuda.empty_cache()
     return launches
@@ -1471,6 +1556,152 @@ def train_vs_cpu_phase(dev) -> None:
         raise AssertionError(f"zero-by-construction gradient is {zero_abs}")
 
 
+# a per-channel shift of these MobileNetV3 outputs reaches only the inputs of
+# live norms (through the residual adds up to block 10's expand conv; c2 and
+# c3 are not pooled), whose batch mean removes it: 0 in exact arithmetic
+SHIFTS_REMOVED_BY_LIVE_BN = tuple(f"backbone.body.blocks.{i}.bn_project.bias"
+                                  for i in range(10))
+
+
+def mobile_train_vs_cpu_phase(dev) -> None:
+    """Phase mobile_train_vs_cpu: one reduced live-BN step of the MobileNetV3
+    keypoint R-CNN (B = 2, 256 x 256, momentum 0.9) from the same weights and
+    sampler noise on the card and on the CPU: losses within 1e-3 relative,
+    running statistics within 1e-4 relative in norm, gradients 0 by
+    construction within 1e-5, and every other gradient within 5e-3 relative
+    in norm, or within twice what the card's own step moves when its input
+    images are rounded differently (1e-7 relative; the middle of three
+    draws, worst tensor and median tensor alike): live BatchNorm over a few
+    dozen values a channel makes this step ill-conditioned in float32, in
+    the JAX package too (``tests/test_torch_port_mobile_train.py``); on the
+    card the spread also holds cuDNN's run-to-run summation order."""
+    import copy
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.data import synthetic_keypoint_batch
+    from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
+    from pets_face_recognition_tpu_torch.models.rcnn import mobile_net_v3_large_keypoint_rcnn
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    B, image = 2, 256
+    budgets = dict(rpn_pre_nms_top_n_train=256, rpn_post_nms_top_n_train=128,
+                   box_batch_size_per_image=16)
+    cpu_model = init_random_(mobile_net_v3_large_keypoint_rcnn(
+        frozen_stats=False, bn_momentum=0.9, **budgets), 1)
+    batch = synthetic_keypoint_batch(B, image, image, MAX_BOXES, seed=1)
+    n_anchors = 15 * sum((image // st) ** 2 for st in (16, 32, 64))
+    noise = cpu_model.draw_sampler_noise(B, n_anchors, MAX_BOXES,
+                                         torch.Generator().manual_seed(1))
+    runs = [("gpu", copy.deepcopy(cpu_model), dev, batch)]
+    for s in (1, 2, 3):
+        jitter = 1 + np.random.RandomState(s).randn(*batch["images"].shape) * 1e-7
+        runs.append((f"gpu_rounded_{s}", copy.deepcopy(cpu_model), dev,
+                     dict(batch, images=(batch["images"] * jitter).astype(np.float32))))
+    runs.append(("cpu", cpu_model, "cpu", batch))
+    ctl = KeyPointsController(arch="mobile")
+    out = {}
+    for name, model, device, b in runs:
+        state = ctl.init_state(0, device, model=model)
+        t = time.perf_counter()
+        losses = ctl.train_step(state, b, sampler_noise=noise)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[name] = (losses, {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     {n: v.detach().cpu() for n, v in model.named_buffers()},
+                     time.perf_counter() - t)
+    (l_gpu, g_gpu, s_gpu, t_gpu), (l_cpu, g_cpu, s_cpu, t_cpu) = out["gpu"], out["cpu"]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    zero = ZERO_BY_CONSTRUCTION + SHIFTS_REMOVED_BY_LIVE_BN
+    zero_abs = max(max(float(g_gpu[n].norm()), float(g_cpu[n].norm())) for n in zero)
+    names = [n for n in g_cpu if n not in zero]
+    grad_rel = {n: rel(g_gpu[n], g_cpu[n]) for n in names}
+    spreads = [[rel(out[f"gpu_rounded_{s}"][1][n], g_gpu[n]) for n in names] for s in (1, 2, 3)]
+    # card against CPU compares two runs that each carry the rounding, hence
+    # twice the card's own spread (a wrong gradient is off by far more)
+    worst_bound = max(5e-3, 2 * statistics.median(max(x) for x in spreads))
+    median_bound = max(5e-3, 2 * statistics.median(statistics.median(x) for x in spreads))
+    worst = max(grad_rel, key=grad_rel.get)
+    grad_median = statistics.median(grad_rel.values())
+    loss_rel = {k: abs(l_gpu[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu}
+    stat_rel = {n: rel(s_gpu[n], s_cpu[n]) for n in s_cpu}
+    stat_worst = max(stat_rel, key=stat_rel.get)
+    emit("mobile_train_vs_cpu", batch=B, image=image, budgets=budgets, losses_gpu=l_gpu,
+         losses_cpu=l_cpu, loss_rel_err=loss_rel, grad_rel_err_max=grad_rel[worst],
+         grad_rel_err_worst=worst, grad_rel_err_median=grad_median,
+         card_rounding_spread={"worst": [max(x) for x in spreads],
+                               "median": [statistics.median(x) for x in spreads]},
+         grad_bounds={"worst": worst_bound, "median": median_bound},
+         zero_by_construction_abs=zero_abs, running_stats=len(stat_rel),
+         running_stats_rel_err_max=stat_rel[stat_worst], running_stats_worst=stat_worst,
+         step_s_gpu=t_gpu, step_s_cpu=t_cpu,
+         tolerances=dict(loss_rel=1e-3, grad_rel_norm=5e-3, running_stats_rel_norm=1e-4,
+                         zero_by_construction_abs=1e-5))
+    bad = {k: v for k, v in loss_rel.items() if not v <= 1e-3}
+    if bad:
+        raise AssertionError(f"mobile losses differ from the CPU step: {bad}")
+    if not (grad_rel[worst] <= worst_bound and grad_median <= median_bound):
+        raise AssertionError(f"mobile gradient {worst} differs from the CPU step: "
+                             f"{grad_rel[worst]} (median {grad_median}); bounds "
+                             f"{worst_bound}, {median_bound}")
+    if not zero_abs <= 1e-5:
+        raise AssertionError(f"mobile zero-by-construction gradient is {zero_abs}")
+    if not stat_rel[stat_worst] <= 1e-4:
+        raise AssertionError(f"running statistic {stat_worst} differs from the CPU step: "
+                             f"{stat_rel[stat_worst]}")
+
+
+def mobile_tsv_phase(dev, kernels_mod, smi: str) -> dict:
+    """Phase mobile_tsv: the head-only retrieval chain with
+    ``PFR_KEYPOINT_ARCH=mobile`` over the committed corpus, on the card (the
+    launch counts read around it) and on the CPU from the same weights, held
+    to each other by ``tsv``'s gates. Returns the card run's launch counts."""
+    import torch
+    from pets_face_recognition_tpu_torch.pipelines import (build_head_pipeline,
+                                                           build_retrieval_models, keypoint_arch)
+
+    os.environ["PFR_RETRIEVAL_THR"] = "0.0"
+    saved = os.environ.get("PFR_KEYPOINT_ARCH")
+    os.environ["PFR_KEYPOINT_ARCH"] = "mobile"
+    try:
+        arch = keypoint_arch()
+    finally:
+        if saved is None:
+            os.environ.pop("PFR_KEYPOINT_ARCH")
+        else:
+            os.environ["PFR_KEYPOINT_ARCH"] = saved
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    cpu = torch.device("cpu")
+    heads = {name: build_head_pipeline(*build_retrieval_models(d, 0, arch), device=d)
+             for name, d in (("card", dev), ("cpu", cpu))}
+    gpu = run_chain(CORPUS, dev, heads["card"], kernels_mod, "mobile_corpus_gpu")
+    ref = run_chain(CORPUS, cpu, heads["cpu"], kernels_mod, "mobile_corpus_cpu")
+    diff = chain_diff(gpu, ref)
+    k = gpu["launches"]
+    n = len(gpu["rec"])
+    n_valid = sum(r["valid"] for r in gpu["rec"])
+    emit("mobile_tsv", arch=arch, corpus="corpus", images=n, valid_images=n_valid,
+         queries=len(gpu["rows"]), chain_s=gpu["chain_s"], images_per_s=n / gpu["chain_s"],
+         chain_s_cpu=ref["chain_s"], launches=k, card=smi, by_size=split_by_size(gpu),
+         vs_cpu=diff, budget=dict(max_crop_err=CROP_DRIFT, max_embedding_rel_err=EMB_DRIFT,
+                                  max_score_drift=SCORE_DRIFT, max_flip_gap=SCORE_DRIFT),
+         same_queries=[r[0] for r in gpu["rows"]] == [r[0] for r in ref["rows"]],
+         tsv=str(OUT_DIR / "pred_scores_test2_mobile_corpus_gpu.tsv"))
+    if diff["breaks"]:
+        raise AssertionError(f"mobile chain: the card differs from the CPU in {diff['breaks']}")
+    if not gpu["rows"]:
+        raise AssertionError("mobile chain: no query was scored")
+    if k["warp_perspective_batch"] != n_valid:
+        raise AssertionError(f"mobile chain: K1 launched {k['warp_perspective_batch']} times "
+                             f"for {n_valid} valid images")
+    if not (k["nms_keep_sorted_batch"] and k["multilevel_roi_align"]):
+        raise AssertionError(f"mobile chain: K2 or K3 not launched: {k}")
+    return k
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -1485,6 +1716,14 @@ KERNEL_ROWS = (
      "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
     ("nms_keep_sorted_grid", ("nms_keep_sorted", "nms_keep_sorted_grid"), "csrc/nms.cu",
      "pets_face_recognition_tpu/ops/pallas_nms.py:75,191"),
+    # the same kernels on the MobileNetV3 detector's 2-level pyramid (p4, p5);
+    # their launches are the mobile paths' alone
+    ("multilevel_roi_align_mobile", ("multilevel_roi_align",), "csrc/roi_align.cu",
+     "pets_face_recognition_tpu/ops/pallas_roi_align.py:120"),
+    ("multilevel_roi_align_backward_mobile", ("multilevel_roi_align_backward",),
+     "csrc/roi_align_backward.cu", "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
+    ("roi_footprints_mobile", ("roi_footprints",), "csrc/roi_align_backward.cu",
+     "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
 )
 
 
@@ -1515,20 +1754,27 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     rows.update(train_kernel_phase(dev))   # K2 and K3 at the training shapes, K4, K5
+    rows.update(mobile_kernel_phase(dev))  # K3, K4 and the pre-pass on p4, p5
     edge_phase(dev)
-    launches = e2e_phase(dev, kernels, smi)
-    tsv_launches, (detector, dog, _) = tsv_phase(dev, kernels, smi)
+    # each path's launch counts, set to 0 just before it and read just after
+    paths = {"e2e": e2e_phase(dev, kernels, smi)}
+    paths["mobile_e2e"] = e2e_phase(dev, kernels, smi, "mobile", "mobile_e2e",
+                                    (B_TIMED, B_BENCH))
+    paths["tsv"], (detector, dog, _) = tsv_phase(dev, kernels, smi)
     jpeg_stream_phase(dev, smi, detector, dog)
     del detector, dog
+    paths["mobile_tsv"] = mobile_tsv_phase(dev, kernels, smi)
     retrieval_phase(dev, smi)
-    train_launches = train_phase(dev, kernels, smi)
+    paths["train"] = train_phase(dev, kernels, smi)
+    paths["mobile_train"] = train_phase(dev, kernels, smi, "mobile", "mobile_train")
     train_vs_cpu_phase(dev)
+    mobile_train_vs_cpu_phase(dev)
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
+        read = [p for p in paths if p.startswith("mobile_") or not name.endswith("_mobile")]
         table.append(dict(rows[name], name=name, route="cuda",
                           source=f"pets_face_recognition_tpu_torch/{src}", replaces=replaces,
-                          launches=sum(launches[k] + tsv_launches[k] + train_launches[k]
-                                       for k in counted)))
+                          launches=sum(paths[p][k] for p in read for k in counted)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit("done", seconds=time.perf_counter() - t_start)

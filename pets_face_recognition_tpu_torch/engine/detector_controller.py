@@ -8,7 +8,10 @@
 shift (background is class 0), runs the training forward, sums the loss dict
 (``SumDetectionLoss``), backpropagates, clips if asked and steps the
 optimiser at the scheduled rate. After a step each parameter's ``.grad`` holds
-that step's gradient. The eval step and the AP metrics are not ported yet.
+that step's gradient. ``arch`` picks the model as the JAX keypoint config
+does: ``resnet50`` (frozen trunk statistics) or ``mobile`` (MobileNetV3 with
+live BatchNorm, whose running statistics the step moves). The eval step and
+the AP metrics are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,25 +23,40 @@ import torch
 
 from ..device import float32_matmuls, resolve_device
 from ..losses import sum_detection_loss
-from ..models.rcnn import GeneralizedRCNN, keypointrcnn_resnet50_fpn
+from ..models.rcnn import (KEYPOINT_ARCHS, GeneralizedRCNN, frozen_twin,
+                           keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn)
 from ..utils.optim import (clip_by_global_norm_, detection_sgd_optimizer,
                            set_learning_rate)
 from ..weights import init_random_
 from .train_state import TrainState
 
 
-def _keypoint_model() -> GeneralizedRCNN:
-    return keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3)
+def keypoint_model(arch: str = "resnet50") -> GeneralizedRCNN:
+    """The keypoint config's model (JAX ``config_presets.build_keypoint_config
+    (arch=...).model()``): the ResNet-50-FPN keypoint R-CNN, or for
+    ``"mobile"`` the MobileNetV3-Large one with live BatchNorm at flax
+    momentum 0.9 (from-scratch training has no pretrained statistics to
+    freeze; the serving twin freezes what it learned, ``rcnn.frozen_twin``)."""
+    if arch == "resnet50":
+        return keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3)
+    if arch == "mobile":
+        return mobile_net_v3_large_keypoint_rcnn(frozen_stats=False, bn_momentum=0.9)
+    raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
 
 
 class KeyPointsController:
-    """Keypoint R-CNN task: ``model_fn`` builds the model (the production
-    ResNet-50-FPN keypoint R-CNN by default), ``optimizer_fn(params)`` returns
-    ``(optimizer, schedule)`` (the keypoint config's SGD, lr 5e-3, by default)."""
+    """Keypoint R-CNN task: ``model_fn`` builds the model (by default
+    :func:`keypoint_model` of ``arch``), ``optimizer_fn(params)`` returns
+    ``(optimizer, schedule)`` (the keypoint config's SGD, lr 5e-3, by
+    default)."""
 
-    def __init__(self, model_fn: Callable[[], GeneralizedRCNN] = _keypoint_model,
+    def __init__(self, model_fn: Callable[[], GeneralizedRCNN] | None = None,
                  optimizer_fn: Callable = detection_sgd_optimizer,
-                 gradient_clip_val: float | None = None):
+                 gradient_clip_val: float | None = None, arch: str = "resnet50"):
+        if model_fn is None:
+            if arch not in KEYPOINT_ARCHS:
+                raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
+            model_fn = lambda: keypoint_model(arch)  # noqa: E731
         self.model_fn = model_fn
         self.optimizer_fn = optimizer_fn
         self.gradient_clip_val = gradient_clip_val
@@ -69,12 +87,22 @@ class KeyPointsController:
             [p for p in model.parameters() if p.requires_grad])
         return TrainState(model, optimizer, schedule, torch.Generator().manual_seed(seed))
 
+    @staticmethod
+    def serving_model(state: TrainState) -> GeneralizedRCNN:
+        """The frozen serving twin of a live-BN MobileNetV3 state
+        (``rcnn.frozen_twin``: its weights and running statistics under
+        frozen norms, eval mode)."""
+        return frozen_twin(state.model)
+
     @float32_matmuls()
     def train_step(self, state: TrainState, batch: dict,
                    sampler_noise: dict | None = None) -> dict[str, float]:
         """One step in float32 (TF32 off inside, the caller's flags back after);
-        returns the loss and each term as floats."""
-        model = state.model
+        returns the loss and each term as floats. The model runs in
+        ``train()``, so a live-BN trunk normalises with batch statistics and
+        moves its running statistics once a step, as the JAX step's
+        ``mutable=["batch_stats"]``."""
+        model = state.model.train()
         dev = next(model.parameters()).device
         images = torch.as_tensor(batch["images"], dtype=torch.float32).to(dev)
         targets = self.targets_from_batch(batch, dev)

@@ -14,7 +14,9 @@ the dog or cat ResNet-50), scores every lost/found query card against its
 gallery by card centroids, keeps the top 100, backfills queries without a
 prediction from the stock tsv when it exists, and writes the tsv. The models
 are the serving detector and two embedders with weights random from
-``--seed``: no trained torch weights exist. ``PFR_RETRIEVAL_THR`` sets the
+``--seed``: no trained torch weights exist. ``PFR_KEYPOINT_ARCH`` picks the
+detector, ``resnet50`` (default) or ``mobile`` (the MobileNetV3-Large keypoint
+R-CNN), as in the JAX ``configs/pipelines.py``. ``PFR_RETRIEVAL_THR`` sets the
 detection threshold (default 0.9); ``PFR_SCORES_DUMP=<path.npz>`` also
 writes every query's full score row.
 """
@@ -32,7 +34,7 @@ import numpy as np
 
 from . import native
 from .device import resolve_device
-from .pipelines import build_head_pipeline, build_retrieval_models
+from .pipelines import build_head_pipeline, build_retrieval_models, keypoint_arch
 from .retrieval import (CardRecord, backfill_missing, create_table, write_scores_dump,
                         write_tsv)
 
@@ -109,7 +111,8 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
 
     dev = resolve_device(args.device)
-    head_pipeline = build_head_pipeline(*build_retrieval_models(dev, args.seed), device=dev)
+    models = build_retrieval_models(dev, args.seed, keypoint_arch())
+    head_pipeline = build_head_pipeline(*models, device=dev)
     db = prepare_data(args.data.resolve(), head_pipeline, args.cache)
     dump_path = os.environ.get("PFR_SCORES_DUMP")
     dump = {} if dump_path else None

@@ -1,7 +1,8 @@
 """Build ``csrc/*.cu`` into one shared library with ``nvcc`` and load it.
 
-One ``nvcc`` call compiles every source for ``sm_90a`` into a plain-C shared
-library; nothing includes PyTorch's headers and nothing goes through
+``nvcc`` compiles every source for ``sm_90a``, one process a source, all
+started together, and links the objects into a plain-C shared library;
+nothing includes PyTorch's headers and nothing goes through
 ``torch.utils.cpp_extension`` or ninja, so the build takes seconds. The output
 is named by a hash of the sources and flags and lives in ``_build/`` beside
 the package (git-ignored). It is written under a temporary name and then
@@ -25,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 600
 
 
@@ -55,33 +56,50 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless a library for these sources already exists.
 
-    Returns the library's path. Raises ``RuntimeError`` with the command when
-    ``nvcc`` is missing or fails.
+    One ``nvcc -c`` a source, all started together, then one ``nvcc -shared``
+    link. Returns the library's path. Raises ``RuntimeError`` with the
+    commands when ``nvcc`` is missing or fails.
     """
     out = library_path()
     if out.exists():
         return out
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    nvcc = find_nvcc()
-    cmd = [nvcc or "nvcc", *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sources())]
-    if nvcc is None:
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+    nvcc = find_nvcc() or "nvcc"
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources(), objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if find_nvcc() is None:
         raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-            f"the kernel build would run: {shlex.join(cmd)}")
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); the kernel "
+            f"build would run: {'; '.join(map(shlex.join, compiles + [link]))}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {shlex.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        if proc.stderr.strip():
-            print(proc.stderr.strip(), flush=True)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        results = []
+        for cmd, proc in zip(compiles, procs):
+            try:
+                stdout, stderr = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                raise
+            results.append((cmd, proc.returncode, stdout, stderr))
+        proc = subprocess.run(link, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S) \
+            if all(rc == 0 for _, rc, _, _ in results) else None
+        if proc is not None:
+            results.append((link, proc.returncode, proc.stdout, proc.stderr))
+        for cmd, rc, stdout, stderr in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {shlex.join(cmd)}\n{stdout}\n{stderr}")
+            if stderr.strip():
+                print(stderr.strip(), flush=True)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -14,8 +14,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import Bottleneck, ResNet
-
 
 class FPN(nn.Module):
     """``{'c2'..'c5'}`` -> ``{'p2'..'p6'}`` with ``out_channels`` everywhere."""
@@ -46,13 +44,20 @@ class FPN(nn.Module):
 
 
 class BackboneWithFPN(nn.Module):
-    """``body`` (a ``features_only`` ResNet) + ``fpn``: NCHW images -> pyramid."""
+    """``body`` (any ``features_only`` trunk: NCHW images -> ``{'c2'..}``) +
+    ``fpn``: NCHW images -> pyramid. ``in_channels`` are the widths of the
+    body's ``in_levels`` maps: ResNet-50's by default; the MobileNetV3
+    detector takes ``(112, 160)`` over ``("c4", "c5")``, giving p4, p5 and
+    the max-pool p6 (JAX ``BackboneWithFPN(..., in_levels=("c4", "c5"))``)."""
 
-    def __init__(self, body: ResNet, out_channels: int = 256):
+    def __init__(self, body: nn.Module, in_channels: Sequence[int] = (256, 512, 1024, 2048),
+                 in_levels: Sequence[str] = ("c2", "c3", "c4", "c5"),
+                 out_channels: int = 256):
         super().__init__()
+        if len(in_channels) != len(in_levels):
+            raise ValueError(f"in_channels {in_channels} do not match in_levels {in_levels}")
         self.body = body
-        widths = [64 * Bottleneck.expansion * 2 ** i for i in range(4)]
-        self.fpn = FPN(widths, out_channels)
+        self.fpn = FPN(in_channels, out_channels, in_levels)
         self.out_channels = out_channels
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -6,7 +6,10 @@ validity masks: ``boxes (B, D, 4)``, ``labels``, ``scores``, ``valid``,
 ``keypoints (B, D, NK, 3)``, ``keypoints_scores``. With ``targets`` it returns
 the training loss dict of the JAX ``_forward_train``: RPN loss, proposals at
 the training budgets, box sampling and loss, and the keypoint head on the
-positive budget. Inside it runs NCHW. The RPN's NMS is kernel K2; both
+positive budget. Inside it runs NCHW. Two detectors: the ResNet-50-FPN one
+(4 pooled levels, p2..p5) and the MobileNetV3-Large one (2 pooled levels,
+p4 and p5, 15 anchors a location), the JAX package's default serving
+detector. The RPN's NMS is kernel K2; both
 RoIAligns (box 7x7, keypoint 14x14) run forward through kernel K3 and, in
 training, backward through kernel K4 (``MultilevelRoIAlign``); their wrappers
 take the plain versions only for CPU tensors.
@@ -28,8 +31,13 @@ from ..ops.anchors import multilevel_anchors
 from ..ops.roi_align import multilevel_roi_align_diff
 from . import roi_heads as rh
 from .fpn import BackboneWithFPN
+from .mobilenet_v3 import MobileNetV3Large
 from .resnet import ResNet
 from .rpn import RPN, generate_proposals, level_sizes, rpn_loss
+
+
+# the two keypoint detectors (JAX ``PFR_KEYPOINT_ARCH`` values)
+KEYPOINT_ARCHS = ("resnet50", "mobile")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +103,15 @@ class GeneralizedRCNN(nn.Module):
         self.rpn = RPN(backbone.out_channels, self.num_anchors)
         self.roi_heads = RoIHeads(cfg, backbone.out_channels)
 
-    def _roi_align(self, pool_feats, strides, boxes_flat, batch_idx, output_size):
+    def _roi_align(self, pool, strides, boxes_flat, batch_idx, output_size):
+        """RoIAlign over the pooled levels ``pool = (names, NHWC maps)``; the
+        level range comes from their names (``p4``, ``p5`` -> 4..5), as the
+        JAX ``_roi_align`` reads it, so the canonical mapper clamps to it."""
+        names, feats = pool
+        levels = [int(n[1:]) for n in names]
         return multilevel_roi_align_diff(
-            pool_feats, boxes_flat.contiguous(), batch_idx, output_size,
-            tuple(strides[: len(pool_feats)]), min_level=2,
-            max_level=1 + len(pool_feats))
+            feats, boxes_flat.contiguous(), batch_idx, output_size,
+            tuple(strides[: len(feats)]), min_level=min(levels), max_level=max(levels))
 
     def forward(self, images: torch.Tensor, targets: dict | None = None,
                 sampler_noise: dict | None = None,
@@ -113,14 +125,16 @@ class GeneralizedRCNN(nn.Module):
         anchors = multilevel_anchors(sizes, strides, c.anchor_sizes, c.aspect_ratios,
                                      device=images.device)
         objectness, deltas = self.rpn([feats[n] for n in names])
-        # RoIs pool from p2..p5 only (the max-pool level feeds the RPN alone)
-        pool_feats = [feats[n].permute(0, 2, 3, 1).contiguous() for n in names[:-1]]
+        # RoIs pool from every level but the max-pool one, which feeds the RPN
+        # alone: p2..p5 (ResNet-50), p4..p5 (MobileNetV3)
+        pool = (names[:-1], [feats[n].permute(0, 2, 3, 1).contiguous()
+                             for n in names[:-1]])
         counts = level_sizes(sizes, self.num_anchors)
         if targets is not None:
-            return self._forward_train(targets, sampler_noise, generator, pool_feats,
+            return self._forward_train(targets, sampler_noise, generator, pool,
                                        strides, anchors, counts, objectness, deltas,
                                        (H, W))
-        return self._forward_eval(pool_feats, strides, anchors, counts, objectness,
+        return self._forward_eval(pool, strides, anchors, counts, objectness,
                                   deltas, (H, W))
 
     def draw_sampler_noise(self, B: int, n_anchors: int, n_gt: int,
@@ -130,7 +144,7 @@ class GeneralizedRCNN(nn.Module):
         return {"rpn": torch.rand(B, n_anchors, generator=generator, device=generator.device),
                 "box": torch.rand(B, n_box, generator=generator, device=generator.device)}
 
-    def _forward_train(self, targets, sampler_noise, generator, pool_feats, strides,
+    def _forward_train(self, targets, sampler_noise, generator, pool, strides,
                        anchors, counts, objectness, deltas, image_size):
         c = self.cfg
         B = objectness.shape[0]
@@ -156,7 +170,7 @@ class GeneralizedRCNN(nn.Module):
         boxes_flat = boxes.reshape(B * S, 4)
         batch_idx = torch.arange(B, dtype=torch.int32, device=dev)
         heads = self.roi_heads
-        pooled = self._roi_align(pool_feats, strides, boxes_flat,
+        pooled = self._roi_align(pool, strides, boxes_flat,
                                  batch_idx.repeat_interleave(S), (7, 7))
         class_logits, box_deltas = heads.box_predictor(heads.box_head(pooled))
         matched = _take(targets["boxes"], gt_idx).reshape(B * S, 4)
@@ -175,7 +189,7 @@ class GeneralizedRCNN(nn.Module):
             pos_boxes_flat = _take(boxes, pos_order).reshape(B * P, 4)
             pos_fg = _take(fg, pos_order).reshape(-1)
             r = c.keypoint_roi_size
-            pooled = self._roi_align(pool_feats, strides, pos_boxes_flat,
+            pooled = self._roi_align(pool, strides, pos_boxes_flat,
                                      batch_idx.repeat_interleave(P), (r, r))
             kp_logits = heads.keypoint_predictor(heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
             gt_kps = _take(targets["keypoints"], _take(gt_idx, pos_order))
@@ -185,7 +199,7 @@ class GeneralizedRCNN(nn.Module):
                                                            kp_valid, pos_fg)
         return losses
 
-    def _forward_eval(self, pool_feats, strides, anchors, counts, objectness, deltas,
+    def _forward_eval(self, pool, strides, anchors, counts, objectness, deltas,
                       image_size):
         c = self.cfg
         B = objectness.shape[0]
@@ -194,7 +208,7 @@ class GeneralizedRCNN(nn.Module):
             c.rpn_post_nms_top_n_test, c.rpn_nms_thresh)
         S = proposals.shape[1]
         batch_idx = torch.arange(B, dtype=torch.int32, device=objectness.device)
-        pooled = self._roi_align(pool_feats, strides, proposals.reshape(B * S, 4),
+        pooled = self._roi_align(pool, strides, proposals.reshape(B * S, 4),
                                  batch_idx.repeat_interleave(S), (7, 7))
         heads = self.roi_heads
         class_logits, box_deltas = heads.box_predictor(heads.box_head(pooled))
@@ -207,7 +221,7 @@ class GeneralizedRCNN(nn.Module):
             D = boxes.shape[1]
             det_flat = boxes.reshape(B * D, 4)
             r = c.keypoint_roi_size
-            pooled = self._roi_align(pool_feats, strides, det_flat,
+            pooled = self._roi_align(pool, strides, det_flat,
                                      batch_idx.repeat_interleave(D), (r, r))
             kp_logits = heads.keypoint_predictor(
                 heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
@@ -227,3 +241,42 @@ def keypointrcnn_resnet50_fpn(num_classes: int = 2, num_keypoints: int = 3,
                      box_detections_per_img=1, **overrides)
     body = ResNet(stage_sizes=stage_sizes, features_only=True)
     return GeneralizedRCNN(BackboneWithFPN(body), cfg)
+
+
+def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: float = 0.99,
+                                      quant_kp=None, **overrides) -> GeneralizedRCNN:
+    """MobileNetV3-Large keypoint R-CNN (JAX ``mobile_net_v3_large_keypoint_rcnn``):
+    a 2-level FPN over ``c4``/``c5`` (p4, p5 and a max-pool p6), anchor sizes
+    ``(32, 64, 128, 256, 512)`` on every level with ratios ``(0.5, 1, 2)`` (15
+    anchors a location), 3 keypoints, 1 detection. ``frozen_stats`` picks the
+    trunk's norm: frozen statistics (serving), or live BatchNorm with flax
+    momentum ``bn_momentum`` (the keypoint config trains with
+    ``frozen_stats=False, bn_momentum=0.9``). ``overrides`` set
+    :class:`RCNNConfig` fields. ``quant_kp`` (int8 for the keypoint head) is
+    not ported and raises when given."""
+    if quant_kp is not None:
+        raise NotImplementedError("quant_kp (int8 keypoint head) is not ported")
+    kw = dict(num_classes=2, num_keypoints=3, box_detections_per_img=1,
+              anchor_sizes=((32, 64, 128, 256, 512),) * 3, aspect_ratios=(0.5, 1.0, 2.0))
+    kw.update(overrides)
+    body = MobileNetV3Large(features_only=True, frozen_stats=frozen_stats,
+                            bn_momentum=bn_momentum)
+    backbone = BackboneWithFPN(body, (body.out_channels["c4"], body.out_channels["c5"]),
+                               ("c4", "c5"))
+    return GeneralizedRCNN(backbone, RCNNConfig(**kw))
+
+
+def frozen_twin(model: GeneralizedRCNN) -> GeneralizedRCNN:
+    """The serving twin of a live-BN MobileNetV3 detector: the same
+    configuration with frozen statistics, holding ``model``'s weights and
+    running statistics (a strict ``load_state_dict``), in eval mode without
+    gradients, on ``model``'s device. The JAX package serves the live-BN
+    training state the same way, rebuilt with ``frozen_stats=True``."""
+    body = model.backbone.body
+    if not isinstance(body, MobileNetV3Large):
+        raise TypeError("frozen_twin: a MobileNetV3 detector is expected")
+    twin = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True,
+                                             **dataclasses.asdict(model.cfg))
+    twin.load_state_dict(model.state_dict(), strict=True)
+    dev = next(model.parameters()).device
+    return twin.eval().requires_grad_(False).to(dev)

@@ -42,6 +42,45 @@ class FrozenBatchNorm2d(nn.Module):
             + self.bias[:, None, None]
 
 
+class LiveBatchNorm2d(nn.Module):
+    """BatchNorm with live statistics, as flax ``nn.BatchNorm`` computes it
+    (the MobileNetV3 trunk's norm when it trains from scratch).
+
+    In ``train()`` it normalises with the batch mean and the biased batch
+    variance, flax's ``max(E[x^2] - E[x]^2, 0)``, and updates
+    ``running_stat = momentum * running_stat + (1 - momentum) * batch_stat``
+    with that same biased variance; in ``eval()`` it reads the running
+    statistics. ``momentum`` is flax's: the weight of the old statistics
+    (torch's ``nn.BatchNorm2d`` takes ``1 - momentum``, updates with the
+    unbiased variance and defaults to eps 1e-5, so it is not used here). No
+    ``num_batches_tracked``: flax keeps no counter, and the keys are those of
+    :class:`FrozenBatchNorm2d`, so a serving twin loads this norm's
+    ``state_dict`` strictly.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck, projection shortcut when needed."""
 

@@ -19,6 +19,7 @@ from torch import nn
 
 from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
+from .models.rcnn import KEYPOINT_ARCHS
 from .preprocessor import Preproc3
 from .serving import build_serving_models
 from .weights import init_random_
@@ -27,14 +28,27 @@ DOG, CAT = 1, 2
 
 
 def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
+                           arch: str = "resnet50",
                            ) -> tuple[nn.Module, nn.Module, nn.Module]:
     """``(detector, dog_embedder, cat_embedder)``: the serving detector of
-    ``serving.build_serving_models`` and two ResNet-50 -> 512 embedders, with
-    weights from ``seed``, ``seed + 1`` and ``seed + 2``, in eval mode."""
+    ``serving.build_serving_models`` (``arch``: ``"resnet50"`` or
+    ``"mobile"``, the JAX ``PFR_KEYPOINT_ARCH`` values) and two ResNet-50 ->
+    512 embedders, with weights from ``seed``, ``seed + 1`` and ``seed + 2``,
+    in eval mode."""
     dev = resolve_device(device)
-    detector, dog, _ = build_serving_models(dev, seed)
+    detector, dog, _ = build_serving_models(dev, seed, detector_kind=arch)
     cat = init_random_(resnet50_embedder(512), seed + 2).eval().requires_grad_(False).to(dev)
     return detector, dog, cat
+
+
+def keypoint_arch() -> str:
+    """``PFR_KEYPOINT_ARCH`` (default ``resnet50``), as the JAX
+    ``configs/pipelines.py::keypoint_pipeline`` reads it; raises on a value
+    other than ``resnet50`` or ``mobile``."""
+    arch = os.environ.get("PFR_KEYPOINT_ARCH", "resnet50")
+    if arch not in KEYPOINT_ARCHS:
+        raise ValueError(f"PFR_KEYPOINT_ARCH={arch!r}: resnet50 | mobile")
+    return arch
 
 
 def build_head_pipeline(detector: nn.Module, dog_embedder: nn.Module, cat_embedder: nn.Module,

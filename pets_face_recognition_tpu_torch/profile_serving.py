@@ -3,16 +3,24 @@ kernel and by kind.
 
     python -m pets_face_recognition_tpu_torch.profile_serving [--batch 32] [--iters 3]
     python -m pets_face_recognition_tpu_torch.profile_serving --train [--batch 16] [--iters 2]
+    ... [--detector resnet50|mobile]
 
 Serving: builds the serving models (full ResNet-50 width, seeded random
 weights), warms up, then runs ``embed_batch`` ``--iters`` times under
 ``torch.profiler``. ``--train``: keypoint R-CNN ResNet-50-FPN training steps
 (``KeyPointsController``, training defaults, SGD) on a seeded synthetic batch
 of 640 x 640 images with 4 boxes, one warm-up step, then ``--iters`` steps
-under the profiler. Float32, TF32 off. Prints JSON lines: the card, host wall
-time per batch (or step) and peak memory, the device-busy share of the
+under the profiler. ``--detector mobile`` serves the MobileNetV3-Large
+detector, or trains it with live BatchNorm (the keypoint config's
+``arch="mobile"``). Before the profiled window, one unprofiled pass reads
+each model part's device span (trunk, its depthwise convolutions, FPN, RPN
+head, box and keypoint heads, the embedder; forward and, in training,
+backward) with CUDA events. Float32, TF32 off. Prints JSON lines: the card,
+host wall time per batch (or step) and peak memory, the device-busy share of the
 profiled window (union of kernel intervals over its span), device time per
-batch by kind (convolution, matrix product, the hand-written kernels, other),
+batch by kind (depthwise convolution, convolution, matrix product, the
+hand-written kernels, other), the parts' spans, each hand-written kernel's
+launches per batch,
 the top kernels, the device time per launch of each hand-written kernel, and
 for each call of K2 (NMS) in the profiled window its device time (both
 passes) beside the work its data gave a greedy sweep: valid boxes, kept
@@ -24,6 +32,7 @@ all and in the busiest group. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -81,6 +90,9 @@ def kind_of(name: str) -> str:
         if key in name:
             return label
     low = name.lower()
+    # PyTorch's own depthwise kernels and cuDNN's grouped / depthwise ones
+    if any(k in low for k in ("depthwise", "dwconv", "grouped")):
+        return "depthwise convolution"
     if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
                               "cudnn", "xmma")):
         return "convolution"
@@ -89,26 +101,87 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def serving_step(batch: int):
-    """``embed_batch`` on seeded uint8 320 x 320 images, full-width models."""
-    detector, embedder, base = build_serving_models("cuda", seed=0)
+def model_parts(detector, embedder=None) -> dict[str, list[torch.nn.Module]]:
+    """The modules whose device spans ``module_spans`` reads, by part; for a
+    MobileNetV3 trunk also its 15 depthwise convolutions as one part."""
+    heads = detector.roi_heads
+    parts = {"trunk": [detector.backbone.body], "fpn": [detector.backbone.fpn],
+             "rpn head": [detector.rpn], "box head": [heads.box_head],
+             "box predictor": [heads.box_predictor], "keypoint head": [heads.keypoint_head],
+             "keypoint predictor": [heads.keypoint_predictor]}
+    blocks = getattr(detector.backbone.body, "blocks", None)
+    if blocks is not None:
+        parts["depthwise convolutions"] = [b.dwconv for b in blocks]
+    if embedder is not None:
+        parts["embedder"] = [embedder]
+    return parts
+
+
+@contextlib.contextmanager
+def module_spans(parts: dict[str, list[torch.nn.Module]], backward: bool = False):
+    """CUDA events around each part's modules' forward (and backward) calls:
+    yields a dict that holds, after the block, each part's summed device span
+    in ms (from its first kernel's start to its last one's end, idle gaps
+    within included) per direction. Spans of one part do not nest."""
+    marks: dict[str, list] = {}
+    handles = []
+
+    def opener(key):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.setdefault(key, []).append([ev, None])
+        return hook
+
+    def closer(key):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[key][-1][1] = ev
+        return hook
+
+    for name, mods in parts.items():
+        for mod in mods:
+            handles += [mod.register_forward_pre_hook(opener(f"{name} forward")),
+                        mod.register_forward_hook(closer(f"{name} forward"))]
+            if backward:
+                handles += [mod.register_full_backward_pre_hook(opener(f"{name} backward")),
+                            mod.register_full_backward_hook(closer(f"{name} backward"))]
+    out: dict[str, float] = {}
+    try:
+        yield out
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    for key, pairs in marks.items():
+        out[key] = sum(a.elapsed_time(b) for a, b in pairs if b is not None)
+
+
+def serving_step(batch: int, detector_kind: str = "resnet50"):
+    """``embed_batch`` on seeded uint8 320 x 320 images, full-width models;
+    returns the step and the models' parts."""
+    detector, embedder, base = build_serving_models("cuda", seed=0,
+                                                    detector_kind=detector_kind)
     service = EmbeddingService(detector, embedder, base)
     g = torch.Generator().manual_seed(1)
     imgs = torch.randint(0, 256, (batch, 320, 320, 3), generator=g,
                          dtype=torch.uint8).cuda()
     ok = torch.ones(batch, dtype=torch.bool, device="cuda")
-    return lambda: service.embed_batch(imgs, ok)
+    return (lambda: service.embed_batch(imgs, ok)), model_parts(detector, embedder)
 
 
-def train_step(batch: int):
-    """One ``KeyPointsController.train_step`` on a seeded synthetic batch."""
+def train_step(batch: int, arch: str = "resnet50"):
+    """One ``KeyPointsController.train_step`` of the keypoint config's
+    ``arch`` model on a seeded synthetic batch; returns the step and the
+    model's parts."""
     from .data import synthetic_keypoint_batch
     from .engine.detector_controller import KeyPointsController
 
-    ctl = KeyPointsController()
+    ctl = KeyPointsController(arch=arch)
     state = ctl.init_state(seed=0, device="cuda")
     data = synthetic_keypoint_batch(batch, 640, 640, 4, seed=0)
-    return lambda: ctl.train_step(state, data)
+    return (lambda: ctl.train_step(state, data)), model_parts(state.model)
 
 
 def busy_us(kernels) -> tuple[float, float]:
@@ -132,6 +205,9 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--batch", type=int, default=None, help="default 32, or 16 with --train")
     ap.add_argument("--iters", type=int, default=None, help="default 3, or 2 with --train")
+    ap.add_argument("--detector", choices=("resnet50", "mobile"), default="resnet50",
+                    help="the detector served or trained (mobile: MobileNetV3-Large, "
+                         "live BatchNorm in training)")
     args = ap.parse_args()
     batch = args.batch or (16 if args.train else 32)
     iters = args.iters or (2 if args.train else 3)
@@ -141,9 +217,14 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "--id=0"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    step = train_step(batch) if args.train else serving_step(batch)
+    step, parts = (train_step(batch, args.detector) if args.train
+                   else serving_step(batch, args.detector))
     for _ in range(1 if args.train else 2):
         step()
+    torch.cuda.synchronize()
+    with module_spans(parts, backward=args.train) as spans:
+        for _ in range(iters):
+            step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -169,6 +250,7 @@ def main() -> None:
     per_batch = {k: v / iters / 1e3 for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])}
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
     print(json.dumps({"card": card, "mode": "train" if args.train else "serving",
+                      "detector": args.detector,
                       "batch": batch, "iters": iters, "wall_ms_per_batch": wall / iters * 1e3,
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "device_busy_share": busy / window if window else None,
@@ -176,6 +258,13 @@ def main() -> None:
     print(json.dumps({"top_kernels": [
         {"name": n[:90], "ms_per_batch": sum(t) / iters / 1e3,
          "launches_per_batch": len(t) / iters} for n, t in top]}), flush=True)
+    print(json.dumps({"part_span_ms_per_batch": {k: v / iters for k, v in spans.items()},
+                      "note": "CUDA events around each module's forward (and backward) "
+                              "calls in an unprofiled pass; spans include idle gaps"}),
+          flush=True)
+    print(json.dumps({"own_kernel_launches_per_batch": {
+        label: sum(len(ts) for n, ts in by_name.items() if key in n) / iters
+        for key, label in OWN_KERNELS.items()}}), flush=True)
     print(json.dumps({"own_kernels": {
         label: [round(t, 2) for n, ts in by_name.items() if key in n for t in ts]
         for key, label in OWN_KERNELS.items()}, "unit": "us per launch"}), flush=True)

@@ -28,7 +28,8 @@ from torch import nn
 
 from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
-from .models.rcnn import keypointrcnn_resnet50_fpn
+from .models.rcnn import (KEYPOINT_ARCHS, keypointrcnn_resnet50_fpn,
+                          mobile_net_v3_large_keypoint_rcnn)
 from .ops.homography import align_crop
 from .utils.collate import letterbox_image
 from .weights import init_random_
@@ -42,15 +43,26 @@ RPN_PRE_NMS_TOP_N, RPN_POST_NMS_TOP_N = 128, 16
 
 
 def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
+                         detector_kind: str = "resnet50",
                          ) -> tuple[nn.Module, nn.Module, torch.Tensor]:
-    """The serving detector (ResNet-50-FPN keypoint R-CNN, 3 keypoints, 1
-    detection per image, RPN budgets 128/16) and the ResNet-50 512-d embedder,
-    with seeded random weights, in eval mode on ``device``. Returns
-    ``(detector, embedder, base_pts (3, 2))``."""
+    """The serving detector (3 keypoints, 1 detection per image, RPN budgets
+    128/16, frozen norms) of ``detector_kind``: ``"resnet50"``, the
+    ResNet-50-FPN keypoint R-CNN, or ``"mobile"``, the MobileNetV3-Large one
+    (JAX ``bench.py --detector mobile``: a 2-level FPN over ``c4``/``c5``, 15
+    anchors a location); and the ResNet-50 512-d embedder, with seeded random
+    weights, in eval mode on ``device``. Returns ``(detector, embedder,
+    base_pts (3, 2))``. The default stays ``"resnet50"``, the port's first
+    serving detector, so that callers written for it keep their meaning; the
+    JAX ``bench.py`` defaults to ``"mobile"``."""
     dev = resolve_device(device)
-    detector = keypointrcnn_resnet50_fpn(
-        num_classes=2, num_keypoints=3, rpn_pre_nms_top_n_test=RPN_PRE_NMS_TOP_N,
-        rpn_post_nms_top_n_test=RPN_POST_NMS_TOP_N)
+    budgets = dict(rpn_pre_nms_top_n_test=RPN_PRE_NMS_TOP_N,
+                   rpn_post_nms_top_n_test=RPN_POST_NMS_TOP_N)
+    if detector_kind == "resnet50":
+        detector = keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, **budgets)
+    elif detector_kind == "mobile":
+        detector = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, **budgets)
+    else:
+        raise ValueError(f"detector kind {detector_kind!r}: expected one of {KEYPOINT_ARCHS}")
     embedder = resnet50_embedder(512)
     init_random_(detector, seed)
     init_random_(embedder, seed + 1)

@@ -13,6 +13,10 @@ dict as numpy arrays, output uses torchvision key names. Layouts:
 - batch norm: ``scale``/``bias`` params and ``mean``/``var`` stats ->
   ``weight``/``bias``/``running_mean``/``running_var``.
 
+The MobileNetV3 trunk keeps the JAX module names (``stem``, ``blocks.{i}.dwconv``,
+``blocks.{i}.se.fc1`` ...); its depthwise kernels ``(k, k, 1, C)`` become
+``(C, 1, k, k)`` by the same conv permutation.
+
 Given a ``params`` tree alone (``batch_stats`` absent), the same maps give the
 entries of the port's trainable parameters only; a gradient tree of
 ``jax.grad`` has the ``params`` layout, so ``detection_state_dict({"params":
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.resnet import FrozenBatchNorm2d
+from .models.resnet import FrozenBatchNorm2d, LiveBatchNorm2d
 
 
 def _conv(k) -> np.ndarray:
@@ -87,6 +91,41 @@ def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "",
     if "fc" in params:
         sd["fc.weight"] = _dense(params["fc"]["kernel"])
         sd["fc.bias"] = np.asarray(params["fc"]["bias"])
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def mobilenet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = ""
+                         ) -> dict[str, np.ndarray]:
+    """flax ``models.mobilenet_v3.MobileNetV3Large`` variables -> the port's
+    ``MobileNetV3Large`` keys (``block{i}`` -> ``blocks.{i}``; the SE convs keep
+    their biases; the classifier head when present). ``stats=None`` leaves out
+    the running statistics."""
+
+    def sub(tree, name):
+        return None if tree is None else tree[name]
+
+    sd: dict[str, np.ndarray] = {}
+    sd["stem.weight"] = _conv(params["stem"]["kernel"])
+    _bn(sd, "bn_stem", params["bn_stem"], sub(stats, "bn_stem"), False)
+    for name in params:
+        m = re.fullmatch(r"block(\d+)", name)
+        if not m:
+            continue
+        base, blk, bst = f"blocks.{m.group(1)}", params[name], sub(stats, name)
+        for conv, bn in (("expand", "bn_expand"), ("dwconv", "bn_dw"),
+                         ("project", "bn_project")):
+            if conv in blk:
+                sd[f"{base}.{conv}.weight"] = _conv(blk[conv]["kernel"])
+                _bn(sd, f"{base}.{bn}", blk[bn], sub(bst, bn), False)
+        if "se" in blk:
+            for fc in ("fc1", "fc2"):
+                _conv_pair(sd, f"{base}.se.{fc}", blk["se"][fc])
+    if "head_conv" in params:
+        sd["head_conv.weight"] = _conv(params["head_conv"]["kernel"])
+        _bn(sd, "bn_head", params["bn_head"], sub(stats, "bn_head"), False)
+        for fc in ("head_fc1", "head_fc2"):
+            if fc in params:
+                _dense_pair(sd, fc, params[fc])
     return {prefix + k: v for k, v in sd.items()}
 
 
@@ -158,12 +197,15 @@ def keypoint_heads_state_dict(params: Mapping) -> dict[str, np.ndarray]:
 
 def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
     """flax ``GeneralizedRCNN`` variables -> torchvision keypoint R-CNN keys in
-    the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``).
-    Without ``batch_stats`` the result holds the trainable parameters only."""
+    the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``);
+    a MobileNetV3 trunk (the tree has ``stem``) takes the port's MobileNetV3
+    keys. Without ``batch_stats`` the result holds the trainable parameters
+    only; with them, live-BN and frozen MobileNetV3 detectors load it alike."""
     p, st = variables["params"], variables.get("batch_stats")
-    sd = resnet_state_dict(p["backbone"]["backbone"],
-                           None if st is None else st["backbone"]["backbone"],
-                           prefix="backbone.body.")
+    body = p["backbone"]["backbone"]
+    trunk = mobilenet_state_dict if "stem" in body else resnet_state_dict
+    sd = trunk(body, None if st is None else st["backbone"]["backbone"],
+               prefix="backbone.body.")
     sd.update(_prefixed("backbone.fpn.", fpn_state_dict(p["backbone"]["fpn"])))
     sd.update(_prefixed("rpn.head.", rpn_head_state_dict(p["rpn"])))
     sd.update(_prefixed("roi_heads.", box_heads_state_dict(p["box_head"],
@@ -171,6 +213,41 @@ def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
     if "keypoint_head" in p:
         sd.update(_prefixed("roi_heads.", keypoint_heads_state_dict(p["keypoint_head"])))
     return sd
+
+
+_TV_NESTED = ((re.compile(r"^backbone\.fpn\.(inner|layer)_blocks\.(\d+)\.0\."),
+               r"backbone.fpn.\1_blocks.\2."),
+              (re.compile(r"^rpn\.head\.conv\.0\.0\."), "rpn.head.conv."))
+
+
+def torchvision_keypoint_state_dict(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """A torchvision ``keypointrcnn_resnet50_fpn`` ``state_dict`` (numpy
+    arrays) -> the port's keypoint R-CNN keys and layouts.
+
+    The port's box head flattens the NHWC pooled block in ``(h, w, c)``
+    order, as the JAX ``TwoMLPHead`` does; torchvision's ``fc6`` takes NCHW
+    ``(c, h, w)`` columns. So ``roi_heads.box_head.fc6.weight``'s columns are
+    permuted ``(c, h, w) -> (h, w, c)``: loaded as is, they would feed the
+    head permuted inputs. The nested FPN and RPN names of torchvision >= 0.13
+    (``inner_blocks.0.0.weight``, ``rpn.head.conv.0.0.weight``) become the
+    flat ones; ``num_batches_tracked`` counters are dropped (the port's
+    detection norms keep none). Every other tensor is copied unchanged.
+    """
+    out: dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        for pat, repl in _TV_NESTED:
+            k = pat.sub(repl, k)
+        out[k] = np.asarray(v)
+    w = out["roi_heads.box_head.fc6.weight"]
+    n_out, n_in = w.shape
+    c = n_in // 49
+    if c * 49 != n_in:
+        raise ValueError(f"fc6 takes {n_in} inputs, not a multiple of 7 x 7")
+    out["roi_heads.box_head.fc6.weight"] = np.ascontiguousarray(
+        w.reshape(n_out, c, 7, 7).transpose(0, 2, 3, 1).reshape(n_out, n_in))
+    return out
 
 
 def to_tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -198,7 +275,7 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
             draw(w, lambda s: torch.randn(s, generator=g) / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm2d, FrozenBatchNorm2d)):
+        elif isinstance(m, (nn.BatchNorm2d, LiveBatchNorm2d, FrozenBatchNorm2d)):
             draw(m.weight, lambda s: torch.rand(s, generator=g) + 0.5)
             draw(m.bias, lambda s: torch.randn(s, generator=g) * 0.1)
             draw(m.running_mean, lambda s: torch.randn(s, generator=g) * 0.1)

@@ -40,7 +40,8 @@ def test_no_jax_imports(path):
 def test_importing_the_port_loads_no_jax():
     modules = [f"pets_face_recognition_tpu_torch.{m}" for m in (
         "serving", "device", "weights", "kernels", "ops.nms", "ops.roi_align", "ops.homography",
-        "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder", "losses", "data",
+        "ops.anchors", "ops.boxes", "models.rcnn", "models.embedder", "models.mobilenet_v3",
+        "losses", "data",
         "utils.optim", "engine.train_state", "engine.detector_controller",
         "engine.trainer", "profile_serving", "kernel_ab", "retrieval", "native",
         "utils.collate", "preprocessor", "preprocessor.align", "pipelines", "generate_tsv")]

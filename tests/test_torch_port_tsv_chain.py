@@ -251,7 +251,7 @@ def test_generate_tsv_main_writes_the_tsv_and_dump(chains, tmp_path, monkeypatch
     out, cache = tmp_path / "out" / "pred.tsv", tmp_path / "db.pickle"
     args = ["--data", str(data), "--output", str(out), "--stock-preds", str(stock),
             "--cache", str(cache), "--device", "cpu"]
-    monkeypatch.setattr(generate_tsv, "build_retrieval_models", lambda dev, seed: (
+    monkeypatch.setattr(generate_tsv, "build_retrieval_models", lambda dev, seed, arch: (
         weights.init_random_(keypointrcnn_resnet50_fpn(
             stage_sizes=STAGES, rpn_pre_nms_top_n_test=PRE, rpn_post_nms_top_n_test=POST),
             seed).eval(),
