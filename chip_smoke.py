@@ -90,6 +90,30 @@ losses within 1e-3, running statistics within 1e-4, and gradients within
 5e-3 relative in norm or within twice the card's own spread when its input
 is rounded differently (the step is ill-conditioned in float32).
 
+Last, keypoint_fit: the port's training path from data. The keypoint
+config (``build_keypoint_config``, production width, B = 16 at 640 x 640,
+8 loader threads) over the committed CAT miniature
+(``pets_face_recognition_tpu_torch/testdata/CAT_DATASET``, 40 photos: 2
+steps an epoch and 1 validation batch of 8), written as a config file and
+run as ``main()`` runs one: ``configure_trainer(config, logger).fit(
+KeyPointsController(config=config))`` for 2 epochs, with the launch counts
+read around it (K2, K3, K4 and the pre-pass must have run) and finite
+losses; the loader alone in images/s; checkpoints ``epoch=0-step=2`` and
+``epoch=1-step=4``, one save and one load timed, the loaded state bit-equal
+to the trained one (parameters, buffers, momentum, step, epoch); a new
+trainer with 3 epochs resumes at epoch 2 and step 4; ``eval_landmark``'s
+``evaluate`` on the last checkpoint with the counts read around it (K2 and
+K3 launched, K4 not), and the same checkpoint's detections and metrics on
+the card against the CPU over the validation batch (scores within 1e-3,
+boxes within 1e-3 of the image side, metrics within 1e-3, relative for the
+pixel errors); the mobile arch for 1 epoch (``keypoint_fit_mobile``); and
+``python -m pets_face_recognition_tpu_torch.main_keypoints --config
+pets_face_recognition_tpu_torch/configs/keypoint_smoke.py`` in a subprocess,
+which must exit 0. Step ms (the first apart), each epoch's ``data_time_s``
+and ``step_time_s``, eval ms a batch, the validation metrics, checkpoint
+bytes and peak memory are printed. Everything the phase writes is under the
+git-ignored ``smoke_out/fit`` and deleted after it.
+
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``; ``max_abs_err`` is each
 row's largest absolute difference from its plain version on the card, 0 or 1
@@ -1702,6 +1726,294 @@ def mobile_tsv_phase(dev, kernels_mod, smi: str) -> dict:
     return k
 
 
+MINIATURE = REPO / "pets_face_recognition_tpu_torch" / "testdata"   # the CAT miniature
+FIT_OUT = REPO / "smoke_out" / "fit"        # git-ignored; deleted after the phase
+FIT_KERNELS = ("nms_keep_sorted_batch", "multilevel_roi_align", "roi_footprints",
+               "multilevel_roi_align_backward")
+FIT_CONFIG = """from pets_face_recognition_tpu_torch.config_presets import build_keypoint_config
+
+globals().update(build_keypoint_config(data_root={data!r}, n_epochs={epochs}, num_workers=8,
+                                       output={out!r}, arch={arch!r}))
+"""
+# card against CPU on the validation batch: boxes as a share of the image side
+FIT_GATES = dict(score_abs=1e-3, box_rel_to_side=1e-3, metric=1e-3)
+
+
+def fit_config(arch: str, epochs: int):
+    """The keypoint config at production width over the committed miniature,
+    written as a config file and read back as ``main()`` reads one."""
+    from pets_face_recognition_tpu_torch.utils import get_config
+
+    out = FIT_OUT / arch
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "keypoint_fit.py"
+    path.write_text(FIT_CONFIG.format(data=str(MINIATURE), epochs=epochs, out=str(out),
+                                      arch=arch))
+    return path, get_config(path)
+
+
+def timed_controller(config):
+    """The port's controller with each train step and eval batch timed."""
+    from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
+
+    class Timed(KeyPointsController):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.step_s, self.eval_s, self.losses = [], [], []
+
+        def train_step(self, state, batch, sampler_noise=None):
+            t = time.perf_counter()
+            m = super().train_step(state, batch, sampler_noise)   # floats: synchronised
+            self.step_s.append(time.perf_counter() - t)
+            self.losses.append(m)
+            return m
+
+        def init_state(self, *args, **kw):
+            t = time.perf_counter()
+            state = super().init_state(*args, **kw)
+            self.init_s = time.perf_counter() - t
+            return state
+
+        def run_eval_batch(self, eval_step, state, batch):
+            t = time.perf_counter()
+            out = super().run_eval_batch(eval_step, state, batch)  # numpy: synchronised
+            self.eval_s.append(time.perf_counter() - t)
+            return out
+
+    return Timed(config=config)
+
+
+def fit_run(config, dev, kernels_mod, logdir: Path, **overrides):
+    """``configure_trainer(config, logger).fit(controller)`` with the launch
+    counts read around it; the finite-loss and launch gates."""
+    import torch
+    from pets_face_recognition_tpu_torch.engine.logging import MetricsLogger
+    from pets_face_recognition_tpu_torch.engine.trainer import configure_trainer
+
+    ctl = timed_controller(config)
+    trainer = configure_trainer(config, MetricsLogger(logdir), device=dev, **overrides)
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    t = time.perf_counter()
+    trainer.fit(ctl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels_mod.launch_counts()
+    bad = [m for m in ctl.losses if not all(math.isfinite(v) for v in m.values())]
+    if bad or not ctl.losses:
+        raise AssertionError(f"non-finite or no losses in the fit: {bad or ctl.losses}")
+    missing = [k for k in FIT_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the fit: {missing}")
+    recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    epochs = [{k: r[k] for k in ("step", "epoch_loss", "data_time_s", "step_time_s",
+                                 "epoch_time_s")} for r in recs if "epoch_time_s" in r]
+    val = [{k: v for k, v in r.items() if k != "time"} for r in recs
+           if any(k.startswith("val ") for k in r)]
+    return trainer, ctl, launches, wall, epochs, val
+
+
+def loader_rate(config, epochs: int = 2) -> dict:
+    """The training loader alone (decode, rot90, letterbox to 640 x 640,
+    collate; 8 threads): images/s over ``epochs`` epochs after one warm-up;
+    then its two parts apart on one batch: the 16 reads on the loader's
+    thread pool, and the collate in one thread, as the producer runs it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    loader = config.train_dataloader()
+    for _ in loader:
+        pass
+    t = time.perf_counter()
+    n = sum(b["images"].shape[0] for _ in range(epochs) for b in loader)
+    s = time.perf_counter() - t
+    idx = list(range(loader.batch_size))
+    with ThreadPoolExecutor(loader.num_workers) as pool:
+        t = time.perf_counter()
+        samples = list(pool.map(loader.dataset.__getitem__, idx))
+        read_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    loader.collate_fn(samples)
+    collate_ms = (time.perf_counter() - t) * 1e3
+    return dict(images=n, seconds=s, images_per_s=n / s, threads=loader.num_workers,
+                batch=loader.batch_size, read_ms_per_batch=read_ms,
+                collate_ms_per_batch=collate_ms)
+
+
+def state_snapshot(state) -> dict:
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "momentum": [state.optimizer.state[p]["momentum_buffer"].detach().cpu().clone()
+                         for g in state.optimizer.param_groups for p in g["params"]],
+            "step": state.step}
+
+
+def predictions(config, ckpt: Path, device) -> tuple[object, list[dict]]:
+    """The checkpoint's detections over the validation loader on ``device``,
+    and the controller that made them."""
+    from pets_face_recognition_tpu_torch.engine.checkpoint import load_params, merge_params
+    from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
+    from pets_face_recognition_tpu_torch.engine.trainer import Trainer
+
+    ctl = KeyPointsController(config=config)
+    state = ctl.init_state(0, device)
+    merge_params(state.model, load_params(ckpt, device))
+    outputs = Trainer(config, enable_checkpointing=False, device=device).predict(ctl, state)
+    return ctl, outputs
+
+
+def keypoint_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase keypoint_fit: the keypoint config at production width trained
+    from the committed CAT miniature through the port's trainer (2 epochs,
+    validation, checkpoints), resumed for a third epoch, and its last
+    checkpoint evaluated by ``eval_landmark`` on the card and on the CPU; the
+    mobile arch for one epoch; ``main_keypoints`` on the smoke config in a
+    subprocess. Returns the launch counts of each path."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import eval_landmark
+    from pets_face_recognition_tpu_torch.engine.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint)
+
+    shutil.rmtree(FIT_OUT, ignore_errors=True)
+    paths = {}
+    try:
+        cfg_path, config = fit_config("resnet50", 2)
+        root = Path(config.output)
+        loader = loader_rate(config)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, ctl, paths["keypoint_fit"], wall, epochs, val = fit_run(
+            config, dev, kernels_mod, root / "log_fit")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpts = sorted(p.name for p in (root / "checkpoints").iterdir())
+        if ckpts != ["epoch=0-step=2", "epoch=1-step=4"]:
+            raise AssertionError(f"checkpoints after 2 epochs: {ckpts}")
+        saved = state_snapshot(trainer.state)
+        # a save and a load of the same state, timed on their own
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        probe = save_checkpoint(FIT_OUT / "timing", trainer.state, 1)
+        save_ms = (time.perf_counter() - t) * 1e3
+        ckpt_bytes = probe.stat().st_size
+        del trainer
+        fresh = ctl.init_state(0, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epoch = restore_checkpoint(fresh, latest_checkpoint(root / "checkpoints"))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t) * 1e3
+        got = state_snapshot(fresh)
+        differ = [k for k, v in got["model"].items() if not torch.equal(v, saved["model"][k])]
+        differ += [f"momentum {i}" for i, (a, b) in enumerate(zip(got["momentum"],
+                                                                 saved["momentum"]))
+                   if not torch.equal(a, b)]
+        if differ or got["step"] != 4 or epoch + 1 != 2 or len(got["momentum"]) != len(
+                saved["momentum"]):
+            raise AssertionError(f"restored state differs: step {got['step']}, epoch {epoch}, "
+                                 f"tensors {differ[:5]}")
+        del fresh, got, saved
+
+        resumed, ctl2, launches2, wall2, epochs2, val2 = fit_run(
+            config, dev, kernels_mod, root / "log_resume", max_epochs=3)
+        if resumed.start_epoch != 2 or resumed.state.step != 6 or not (
+                root / "checkpoints" / "epoch=2-step=6").exists():
+            raise AssertionError(f"resume: start epoch {resumed.start_epoch}, step "
+                                 f"{resumed.state.step}")
+        del resumed
+        torch.cuda.empty_cache()
+        paths["keypoint_fit"] = {k: v + launches2[k] for k, v in paths["keypoint_fit"].items()}
+
+        last = latest_checkpoint(root / "checkpoints")
+        kernels_mod.reset_launch_counts()
+        t = time.perf_counter()
+        metrics_card = eval_landmark.evaluate(cfg_path, last, device=dev)
+        torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t
+        paths["keypoint_eval"] = kernels_mod.launch_counts()
+        k = paths["keypoint_eval"]
+        if not (k["nms_keep_sorted_batch"] and k["multilevel_roi_align"]) or (
+                k["multilevel_roi_align_backward"] or k["roi_footprints"]):
+            raise AssertionError(f"eval launches: {k}")
+        # the same checkpoint on the CPU over the same validation batch
+        t = time.perf_counter()
+        ctl_card, out_card = predictions(config, last, dev)
+        t_card = time.perf_counter() - t
+        ctl_cpu, out_cpu = predictions(config, last, "cpu")
+        t_cpu = time.perf_counter() - t - t_card
+        metrics_cpu = ctl_cpu.evaluate([out_cpu])
+        side = max(config.image_size)
+        pc, pr = out_card[0]["pred"], out_cpu[0]["pred"]
+        vs_cpu = dict(
+            valid_equal=bool((pc["valid"] == pr["valid"]).all()),
+            score_abs=float(np.abs(pc["scores"] - pr["scores"]).max()),
+            box_rel_to_side=float(np.abs(pc["boxes"] - pr["boxes"]).max() / side),
+            keypoint_abs_px=float(np.abs(pc["keypoints"][..., :2]
+                                         - pr["keypoints"][..., :2]).max()),
+            metric={m: abs(v - metrics_cpu["val"][m]) / (abs(metrics_cpu["val"][m])
+                                                         if m in ("MAE", "MSE") else 1.0)
+                    for m, v in metrics_card["val"].items()})
+        emit("keypoint_fit", arch="resnet50", card=smi, data=str(MINIATURE.relative_to(REPO)),
+             batch=config.train_batch_size, image=list(config.image_size),
+             steps=len(ctl.step_s) + len(ctl2.step_s), first_step_ms=ctl.step_s[0] * 1e3,
+             step_ms=statistics.median(ctl.step_s[1:] + ctl2.step_s) * 1e3,
+             step_ms_all=[s * 1e3 for s in ctl.step_s + ctl2.step_s],
+             epochs=epochs + epochs2, loader=loader, fit_s=wall, resume_fit_s=wall2,
+             eval_ms_per_batch=[s * 1e3 for s in ctl.eval_s + ctl2.eval_s],
+             eval_landmark_s=eval_wall, predict_s_card=t_card, predict_s_cpu=t_cpu,
+             state_init_s=[ctl.init_s, ctl2.init_s], validation=val + val2,
+             test_card=metrics_card,
+             test_cpu=metrics_cpu, vs_cpu=vs_cpu, gates=FIT_GATES,
+             checkpoint_bytes=ckpt_bytes, save_ms=save_ms, load_ms=load_ms,
+             peak_mem_gib=peak, checkpoints=ckpts + ["epoch=2-step=6"],
+             launches_fit=paths["keypoint_fit"], launches_resume=launches2,
+             launches_eval=paths["keypoint_eval"],
+             precision="float32: TF32 off inside fit and the eval step")
+        bad = [n for n in ("score_abs", "box_rel_to_side") if not vs_cpu[n] <= FIT_GATES[n]]
+        bad += [m for m, v in vs_cpu["metric"].items()
+                if not (v <= FIT_GATES["metric"] or (math.isnan(metrics_card["val"][m])
+                                                     and math.isnan(metrics_cpu["val"][m])))]
+        if bad or not vs_cpu["valid_equal"] or list(metrics_card["val"]) != list(
+                metrics_cpu["val"]):
+            raise AssertionError(f"the checkpoint's eval on the card differs from the CPU: "
+                                 f"{bad} {vs_cpu}")
+        del ctl_card, ctl_cpu, out_card, out_cpu
+
+        _, mconfig = fit_config("mobile", 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mtrainer, mctl, paths["mobile_fit"], mwall, mepochs, mval = fit_run(
+            mconfig, dev, kernels_mod, Path(mconfig.output) / "log_fit")
+        if not (Path(mconfig.output) / "checkpoints" / "epoch=0-step=2").exists():
+            raise AssertionError("mobile fit: no epoch=0-step=2 checkpoint")
+        emit("keypoint_fit_mobile", arch="mobile", card=smi, steps=len(mctl.step_s),
+             first_step_ms=mctl.step_s[0] * 1e3, step_ms_all=[s * 1e3 for s in mctl.step_s],
+             epochs=mepochs, validation=mval, eval_ms_per_batch=[s * 1e3 for s in mctl.eval_s],
+             fit_s=mwall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches=paths["mobile_fit"])
+        del mtrainer
+        torch.cuda.empty_cache()
+
+        main_dir = FIT_OUT / "main"
+        main_dir.mkdir(parents=True)
+        smoke_cfg = REPO / "pets_face_recognition_tpu_torch" / "configs" / "keypoint_smoke.py"
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main_keypoints",
+                               "--config", str(smoke_cfg)], cwd=main_dir, env=env,
+                              capture_output=True, text=True, timeout=300)
+        main_s = time.perf_counter() - t
+        made = sorted(p.name for p in main_dir.glob("results_smoke/*/checkpoints/*"))
+        emit("main_keypoints", config=str(smoke_cfg.relative_to(REPO)), returncode=proc.returncode,
+             seconds=main_s, checkpoints=made, stdout_tail=proc.stdout[-600:],
+             stderr_tail=proc.stderr[-600:])
+        if proc.returncode != 0 or "Completed!" not in proc.stdout or made != ["epoch=0-step=8"]:
+            raise AssertionError(f"main_keypoints failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(FIT_OUT, ignore_errors=True)   # ~0.47 GB a ResNet checkpoint
+    return paths
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -1769,6 +2081,7 @@ def main() -> int:
     paths["mobile_train"] = train_phase(dev, kernels, smi, "mobile", "mobile_train")
     train_vs_cpu_phase(dev)
     mobile_train_vs_cpu_phase(dev)
+    paths.update(keypoint_fit_phase(dev, kernels, smi))
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
         read = [p for p in paths if p.startswith("mobile_") or not name.endswith("_mobile")]

@@ -1,4 +1,4 @@
-"""Keypoint R-CNN training controller (counterpart of the JAX
+"""Keypoint R-CNN task controller (counterpart of the JAX
 ``engine/detector_controller.py::KeyPointsController``).
 
 ``init_state`` builds the model with seeded random weights and its SGD;
@@ -6,12 +6,21 @@
 ``boxes (B, G, 4)``, ``labels (B, G)`` with 0 the first foreground class,
 ``valid (B, G)``, ``keypoints (B, G, NK, 3)``) into targets with the label +1
 shift (background is class 0), runs the training forward, sums the loss dict
-(``SumDetectionLoss``), backpropagates, clips if asked and steps the
-optimiser at the scheduled rate. After a step each parameter's ``.grad`` holds
-that step's gradient. ``arch`` picks the model as the JAX keypoint config
-does: ``resnet50`` (frozen trunk statistics) or ``mobile`` (MobileNetV3 with
-live BatchNorm, whose running statistics the step moves). The eval step and
-the AP metrics are not ported yet.
+(``SumDetectionLoss``), backpropagates, and, with ``accumulate_grad_batches
+= k``, averages the gradients of ``k`` such mini-steps before one update
+(``optax.MultiSteps``); the update clips if asked and steps the optimiser at
+the scheduled rate of its count of updates. ``arch`` picks the model as the
+JAX keypoint config does: ``resnet50`` (frozen trunk statistics) or ``mobile``
+(MobileNetV3 with live BatchNorm, whose running statistics every mini-step
+moves).
+
+The eval step runs the model in ``eval()`` (a live-BN trunk normalises with
+its running statistics) without gradients, in float32, and puts it back in
+``train()``; ``run_eval_batch`` brings the detections and the targets (labels
++1) to host numpy, and ``evaluate`` scores them (AP at IoU 0.5 and 0.7, the
+top detection's IoU, the keypoint errors, ``detection_metrics``). With
+``config=`` the model, the optimiser and the loaders come from a config
+(``config_presets.build_keypoint_config``).
 """
 
 from __future__ import annotations
@@ -25,10 +34,11 @@ from ..device import float32_matmuls, resolve_device
 from ..losses import sum_detection_loss
 from ..models.rcnn import (KEYPOINT_ARCHS, GeneralizedRCNN, frozen_twin,
                            keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn)
-from ..utils.optim import (clip_by_global_norm_, detection_sgd_optimizer,
-                           set_learning_rate)
+from ..utils.optim import (accumulate_mean_, clip_by_global_norm_,
+                           detection_sgd_optimizer, set_learning_rate)
 from ..weights import init_random_
-from .train_state import TrainState
+from .detection_metrics import detection_metrics, unpad_detections, unpad_targets
+from .train_state import TrainState, step_generator
 
 
 def keypoint_model(arch: str = "resnet50") -> GeneralizedRCNN:
@@ -48,18 +58,26 @@ class KeyPointsController:
     """Keypoint R-CNN task: ``model_fn`` builds the model (by default
     :func:`keypoint_model` of ``arch``), ``optimizer_fn(params)`` returns
     ``(optimizer, schedule)`` (the keypoint config's SGD, lr 5e-3, by
-    default)."""
+    default). With ``config``, both come from it (``config.model``,
+    ``config.optimizer(config)``), and so do the loaders."""
+
+    eval_thresholds = (0.5, 0.7)
 
     def __init__(self, model_fn: Callable[[], GeneralizedRCNN] | None = None,
                  optimizer_fn: Callable = detection_sgd_optimizer,
-                 gradient_clip_val: float | None = None, arch: str = "resnet50"):
+                 gradient_clip_val: float | None = None, arch: str = "resnet50", *,
+                 config=None, accumulate_grad_batches: int = 1):
+        if config is not None:
+            model_fn, optimizer_fn = config.model, config.optimizer(config)
         if model_fn is None:
             if arch not in KEYPOINT_ARCHS:
                 raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
             model_fn = lambda: keypoint_model(arch)  # noqa: E731
+        self.config = config
         self.model_fn = model_fn
         self.optimizer_fn = optimizer_fn
         self.gradient_clip_val = gradient_clip_val
+        self.accumulate_grad_batches = accumulate_grad_batches
 
     @staticmethod
     def targets_from_batch(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
@@ -78,14 +96,14 @@ class KeyPointsController:
     def init_state(self, seed: int = 0, device: str | torch.device = "cuda",
                    model: GeneralizedRCNN | None = None) -> TrainState:
         """Model (seeded random weights unless ``model`` is given), optimiser,
-        step 0 and a CPU sampler generator seeded with ``seed``."""
+        step 0, and ``seed`` for the samplers' noise."""
         dev = resolve_device(device)
         if model is None:
             model = init_random_(self.model_fn(), seed)
         model = model.to(dev).train()
         optimizer, schedule = self.optimizer_fn(
             [p for p in model.parameters() if p.requires_grad])
-        return TrainState(model, optimizer, schedule, torch.Generator().manual_seed(seed))
+        return TrainState(model, optimizer, schedule, seed)
 
     @staticmethod
     def serving_model(state: TrainState) -> GeneralizedRCNN:
@@ -97,22 +115,105 @@ class KeyPointsController:
     @float32_matmuls()
     def train_step(self, state: TrainState, batch: dict,
                    sampler_noise: dict | None = None) -> dict[str, float]:
-        """One step in float32 (TF32 off inside, the caller's flags back after);
-        returns the loss and each term as floats. The model runs in
-        ``train()``, so a live-BN trunk normalises with batch statistics and
-        moves its running statistics once a step, as the JAX step's
-        ``mutable=["batch_stats"]``."""
+        """One mini-step in float32 (TF32 off inside, the caller's flags back
+        after); returns the loss and each term as floats. The samplers' noise
+        is ``sampler_noise`` or drawn from ``step_generator(state.seed,
+        state.step)``. The model runs in ``train()``, so a live-BN trunk
+        normalises with batch statistics and moves its running statistics in
+        every mini-step, as the JAX step's ``mutable=["batch_stats"]``.
+        Afterwards each parameter's ``.grad`` holds this mini-step's gradient,
+        or on an update the clipped mean that was stepped."""
         model = state.model.train()
         dev = next(model.parameters()).device
         images = torch.as_tensor(batch["images"], dtype=torch.float32).to(dev)
         targets = self.targets_from_batch(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
+        generator = None if sampler_noise is not None else step_generator(state.seed,
+                                                                          state.step)
         out = sum_detection_loss(model(images, targets, sampler_noise=sampler_noise,
-                                       generator=state.generator))
+                                       generator=generator))
         out["loss"].backward()
+        metrics = {k: float(v.detach()) for k, v in out.items()}
+        every = self.accumulate_grad_batches
+        mini_step = state.step % every
+        state.step += 1
+        if every > 1:
+            params = [p for g in state.optimizer.param_groups for p in g["params"]]
+            if state.accum is None:
+                state.accum = [torch.zeros_like(p) for p in params]
+            accumulate_mean_(state.accum, [p.grad for p in params], mini_step)
+            if mini_step + 1 < every:
+                return metrics
+            for p, a in zip(params, state.accum):
+                p.grad = a
+            state.accum = None
         if self.gradient_clip_val:
             clip_by_global_norm_(model.parameters(), self.gradient_clip_val)
-        set_learning_rate(state.optimizer, state.schedule(state.step))
+        # the schedule counts updates, not mini-steps (optax.MultiSteps)
+        set_learning_rate(state.optimizer, state.schedule((state.step - 1) // every))
         state.optimizer.step()
-        state.step += 1
-        return {k: float(v.detach()) for k, v in out.items()}
+        return metrics
+
+    # -- evaluation ----------------------------------------------------------
+    def make_eval_step(self) -> Callable:
+        """``eval_step(state, images) -> detections``: the model in ``eval()``
+        under ``torch.no_grad()`` in float32, back in ``train()`` after."""
+
+        @float32_matmuls()
+        @torch.no_grad()
+        def eval_step(state: TrainState, images: torch.Tensor) -> dict[str, torch.Tensor]:
+            model = state.model.eval()
+            try:
+                return model(images)
+            finally:
+                model.train()
+
+        return eval_step
+
+    def run_eval_batch(self, eval_step: Callable, state: TrainState, batch: dict) -> dict:
+        """One eval batch -> ``{'pred', 'true', 'batch_size'}`` on the host;
+        the targets get the training +1 label shift."""
+        dev = next(state.model.parameters()).device
+        images = torch.as_tensor(np.asarray(batch["images"]), dtype=torch.float32).to(dev)
+        dets = eval_step(state, images)
+        true = {
+            "boxes": np.asarray(batch["boxes"]),
+            "labels": np.asarray(batch["labels"]) + 1,
+            "valid": np.asarray(batch["valid"]),
+        }
+        if "keypoints" in batch:
+            true["keypoints"] = np.asarray(batch["keypoints"])
+        return {"pred": {k: v.cpu().numpy() for k, v in dets.items()}, "true": true,
+                "batch_size": images.shape[0]}
+
+    def evaluate(self, outputs: list[list[dict]], logger=None, epoch: int = 0,
+                 prefix: str = "") -> dict[str, dict[str, float]]:
+        """``outputs[i]``: the ``run_eval_batch`` results of eval loader ``i``
+        (named ``train`` and ``val`` when there are two, else ``val``)."""
+        names = ("train", "val") if len(outputs) > 1 else ("val",)
+        all_metrics = {}
+        for name, batches in zip(names, outputs):
+            preds, trues = [], []
+            for b in batches:
+                preds.extend(unpad_detections(b["pred"], b["batch_size"]))
+                trues.extend(unpad_targets(b["true"], b["batch_size"]))
+            metrics = detection_metrics(preds, trues, thresholds=self.eval_thresholds,
+                                        with_keypoints=True)
+            all_metrics[name] = metrics
+            if logger is not None:
+                logger.log_metrics(
+                    {f"{prefix}{name} {k}": v for k, v in metrics.items()}, epoch)
+            else:
+                print(*[f"{name} {k}\t{v}" for k, v in metrics.items()], sep="\n")
+        return all_metrics
+
+    # -- data loaders ----------------------------------------------------------
+    def train_dataloader(self):
+        return self.config.train_dataloader()
+
+    def val_dataloader(self):
+        return self.config.val_dataloader()
+
+    def test_dataloader(self):
+        dl = self.config.get("test_dataloader")
+        return dl() if dl is not None else self.config.val_dataloader()

@@ -26,6 +26,7 @@ import os
 import shlex
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -112,8 +113,18 @@ def build() -> Path:
     return out
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
+    """The route's library, built and loaded once a process; safe to call
+    from many threads at once (a loader's workers do)."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.pfr_decode_batch.restype = ctypes.c_int
     lib.pfr_decode_batch.argtypes = [
@@ -161,3 +172,32 @@ def decode_single(path: str | Path, target_min_side: int = 0) -> np.ndarray | No
                                  target_min_side):
         return None
     return out
+
+
+# start-of-frame markers (baseline, extended, progressive, lossless, ...):
+# 0xC0-0xCF but DHT (0xC4), JPG (0xC8) and DAC (0xCC)
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def jpeg_components(path: str | Path) -> int:
+    """The number of colour components of a JPEG (1 gray, 3 YCbCr, 4 CMYK),
+    read from its start-of-frame header; 0 if none is found before the scan."""
+    data = Path(path).read_bytes()
+    i = 2                                     # after SOI
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            return 0
+        marker = data[i + 1]
+        if marker == 0xFF:                    # fill byte
+            i += 1
+            continue
+        if marker in _SOF:
+            return data[i + 9] if i + 9 < len(data) else 0
+        if marker == 0xDA:                    # start of scan: no frame header
+            return 0
+        if marker == 0x01 or 0xD0 <= marker <= 0xD8:
+            i += 2                            # markers without a length
+            continue
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    return 0
+

@@ -8,10 +8,16 @@ with the image placed at ``(pad_y, pad_x)`` of a zero canvas. The resize is
 ``cv2.INTER_LINEAR`` samples; uint8 images are rounded back to uint8. cv2's
 uint8 resize uses fixed-point weights, so a resized pixel may differ from cv2's
 by 1. An image already at its resized size is copied unchanged.
+
+``detection_collate`` (the JAX ``detection_collate`` without masks) turns
+``[(image, targets)]`` samples into one fixed-shape batch of numpy arrays: the
+images letterboxed on the CPU, their boxes and keypoints mapped into the
+letterbox and padded to ``max_boxes`` with a ``valid`` mask.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,3 +44,70 @@ def letterbox_image(img: torch.Tensor, size: tuple[int, int]
     pad_x = (W - nw) // 2
     canvas[pad_y:pad_y + nh, pad_x:pad_x + nw] = resized
     return canvas, scale, (pad_x, pad_y)
+
+
+def detection_collate(samples: list[tuple[np.ndarray, dict]], image_size: tuple[int, int],
+                      max_boxes: int = 8, num_keypoints: int = 0) -> dict[str, np.ndarray]:
+    """``[(image, targets)]`` -> ``images (B, H, W, 3)`` float32, ``boxes
+    (B, max_boxes, 4)``, ``labels``, ``valid`` and, with ``num_keypoints``,
+    ``keypoints (B, max_boxes, num_keypoints, 3)``. ``targets`` holds ``boxes
+    (N, 4)``, ``labels (N,)`` and optionally ``keypoints (N, K, 3)``. A gray
+    image is repeated to 3 channels and an alpha channel dropped; a canvas
+    whose maximum exceeds 1.5 is divided by 255, as in JAX (so an image with
+    no pixel above 1 stays unscaled)."""
+    B = len(samples)
+    H, W = image_size
+    out = {
+        "images": np.zeros((B, H, W, 3), np.float32),
+        "boxes": np.zeros((B, max_boxes, 4), np.float32),
+        "labels": np.zeros((B, max_boxes), np.int32),
+        "valid": np.zeros((B, max_boxes), bool),
+    }
+    if num_keypoints:
+        out["keypoints"] = np.zeros((B, max_boxes, num_keypoints, 3), np.float32)
+
+    for b, (img, tgt) in enumerate(samples):
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        if img.shape[-1] == 4:
+            img = img[..., :3]
+        canvas, scale, (px, py) = letterbox_image(torch.from_numpy(np.ascontiguousarray(img)),
+                                                  (H, W))
+        canvas = canvas.float()
+        if canvas.max() > 1.5:  # uint8-range input
+            canvas = canvas / 255.0
+        out["images"][b] = canvas.numpy()
+
+        boxes = np.asarray(tgt.get("boxes", np.zeros((0, 4))), np.float32)
+        n = min(len(boxes), max_boxes)
+        if n:
+            scaled = boxes[:n] * scale + np.asarray([px, py, px, py], np.float32)
+            out["boxes"][b, :n] = scaled
+            out["labels"][b, :n] = np.asarray(tgt["labels"])[:n]
+            out["valid"][b, :n] = True
+            if num_keypoints and "keypoints" in tgt:
+                kps = np.asarray(tgt["keypoints"], np.float32)[:n].copy()
+                kps[..., 0] = kps[..., 0] * scale + px
+                kps[..., 1] = kps[..., 1] * scale + py
+                out["keypoints"][b, :n] = kps
+    return out
+
+
+def key_points_collate_list_fn(samples, image_size=(640, 640), max_boxes=8, num_keypoints=3):
+    """The keypoint collate under the reference's name."""
+    return detection_collate(samples, image_size, max_boxes=max_boxes,
+                             num_keypoints=num_keypoints)
+
+
+class DetectionCollate:
+    """:func:`detection_collate` with its settings bound, for a loader."""
+
+    def __init__(self, image_size, max_boxes=8, num_keypoints=0):
+        self.image_size = image_size
+        self.max_boxes = max_boxes
+        self.num_keypoints = num_keypoints
+
+    def __call__(self, samples):
+        return detection_collate(samples, self.image_size, self.max_boxes,
+                                 self.num_keypoints)
+

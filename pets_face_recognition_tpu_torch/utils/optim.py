@@ -6,6 +6,12 @@ decay over every trainable parameter, which equals the JAX package's
 step: both add ``wd * p`` to the gradient, keep ``t = g + momentum * t``, and
 step ``p -= lr * t``. The learning rate follows ``multistep_schedule`` and is
 set on the optimiser before each step by :func:`set_learning_rate`.
+
+Gradient accumulation over ``k`` batches is ``optax.MultiSteps(every_k_schedule
+=k)`` around that chain (the JAX ``wrap_gradient_transform``): each mini-step's
+gradient joins a running mean (:func:`accumulate_mean_`); on every ``k``-th
+the mean is clipped and stepped once, at the rate of the schedule's count of
+such updates, and the mean restarts from zero.
 """
 
 from __future__ import annotations
@@ -60,3 +66,13 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float,
     for g in grads:
         g.mul_(scale)
     return norm
+
+
+@torch.no_grad()
+def accumulate_mean_(accum: list[torch.Tensor], grads: list[torch.Tensor],
+                     mini_step: int) -> None:
+    """``optax.MultiSteps``' Welford mean in place: ``acc += (g - acc) /
+    (mini_step + 1)`` for the ``mini_step``-th gradient (from 0)."""
+    for a, g in zip(accum, grads):
+        a.add_((g - a) / (mini_step + 1))
+

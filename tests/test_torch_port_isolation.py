@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from pets_face_recognition_tpu_torch import generate_tsv, resolve_device, retrieval
+from pets_face_recognition_tpu_torch import (eval_landmark, generate_tsv, main_keypoints,
+                                             resolve_device, retrieval)
 from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
 from pets_face_recognition_tpu_torch.kernels import _build
 from pets_face_recognition_tpu_torch.pipelines import build_retrieval_models
@@ -44,7 +45,10 @@ def test_importing_the_port_loads_no_jax():
         "losses", "data",
         "utils.optim", "engine.train_state", "engine.detector_controller",
         "engine.trainer", "profile_serving", "kernel_ab", "retrieval", "native",
-        "utils.collate", "preprocessor", "preprocessor.align", "pipelines", "generate_tsv")]
+        "utils.collate", "preprocessor", "preprocessor.align", "pipelines", "generate_tsv",
+        "utils", "data_loading", "data_loading.dataset", "data_loading.lmd_dataset",
+        "data_loading.loader", "engine.detection_metrics", "engine.logging",
+        "engine.checkpoint", "config_presets", "main", "main_keypoints", "eval_landmark")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL')]\n"
@@ -86,6 +90,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         retrieval.pairwise_card_scores(np.zeros((1, 2), np.float32), np.zeros((1, 2), np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate_tsv.main(["--data", str(REPO)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main_keypoints.main(KeyPointsController, ["--config", str(REPO)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_landmark.main(["--ckpt", str(REPO)])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

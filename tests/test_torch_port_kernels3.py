@@ -24,6 +24,7 @@ from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPoints
 from pets_face_recognition_tpu_torch.engine.trainer import Trainer
 from pets_face_recognition_tpu_torch.ops import homography, roi_align
 from pets_face_recognition_tpu_torch.serving import EmbeddingService
+from pets_face_recognition_tpu_torch.utils import DictWrapper, optim
 
 torch.set_num_threads(1)
 
@@ -81,10 +82,13 @@ def _service():
 
 def _controller():
     model = _FlagProbe(lambda w, x: {"loss_a": (w * x).mean()})
-    ctl = KeyPointsController()
-    state = ctl.init_state(0, "cpu", model=model)
     batch = {"images": np.ones((1, 8, 8, 3), np.float32), "boxes": np.zeros((1, 1, 4)),
              "labels": np.zeros((1, 1)), "valid": np.ones((1, 1), bool)}
+    config = DictWrapper(dict(model=lambda: model,
+                              optimizer=lambda c: optim.detection_sgd_optimizer,
+                              train_dataloader=lambda: [batch, batch]))
+    ctl = KeyPointsController(config=config)
+    state = ctl.init_state(0, "cpu", model=model)
     return ctl, state, batch, model
 
 
@@ -104,7 +108,9 @@ def test_embed_batch_holds_float32_and_restores_the_callers_flags(caller_tf32):
 def test_train_step_and_fit_hold_float32_and_restore_the_callers_flags(caller_tf32):
     ctl, state, batch, model = _controller()
     ctl.train_step(state, batch)
-    Trainer(log=lambda s: None).fit(ctl, [batch], 2, state=state)
+    # two steps over the config's two batches, no validation, no checkpoint
+    Trainer(max_epochs=1, overfit_batches=2, enable_checkpointing=False,
+            device="cpu").fit(ctl, state=state)
     assert model.seen == [float32_flags()] * 3
     assert tf32_flags() == caller_tf32
     model.fail = True

@@ -6,6 +6,8 @@ its schedule and clipping. Tolerances say why they are not 0 where they are
 not.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +23,11 @@ from pets_face_recognition_tpu.utils import optim as j_optim
 from pets_face_recognition_tpu_torch import losses
 from pets_face_recognition_tpu_torch.data import synthetic_keypoint_batch
 from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
+from pets_face_recognition_tpu_torch.engine.logging import MetricsLogger
 from pets_face_recognition_tpu_torch.engine.trainer import Trainer
 from pets_face_recognition_tpu_torch.models import roi_heads, rpn
 from pets_face_recognition_tpu_torch.models.rcnn import keypointrcnn_resnet50_fpn
-from pets_face_recognition_tpu_torch.utils import optim
+from pets_face_recognition_tpu_torch.utils import DictWrapper, optim
 
 torch.set_num_threads(1)
 
@@ -241,19 +244,26 @@ def _tiny_detector():
                                      rpn_post_nms_top_n_train=16, box_batch_size_per_image=8)
 
 
-def test_trainer_steps_the_controller_on_the_cpu():
+def test_trainer_steps_the_controller_on_the_cpu(tmp_path):
     """``Trainer.fit`` runs the controller's steps (the +1 label shift, sampler
-    noise from the state's seeded generator, SGD) and logs every step's finite
-    loss dict; the same seed gives the same losses."""
-    model_fn = _tiny_detector
+    noise from the state's seed and step, SGD) and logs every step's finite
+    loss dict to ``metrics.jsonl``; the same seed gives the same losses."""
     batch = synthetic_keypoint_batch(2, 64, 64, 2, seed=1)
     runs = []
-    for _ in range(2):
-        logged = []
-        trainer = Trainer(log=logged.append)
-        state = trainer.fit(KeyPointsController(model_fn), [batch], 2, device="cpu")
+    for i in range(2):
+        config = DictWrapper(dict(seed=0, model=_tiny_detector,
+                                  optimizer=lambda c: optim.detection_sgd_optimizer,
+                                  train_dataloader=lambda: [batch, batch]))
+        # two fixed batches, no validation, no checkpoint, a log every step
+        trainer = Trainer(config, logger=MetricsLogger(tmp_path / str(i)), max_epochs=1,
+                          overfit_batches=2, log_every_n_steps=1, enable_checkpointing=False,
+                          device="cpu")
+        state = trainer.fit(KeyPointsController(config=config))
+        records = [json.loads(line) for line in
+                   (tmp_path / str(i) / "metrics.jsonl").read_text().splitlines()]
+        logged = [r for r in records if "loss" in r]
         assert state.step == 2 and len(logged) == 2
-        runs.append([{k: v for k, v in m.items() if k != "step_s"} for m in trainer.history])
+        runs.append([{k: v for k, v in m.items() if k not in ("step", "time")} for m in logged])
     for m in runs[0]:
         assert set(m) == {"loss", "loss_objectness", "loss_rpn_box_reg", "loss_classifier",
                           "loss_box_reg", "loss_keypoint"}
