@@ -114,6 +114,45 @@ and ``step_time_s``, eval ms a batch, the validation metrics, checkpoint
 bytes and peak memory are printed. Everything the phase writes is under the
 git-ignored ``smoke_out/fit`` and deleted after it.
 
+Then the feature extractor's path, under the git-ignored ``smoke_out/fe``
+(deleted after it). fe_transform: seeded ``data_25`` and petfinder-extras
+layouts (``smoke_data``: 20 JPEGs and 16 PNGs of 320 x 320); ``python -m
+pets_face_recognition_tpu_torch.transform_dataset --pipeline head --thr 0``
+with the detector a corpus rebuild loads, a port checkpoint named by
+``PFR_KEYPOINT_CKPT`` (seeded random weights; the full-width detector at
+its 1000-proposal test budgets) at B = 8, on the card (launch counts around
+it: K1 once per kept photo, K2, K3) and on the CPU: the same files under the
+same names, the crops before encoding within 1e-3 on [0, 1]; the card's
+JPEG files (nvJPEG) against PIL's libjpeg on the CPU's crops: the same
+quantisation tables, 4:2:0 chroma, and the decoded pixels within
+``JPEG_GAP`` (largest and mean), with the gap taken apart (grey crops,
+2 x 2 chroma blocks, each YCbCr channel); then ``transform_reproduce``'s
+head route on the card over both layouts with the same detector (its walks
+and exclusion lists; K1-K3 launched). fe_fit:
+``build_fe_config`` at production width (ResNet-50 -> 512 with live
+BatchNorm, ArcFace s 64 m 0.5, B = 64 at 224 x 224, 8 loader threads) over
+``smoke_data.make_fe`` (64 identities of 6 crops; 32 train: 3 steps an
+epoch with 4 petfinder-extras identities; 500 pairs), run as ``main()``
+runs it: SGD for 2 epochs (checkpoints ``epoch=0-step=3``,
+``epoch=1-step=6``, one save and one load timed, a bit-equal restore), a
+resume into a third epoch (epoch 2, step 9), AdamW for 1 epoch; no
+hand-written kernel may launch in FE training; the loader alone (reads,
+``FETrainAug`` and collate apart); ``eval_fe`` on the last checkpoint, and
+on the card against the CPU the validation embeddings of that checkpoint
+and of the fit's initial weights with the ``fc`` bias moved by minus the
+mean validation embedding (within 1e-4 relative), and the latter's metrics
+within 1e-3 (random-weight embeddings all but share one direction, more so
+after a few steps; centred, their pair cosines spread around 0); one
+reduced step (full
+ResNet-50, B = 8 at 128 x 128) on the card against the CPU (loss 1e-3,
+running statistics 1e-4, gradients 5e-3 or twice the card's own spread under
+1e-6 input rounding); ``python -m pets_face_recognition_tpu_torch.main
+--config pets_face_recognition_tpu_torch/configs/fe_smoke.py`` in a
+subprocess, which must exit 0. Step ms (the first apart), peak memory, each
+epoch's ``data_time_s`` and ``step_time_s``, the step alone and beside a
+running loader, eval ms a batch and the metrics' ms (pairs, verification,
+Recall@K apart), checkpoint bytes and save / load ms are printed.
+
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``; ``max_abs_err`` is each
 row's largest absolute difference from its plain version on the card, 0 or 1
@@ -2014,6 +2053,722 @@ def keypoint_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     return paths
 
 
+FE_OUT = REPO / "smoke_out" / "fe"          # git-ignored; deleted after the phases
+FE_KERNELS = ("warp_perspective_batch", "nms_keep_sorted_batch", "multilevel_roi_align")
+FE_TRANSFORM_BATCH = 8
+FE_GATES = dict(crop_abs_01=1e-3, fe_loss_rel=1e-3, fe_stats_rel_norm=1e-4,
+                fe_grad_rel_norm=5e-3, eval_emb_rel_norm=1e-4, eval_metric_abs=1e-3)
+# The card's JPEG encoder (nvJPEG) against PIL's libjpeg on the transform's
+# 18 kept crops, in levels of the decoded pixels, largest and mean: the
+# reading on an H100 80GB HBM3 was 23 and 1.0002 (the same crops give the
+# same bytes in every run); the limits leave one level and 5% above it.
+JPEG_GAP = dict(max=24, mean=1.05)
+
+
+@contextlib.contextmanager
+def recorded_preproc3():
+    """Each ``Preproc3.batch`` call's photos and results, and its seconds
+    (device work synchronised), while the block runs."""
+    import torch
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc3
+
+    calls, batch = [], Preproc3.batch
+
+    def recording(self, images):
+        t = time.perf_counter()
+        out = batch(self, images)
+        if out[0].is_cuda:
+            torch.cuda.synchronize()
+        calls.append((images, out, time.perf_counter() - t))
+        return out
+
+    Preproc3.batch = recording
+    try:
+        yield calls
+    finally:
+        Preproc3.batch = batch
+
+
+def pil_jpeg(img) -> bytes:
+    """``img`` as PIL's ``save`` writes a JPEG: quality 75, 4:2:0 chroma."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def pil_open(data: bytes):
+    import io
+
+    from PIL import Image
+
+    return Image.open(io.BytesIO(data))
+
+
+def jfif_ycc(rgb):
+    """JFIF's RGB -> YCbCr, in float64."""
+    import numpy as np
+
+    m = np.array([[0.299, 0.587, 0.114], [-0.168736, -0.331264, 0.5],
+                  [0.5, -0.418688, -0.081312]])
+    return rgb.astype(np.float64) @ m.T + np.array([0.0, 128.0, 128.0])
+
+
+def jfif_rgb(ycc):
+    """JFIF's YCbCr -> RGB, rounded and clipped to uint8."""
+    import numpy as np
+
+    m = np.array([[1.0, 0.0, 1.402], [1.0, -0.344136, -0.714136], [1.0, 1.772, 0.0]])
+    return np.clip(np.rint((ycc - np.array([0.0, 128.0, 128.0])) @ m.T), 0, 255).astype(np.uint8)
+
+
+def jpeg_gap(card_files: list[bytes], crops: list) -> dict:
+    """The card's JPEG files against what PIL's libjpeg writes from the same
+    crops (quality 75, 4:2:0: PIL's ``save`` defaults, which the JAX
+    transform writes with), both decoded by PIL: the largest and the mean
+    pixel difference in levels, the quantisation tables and the chroma
+    sampling of each (measurement only: PIL is not on the port's path). To
+    say where the gap comes from, the same on three variants of the crops
+    through ``native.encode_jpeg``: grey (R = G = B, so no chroma: the luma
+    DCT and its rounding alone), with each 2 x 2 block's Cb and Cr averaged
+    (so that any 4:2:0 downsampling filter gives the same chroma planes);
+    and each channel's largest difference in YCbCr, and each encoder's mean
+    difference from the crops."""
+    import numpy as np
+    from PIL import JpegImagePlugin
+    from pets_face_recognition_tpu_torch import native
+
+    def decoded(data):
+        return np.asarray(pil_open(data).convert("RGB"), np.int16)
+
+    def gap(ours: list[bytes], theirs: list[bytes]) -> dict:
+        d = [np.abs(decoded(a) - decoded(b)) for a, b in zip(ours, theirs)]
+        return dict(max=int(max(x.max() for x in d)), mean=float(np.mean([x.mean() for x in d])))
+
+    def tables(data):
+        q = pil_open(data).quantization
+        return {k: list(v) for k, v in sorted(q.items())}
+
+    libjpeg = [pil_jpeg(c) for c in crops]
+    grey = [np.repeat(np.rint(jfif_ycc(c)[..., :1]).clip(0, 255).astype(np.uint8), 3, -1)
+            for c in crops]
+    blocks = []
+    for c in crops:
+        ycc = jfif_ycc(c)
+        h, w = (s - s % 2 for s in ycc.shape[:2])
+        chroma = ycc[:h, :w, 1:].reshape(h // 2, 2, w // 2, 2, 2).mean((1, 3))
+        ycc[:h, :w, 1:] = chroma.repeat(2, 0).repeat(2, 1)
+        blocks.append(jfif_rgb(ycc))
+    ycc_diff = np.max([np.abs(jfif_ycc(decoded(a)) - jfif_ycc(decoded(b))).reshape(-1, 3).max(0)
+                       for a, b in zip(card_files, libjpeg)], 0)
+    return dict(
+        files=gap(card_files, libjpeg),
+        tables_equal=all(tables(a) == tables(b) for a, b in zip(card_files, libjpeg)),
+        sampling={"card": sorted({JpegImagePlugin.get_sampling(pil_open(a)) for a in card_files}),
+                  "libjpeg": sorted({JpegImagePlugin.get_sampling(pil_open(b))
+                                     for b in libjpeg})},
+        grey=gap([native.encode_jpeg(g) for g in grey], [pil_jpeg(g) for g in grey]),
+        chroma_2x2=gap([native.encode_jpeg(b) for b in blocks], [pil_jpeg(b) for b in blocks]),
+        ycc_max_diff=dict(zip(("Y", "Cb", "Cr"), map(float, ycc_diff))),
+        mean_from_crop={"card": float(np.mean([np.abs(decoded(a) - c).mean()
+                                               for a, c in zip(card_files, crops)])),
+                        "libjpeg": float(np.mean([np.abs(decoded(b) - c).mean()
+                                                  for b, c in zip(libjpeg, crops)]))})
+
+
+def fe_transform_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase fe_transform: the aligned-corpus transform on seeded ``data_25``
+    and petfinder-extras layouts (``smoke_data``: 20 JPEG and 16 PNG photos
+    of 320 x 320) through the detector route a corpus rebuild takes: a port
+    checkpoint named by ``PFR_KEYPOINT_CKPT`` (the serving detector's seeded
+    random weights, saved as ``epoch=0-step=0``), loaded into the full-width
+    ResNet-50-FPN at ``RCNNConfig``'s test budgets (1000 proposals a level
+    into K2), threshold 0. ``transform_dataset --pipeline head`` on the card
+    (launch counts around it: K1 once per kept photo, K2 and K3) and on the
+    CPU: the same files under the same names, the crops before encoding
+    within 1e-3 on [0, 1]; the card's files against PIL's libjpeg on the
+    CPU's crops (:func:`jpeg_gap`): the same quantisation tables, 4:2:0, and
+    the decoded pixels within ``JPEG_GAP``. Then ``transform_reproduce``'s
+    head route (``aligned``) on the card over the whole layout (its walks and
+    exclusion lists) with the same detector."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import (native, smoke_data, transform_dataset,
+                                                 transform_reproduce)
+    from pets_face_recognition_tpu_torch.pipelines import keypoint_detector
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc3
+    from pets_face_recognition_tpu_torch.serving import serving_detector
+
+    root = FE_OUT / "transform"
+    t_phase = time.perf_counter()
+    smoke_data.make_data25(root)
+    smoke_data.make_petfinder_extras(root)
+    ckpts = root / "keypoint" / "checkpoints"
+    ckpts.mkdir(parents=True)
+    torch.save({"model": serving_detector("cpu", 0).state_dict()}, ckpts / "epoch=0-step=0")
+    photos = sorted((root / "data_25").glob("*/*.jpg"))
+    argv = ["--input", str(root / "data_25"), "--thr", "0.0", "--batch-size",
+            str(FE_TRANSFORM_BATCH)]
+    paths, runs = {}, {}
+    with mock.patch.dict(os.environ, PFR_KEYPOINT_CKPT=str(ckpts)):
+        os.environ.pop("PFR_KEYPOINT_ARCH", None)
+        for label, device in (("card", str(dev)), ("cpu", "cpu")):
+            out = root / f"out_{label}"
+            with recorded_preproc3() as calls:
+                if label == "card":
+                    torch.cuda.synchronize()
+                    kernels_mod.reset_launch_counts()
+                t = time.perf_counter()
+                written = transform_dataset.main(argv + ["--output", str(out), "--device",
+                                                         device])
+                if label == "card":
+                    torch.cuda.synchronize()
+                    paths["fe_transform"] = kernels_mod.launch_counts()
+                runs[label] = dict(seconds=time.perf_counter() - t, calls=calls, out=out,
+                                   written=written,
+                                   files=sorted(str(p.relative_to(out)) for p in written))
+        pre3 = Preproc3(keypoint_detector(dev), thr=0.0, base_pts=transform_reproduce.BASE_PTS,
+                        dsize=(224, 224, 3), serve_batch=FE_TRANSFORM_BATCH, device=dev)
+    kernels_mod.reset_launch_counts()
+    t = time.perf_counter()
+    reproduced = transform_reproduce.aligned(pre3, root)
+    torch.cuda.synchronize()
+    reproduce_s = time.perf_counter() - t
+    paths["fe_reproduce"] = kernels_mod.launch_counts()
+    card, cpu = runs["card"], runs["cpu"]
+    kept = sum(int(v.sum()) for _, (_, v, _), _ in card["calls"])
+    crop_err, valid_equal, crops = 0.0, True, []
+    for (_, (c_gpu, v_gpu, _), _), (_, (c_cpu, v_cpu, _), _) in zip(card["calls"],
+                                                                   cpu["calls"]):
+        valid_equal &= bool((v_gpu == v_cpu).all())
+        a, b = c_gpu.cpu().numpy(), c_cpu.numpy()
+        both = np.isfinite(a) & np.isfinite(b)
+        valid_equal &= bool((np.isfinite(a) == np.isfinite(b)).all())
+        if both.any():
+            crop_err = max(crop_err, float(np.abs(a[both] - b[both]).max()) / 255.0)
+        # the CPU's crops as transform_reproduce._save truncates them
+        crops += [np.clip(np.nan_to_num(b[i], nan=0.0), 0, 255).astype(np.uint8)
+                  for i in np.nonzero(v_cpu)[0]]
+    same_files = card["files"] == cpu["files"] and len(card["files"]) == len(crops) > 0
+    jpeg = jpeg_gap([p.read_bytes() for p in card["written"]], crops) if same_files else None
+    reproduced_rel = sorted(str(p.relative_to(root)) for p in reproduced)
+    excluded = [p for p in reproduced_rel if any(s in p for s in (
+        "216319", "660074", "48683845", "45528036", "48009947/3.png", "24355557/4.png"))]
+    k = paths["fe_transform"]
+    emit("fe_transform", card=smi, photos=len(photos), batch=FE_TRANSFORM_BATCH,
+         detector=dict(checkpoint=str(ckpts.relative_to(root)),
+                       rpn_pre_nms_top_n_test=pre3.model.cfg.rpn_pre_nms_top_n_test,
+                       rpn_post_nms_top_n_test=pre3.model.cfg.rpn_post_nms_top_n_test),
+         route=native.route(), kept=kept, files=len(card["files"]),
+         seconds_card=card["seconds"], seconds_cpu=cpu["seconds"],
+         preproc3_s_card=[c[2] for c in card["calls"]],
+         preproc3_s_cpu=[c[2] for c in cpu["calls"]],
+         photos_per_s_card=len(photos) / card["seconds"], crop_abs_err_01=crop_err,
+         valid_equal=valid_equal, same_files=same_files, jpeg=jpeg,
+         launches=k, reproduce=dict(seconds=reproduce_s, files=len(reproduced),
+                                    launches=paths["fe_reproduce"],
+                                    outputs=sorted({p.split("/")[0] for p in reproduced_rel})),
+         gates=dict(crop_abs_01=FE_GATES["crop_abs_01"], jpeg_gap=JPEG_GAP),
+         seconds=time.perf_counter() - t_phase)
+    if not (k["warp_perspective_batch"] == kept > 0 and k["nms_keep_sorted_batch"]
+            and k["multilevel_roi_align"]):
+        raise AssertionError(f"fe_transform launches {k} for {kept} kept photos")
+    if not (valid_equal and same_files):
+        raise AssertionError("fe_transform: the card and the CPU kept other photos")
+    if not crop_err <= FE_GATES["crop_abs_01"]:
+        raise AssertionError(f"fe_transform: crops {crop_err} apart")
+    if not (jpeg["tables_equal"] and jpeg["sampling"]["card"] == [2]
+            and jpeg["files"]["max"] <= JPEG_GAP["max"]
+            and jpeg["files"]["mean"] <= JPEG_GAP["mean"]):
+        raise AssertionError(f"fe_transform: the card's JPEGs against libjpeg: {jpeg}")
+    r = paths["fe_reproduce"]
+    if excluded or len(reproduced_rel) < 4 or not all(r[n] for n in FE_KERNELS):
+        raise AssertionError(f"transform_reproduce: {reproduced_rel} excluded {excluded}, {r}")
+    return paths
+
+
+FE_CONFIG = """from pets_face_recognition_tpu_torch.config_presets import build_fe_config
+
+globals().update(build_fe_config(dataset_dir={data!r}, extra_dataset_dir={extra!r},
+                                 n_epochs={epochs}, num_workers=8, output={out!r},
+                                 n_pairs=500, optimizer_kind={kind!r}))
+img_dir = {img!r}
+"""
+
+
+def fe_config(root: Path, name: str, epochs: int, kind: str):
+    """The production FE config over the fit corpus, written as a config file
+    and read back as ``main()`` reads one."""
+    from pets_face_recognition_tpu_torch.utils import get_config
+
+    out = root / name
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "fe_fit.py"
+    path.write_text(FE_CONFIG.format(data=str(root / "smoke_fe_cats"),
+                                     extra=str(root / "petfinder_extra_cats"), epochs=epochs,
+                                     out=str(out), kind=kind, img=str(out / "img")))
+    return path, get_config(path)
+
+
+def fe_timed_controller(config):
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+
+    class Timed(Controller):
+        def __init__(self, config):
+            super().__init__(config)
+            self.step_s, self.eval_s, self.metrics, self.reserved_growth = [], [], [], []
+
+        def train_step(self, state, batch):
+            import torch
+
+            reserved = torch.cuda.memory_reserved()
+            t = time.perf_counter()
+            m = super().train_step(state, batch)     # floats: synchronised
+            self.step_s.append(time.perf_counter() - t)
+            self.metrics.append(m)
+            # the caching allocator's growth in this step (GiB): a step that
+            # must allocate anew pays for it in time
+            self.reserved_growth.append((torch.cuda.memory_reserved() - reserved) / 2 ** 30)
+            return m
+
+        def run_eval_batch(self, eval_step, state, batch):
+            t = time.perf_counter()
+            out = super().run_eval_batch(eval_step, state, batch)
+            self.eval_s.append(time.perf_counter() - t)
+            return out
+
+        def evaluate(self, outputs, logger=None, epoch=0, prefix=""):
+            t = time.perf_counter()
+            out = super().evaluate(outputs, logger, epoch, prefix)
+            self.evaluate_s = time.perf_counter() - t
+            return out
+
+    return Timed(config)
+
+
+def fe_fit_run(config, dev, logdir: Path, **overrides):
+    import torch
+    from pets_face_recognition_tpu_torch.engine.logging import MetricsLogger
+    from pets_face_recognition_tpu_torch.engine.trainer import configure_trainer
+
+    ctl = fe_timed_controller(config)
+    trainer = configure_trainer(config, MetricsLogger(logdir), device=dev, **overrides)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.fit(ctl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    bad = [m for m in ctl.metrics if not all(math.isfinite(v) for v in m.values())]
+    if bad or not ctl.metrics:
+        raise AssertionError(f"non-finite or no FE losses: {bad or ctl.metrics}")
+    recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    epochs = [{k: r[k] for k in ("step", "epoch_loss", "data_time_s", "step_time_s",
+                                 "epoch_time_s")} for r in recs if "epoch_time_s" in r]
+    return trainer, ctl, wall, epochs
+
+
+def fe_loader_rate(config, epochs: int = 2) -> dict:
+    """The training loader alone (8 threads: read, ``FETrainAug``, collate of
+    64 crops): images/s over ``epochs`` epochs after one warm-up; then a
+    batch's parts apart: the 64 reads on the loader's thread pool, the 64
+    augmentations on it, and the collate."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pets_face_recognition_tpu_torch.data_loading.dataset import read_image
+
+    loader = config.train_dataloader()
+    for _ in loader:
+        pass
+    t = time.perf_counter()
+    n = sum(b["x"].shape[0] for _ in range(epochs) for b in loader)
+    s = time.perf_counter() - t
+    subset = loader.dataset.datasets[0]             # RecSubset of the corpus
+    idx = list(range(loader.batch_size))
+    paths = [subset.dataset.index_to_path[subset.indices[i]] for i in idx]
+    with ThreadPoolExecutor(loader.num_workers) as pool:
+        t = time.perf_counter()
+        imgs = list(pool.map(read_image, paths))
+        read_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        xs = list(pool.map(subset.transform, imgs))
+        aug_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    loader.collate_fn([{"x": x, "label": 0, "index": i} for i, x in enumerate(xs)])
+    collate_ms = (time.perf_counter() - t) * 1e3
+    return dict(images=n, seconds=s, images_per_s=n / s, threads=loader.num_workers,
+                batch=loader.batch_size, read_ms_per_batch=read_ms,
+                fe_train_aug_ms_per_batch=aug_ms, collate_ms_per_batch=collate_ms)
+
+
+def fe_snapshot(state) -> dict:
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "momentum": [state.optimizer.state[p]["momentum_buffer"].detach().cpu().clone()
+                         for g in state.optimizer.param_groups for p in g["params"]],
+            "step": state.step}
+
+
+def fe_step_vs_cpu(dev) -> dict:
+    """One reduced FE step (full ResNet-50 -> 512 depth and width, B = 8 at
+    128 x 128, 64 classes, the FE SGD) from the same weights on the card and
+    on the CPU: loss within 1e-3 relative, running statistics within 1e-4
+    relative in norm, gradients within 5e-3 relative in norm or twice what
+    the card's own step moves under 1e-6 input rounding (the largest of
+    three draws, worst and median tensor; the live-BN step is
+    ill-conditioned in float32, ROADMAP §3 note 9)."""
+    import copy
+    from functools import partial
+
+    import numpy as np
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+    from pets_face_recognition_tpu_torch.losses import SoftmaxBasedMetricLearning
+    from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
+    from pets_face_recognition_tpu_torch.utils import DictWrapper
+    from pets_face_recognition_tpu_torch.utils.optim import fe_sgd_optimizer
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    B, image, C = 8, 128, 64
+    rng = np.random.RandomState(2)
+    batch = {"x": rng.rand(B, image, image, 3).astype(np.float32),
+             "label": rng.randint(0, C, B), "index": np.arange(B)}
+    cpu_model = init_random_(SoftmaxBasedMetricLearning(resnet50_embedder(512), 512, C), 3)
+    ctl = Controller(DictWrapper({"optimizer": lambda c: partial(fe_sgd_optimizer, lr=1e-2)}))
+    runs = [("gpu", dev, batch)] + [
+        (f"gpu_rounded_{s}", dev, dict(batch, x=(batch["x"] * (1 + np.random.RandomState(
+            s).randn(*batch["x"].shape) * 1e-6)).astype(np.float32))) for s in (1, 2, 3)]
+    runs.append(("cpu", "cpu", batch))
+    out = {}
+    for name, device, b in runs:
+        model = cpu_model if device == "cpu" else copy.deepcopy(cpu_model)
+        state = ctl.init_state(0, device, model=model)
+        t = time.perf_counter()
+        m = ctl.train_step(state, b)
+        out[name] = (m, {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     {n: v.detach().cpu() for n, v in model.named_buffers()},
+                     time.perf_counter() - t)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    (m_gpu, g_gpu, s_gpu, t_gpu), (m_cpu, g_cpu, s_cpu, t_cpu) = out["gpu"], out["cpu"]
+    grad_rel = {n: rel(g_gpu[n], g_cpu[n]) for n in g_cpu}
+    spreads = [[rel(out[f"gpu_rounded_{s}"][1][n], g_gpu[n]) for n in g_cpu] for s in (1, 2, 3)]
+    worst_bound = max(FE_GATES["fe_grad_rel_norm"], 2 * max(max(x) for x in spreads))
+    median_bound = max(FE_GATES["fe_grad_rel_norm"],
+                       2 * max(statistics.median(x) for x in spreads))
+    worst = max(grad_rel, key=grad_rel.get)
+    stat_rel = {n: rel(s_gpu[n], s_cpu[n]) for n in s_cpu}
+    stat_worst = max(stat_rel, key=stat_rel.get)
+    res = dict(batch=B, image=image, classes=C, loss_gpu=m_gpu["loss"], loss_cpu=m_cpu["loss"],
+               loss_rel_err=abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"]),
+               train_acc=[m_gpu["train_acc"], m_cpu["train_acc"]],
+               grad_rel_err_max=grad_rel[worst], grad_rel_err_worst=worst,
+               grad_rel_err_median=statistics.median(grad_rel.values()),
+               card_rounding_spread={"worst": [max(x) for x in spreads],
+                                     "median": [statistics.median(x) for x in spreads]},
+               grad_bounds={"worst": worst_bound, "median": median_bound},
+               running_stats_rel_err_max=stat_rel[stat_worst], running_stats_worst=stat_worst,
+               step_s_gpu=t_gpu, step_s_cpu=t_cpu)
+    if not (res["loss_rel_err"] <= FE_GATES["fe_loss_rel"]
+            and grad_rel[worst] <= worst_bound and res["grad_rel_err_median"] <= median_bound
+            and stat_rel[stat_worst] <= FE_GATES["fe_stats_rel_norm"]):
+        raise AssertionError(f"the FE step on the card differs from the CPU: {res}")
+    return res
+
+
+def fe_metric_ms(ctl, outputs) -> dict[str, float]:
+    """``evaluate``'s parts apart on one validation pass, ms each: the pair
+    similarities, ``verification_metrics`` and Recall@K (host numpy and
+    torch on the CPU, as ``evaluate`` runs them)."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.engine.metrics import (cosine_pair_scores, recall_at_k,
+                                                                verification_metrics)
+
+    order = np.argsort(np.concatenate([b["index"] for b in outputs]))
+    emb = np.concatenate([b["emb"] for b in outputs])[order]
+    classes = np.concatenate([b["label"] for b in outputs])[order]
+    gen = ctl.config.pair_generator(0)[1]
+    pairs, labels = np.asarray(gen.corrected_indices), np.asarray(gen.labels)
+    t = time.perf_counter()
+    scores = cosine_pair_scores(torch.from_numpy(emb), pairs).numpy()
+    t1 = time.perf_counter()
+    verification_metrics(scores, labels, thrs=tuple(ctl.config.thrs),
+                         far_thrs=tuple(ctl.config.far_thr))
+    t2 = time.perf_counter()
+    recall_at_k(emb, classes, tuple(ctl.config.k))
+    t3 = time.perf_counter()
+    return dict(pairs=(t1 - t) * 1e3, verification=(t2 - t1) * 1e3, recall_at_k=(t3 - t2) * 1e3,
+                n_pairs=len(pairs), n_embeddings=len(emb))
+
+
+def sorted_embeddings(outputs):
+    import numpy as np
+
+    e = np.concatenate([b["emb"] for b in outputs])
+    return e[np.argsort(np.concatenate([b["index"] for b in outputs]))]
+
+
+def mean_pair_cosine(e) -> float:
+    import numpy as np
+
+    unit = e / np.linalg.norm(e, axis=1, keepdims=True)
+    cos = unit @ unit.T
+    return float(cos[~np.eye(len(cos), dtype=bool)].mean())
+
+
+def fe_eval_pair(cfg_path: Path, ckpt: Path, dev) -> tuple[dict, tuple, dict]:
+    """``eval_fe.predict`` of ``ckpt`` on the card and on the CPU: the
+    validation embeddings' relative difference in norm, each metric's
+    difference, the card's metrics and the mean pair cosine; the card's
+    controller and outputs; the differences by metric."""
+    import numpy as np
+    from pets_face_recognition_tpu_torch import eval_fe
+
+    (ctl_card, out_card), (ctl_cpu, out_cpu) = (eval_fe.predict(cfg_path, ckpt, device)
+                                                for device in (dev, "cpu"))
+    e_card, e_cpu = sorted_embeddings(out_card), sorted_embeddings(out_cpu)
+    m_card = ctl_card.evaluate([out_card])["Val"]
+    m_cpu = ctl_cpu.evaluate([out_cpu])["Val"]
+    diff = {k: abs(m_card[k] - m_cpu[k]) for k in m_cpu if k in m_card}
+    res = dict(emb_rel_err=float(np.linalg.norm(e_card - e_cpu) / np.linalg.norm(e_cpu)),
+               same_names=list(m_card) == list(m_cpu), metric_max_diff=max(diff.values()),
+               metric_diff={k: v for k, v in diff.items() if v}, metrics_card=m_card,
+               mean_pair_cosine=mean_pair_cosine(e_cpu))
+    return res, (ctl_card, out_card), diff
+
+
+def fe_eval_vs_cpu(cfg_path: Path, last: Path, dev) -> dict:
+    """``eval_fe``'s evaluation on the card against the CPU, twice.
+    ``trained``: the fit's last checkpoint, the validation embeddings within
+    1e-4 relative in norm; its metrics are printed, not held: a few steps
+    from random weights map every crop near one direction (mean pair cosine
+    ~0.9998), where float32 resolves few distinct pair scores, so a
+    last-bit difference moves a metric by whole pairs. ``centred``: the
+    fit's seeded initial weights with the embedder's ``fc`` bias moved by
+    minus the card's mean validation embedding (the last layer's bias alone
+    changes; pair cosines then spread around 0), embeddings within 1e-4 and
+    every metric within 1e-3."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import eval_fe
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+    from pets_face_recognition_tpu_torch.utils import get_config
+
+    trained, _, _ = fe_eval_pair(cfg_path, last, dev)
+    model = Controller(get_config(cfg_path)).init_state(0, "cpu").model.state_dict()
+    initial = FE_OUT / "centred" / "initial"
+    initial.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": model}, initial)
+    _, raw = eval_fe.predict(cfg_path, initial, dev)
+    model["model.fc.bias"] = model["model.fc.bias"] - torch.from_numpy(
+        np.concatenate([b["emb"] for b in raw]).mean(0))
+    torch.save({"model": model}, initial)
+    centred, card, diff = fe_eval_pair(cfg_path, initial, dev)
+    centred["mean_pair_cosine_uncentred"] = mean_pair_cosine(sorted_embeddings(raw))
+    bad = {k: v for k, v in diff.items() if not v <= FE_GATES["eval_metric_abs"]}
+    ok = (trained["same_names"] and centred["same_names"] and not bad
+          and max(trained["emb_rel_err"], centred["emb_rel_err"]) <= FE_GATES[
+              "eval_emb_rel_norm"])
+    return dict(ok=ok, bad=bad, trained=trained, centred=centred,
+                metric_ms=fe_metric_ms(*card))
+
+
+def fe_step_contention(config, dev, reps: int = 5) -> dict:
+    """The FE step on one fixed batch, alone and while the training loader
+    runs in a background thread as it does during an epoch (8 threads of
+    numpy ``FETrainAug`` beside the step's own Python): ms a step each way."""
+    import threading
+
+    import torch
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+
+    ctl = Controller(config)
+    state = ctl.init_state(1, dev)
+    loader = config.train_dataloader()
+    batch = next(iter(loader))
+
+    def steps() -> list[float]:
+        out = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            ctl.train_step(state, batch)               # floats: synchronised
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    steps()                                            # warm-up
+    alone = steps()
+    stop, served = threading.Event(), [0]
+
+    def churn():
+        while not stop.is_set():
+            for b in loader:
+                served[0] += len(b["x"])
+                if stop.is_set():
+                    break
+
+    thread = threading.Thread(target=churn, daemon=True)
+    thread.start()
+    time.sleep(0.5)                                    # the workers under way
+    t = time.perf_counter()
+    n0 = served[0]
+    busy = steps()
+    loader_rate = (served[0] - n0) / (time.perf_counter() - t)
+    stop.set()
+    thread.join()
+    del state
+    torch.cuda.empty_cache()
+    return dict(step_ms_alone=alone, step_ms_with_loader=busy,
+                loader_images_per_s_meanwhile=loader_rate)
+
+
+def fe_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase fe_fit: the feature extractor trained from data at production
+    width (``build_fe_config``: ResNet-50 -> 512, ArcFace s 64 m 0.5, B = 64
+    at 224 x 224, 8 loader threads) over a seeded aligned-crop corpus
+    (``smoke_data.make_fe``: 64 identities of 6 crops, 32 for training: 3
+    steps an epoch with the petfinder-extras corpus; 10 validation batches
+    of 20; 500 pairs): SGD for 2 epochs, a resume into a third, AdamW for 1;
+    checkpoints, a bit-equal restore; the loader alone; ``main`` on the smoke
+    config in a subprocess; ``eval_fe`` on the last checkpoint, on the card
+    against the CPU for that checkpoint and for the initial weights with a
+    centred ``fc`` bias (:func:`fe_eval_vs_cpu`: embeddings 1e-4, the
+    latter's metrics 1e-3); one reduced step on the card against the CPU. FE training runs no hand-written kernel: the path's
+    launch counts are read and must be 0."""
+    import torch
+    from pets_face_recognition_tpu_torch import eval_fe, smoke_data
+    from pets_face_recognition_tpu_torch.engine.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint)
+
+    root = FE_OUT / "fit"
+    t = t_phase = time.perf_counter()
+    smoke_data.make_fe(root, n_ids=64, n_imgs=6, size=224)
+    smoke_data.make_petfinder_extras(root, n_cards=4, n_imgs=3)
+    corpus_s = time.perf_counter() - t
+    cfg_path, config = fe_config(root, "sgd", 2, "sgd")
+    out = Path(config.output)
+    loader = fe_loader_rate(config)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launch_counts()
+    trainer, ctl, wall, epochs = fe_fit_run(config, dev, out / "log_fit")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(config.train_dataloader())             # 3 steps an epoch
+    ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+    if ckpts != [f"epoch=0-step={n}", f"epoch=1-step={2 * n}"]:
+        raise AssertionError(f"FE checkpoints after 2 epochs: {ckpts}")
+    saved = fe_snapshot(trainer.state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probe = save_checkpoint(FE_OUT / "timing", trainer.state, 1)
+    save_ms = (time.perf_counter() - t) * 1e3
+    ckpt_bytes = probe.stat().st_size
+    del trainer
+    fresh = ctl.init_state(0, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    epoch = restore_checkpoint(fresh, latest_checkpoint(out / "checkpoints"))
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    got = fe_snapshot(fresh)
+    differ = [k for k, v in got["model"].items() if not torch.equal(v, saved["model"][k])]
+    differ += [f"momentum {i}" for i, (a, b) in enumerate(zip(got["momentum"],
+                                                             saved["momentum"]))
+               if not torch.equal(a, b)]
+    if differ or got["step"] != 2 * n or epoch != 1 or len(got["momentum"]) != len(
+            saved["momentum"]):
+        raise AssertionError(f"restored FE state differs: step {got['step']}, epoch {epoch}, "
+                             f"{differ[:5]}")
+    del fresh, got, saved
+    resumed, ctl2, wall2, epochs2 = fe_fit_run(config, dev, out / "log_resume", max_epochs=3)
+    if resumed.start_epoch != 2 or resumed.state.step != 3 * n or not (
+            out / "checkpoints" / f"epoch=2-step={3 * n}").exists():
+        raise AssertionError(f"FE resume: start epoch {resumed.start_epoch}, step "
+                             f"{resumed.state.step}")
+    del resumed
+    paths = {"fe_fit": kernels_mod.launch_counts()}
+    if any(paths["fe_fit"].values()):
+        raise AssertionError(f"FE training launched a hand-written kernel: {paths['fe_fit']}")
+    torch.cuda.empty_cache()
+
+    _, aconfig = fe_config(root, "adamw", 1, "adamw")
+    atrainer, actl, awall, aepochs = fe_fit_run(aconfig, dev, Path(aconfig.output) / "log_fit")
+    if not isinstance(atrainer.state.optimizer, torch.optim.AdamW) or not (
+            Path(aconfig.output) / "checkpoints" / f"epoch=0-step={n}").exists():
+        raise AssertionError(f"FE AdamW fit: no AdamW state or no epoch=0-step={n}")
+    del atrainer
+    torch.cuda.empty_cache()
+
+    last = latest_checkpoint(out / "checkpoints")
+    t = time.perf_counter()
+    m_entry = eval_fe.main(["--config", str(cfg_path), "--ckpt", str(last), "--device",
+                            str(dev)])["Val"]
+    eval_fe_s = time.perf_counter() - t
+    cmp = fe_eval_vs_cpu(cfg_path, last, dev)
+    step_cpu = fe_step_vs_cpu(dev)
+    contention = fe_step_contention(config, dev)
+
+    main_dir = FE_OUT / "main"
+    main_dir.mkdir(parents=True)
+    smoke_cfg = REPO / "pets_face_recognition_tpu_torch" / "configs" / "fe_smoke.py"
+    env = dict(os.environ, PFR_SMOKE_ROOT=str(main_dir / "data"), PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main",
+                           "--config", str(smoke_cfg)], cwd=main_dir, env=env,
+                          capture_output=True, text=True, timeout=300)
+    main_s = time.perf_counter() - t
+    made = sorted(p.name for p in main_dir.glob("results_smoke/*/checkpoints/*"))
+
+    emit("fe_fit", card=smi, corpus=dict(identities=64, crops=384, train_crops=len(
+        config.train_dataloader().dataset), extras_identities=config.num_classes - len(
+        config.dataset.get_users()) // 2,
+        seconds=corpus_s), batch=config.train_batch_size, image=224, classes=config.num_classes,
+         steps=len(ctl.step_s) + len(ctl2.step_s), first_step_ms=ctl.step_s[0] * 1e3,
+         step_ms=statistics.median(ctl.step_s[1:] + ctl2.step_s) * 1e3,
+         step_ms_all=[s * 1e3 for s in ctl.step_s + ctl2.step_s],
+         reserved_growth_gib=ctl.reserved_growth + ctl2.reserved_growth,
+         adamw_step_ms_all=[s * 1e3 for s in actl.step_s], peak_mem_gib=peak,
+         epochs=epochs + epochs2, adamw_epochs=aepochs, loader=loader, fit_s=wall,
+         resume_fit_s=wall2, adamw_fit_s=awall,
+         eval_ms_per_batch=statistics.median(ctl.eval_s + ctl2.eval_s) * 1e3,
+         eval_batches_per_epoch=len(ctl.eval_s) // 2, evaluate_ms=ctl.evaluate_s * 1e3,
+         losses=[m["loss"] for m in ctl.metrics + ctl2.metrics],
+         train_acc=[m["train_acc"] for m in ctl.metrics + ctl2.metrics],
+         checkpoints=ckpts + [f"epoch=2-step={3 * n}"], checkpoint_bytes=ckpt_bytes,
+         save_ms=save_ms, load_ms=load_ms, launches=paths["fe_fit"],
+         eval_fe_s=eval_fe_s, eval_fe=m_entry, eval_vs_cpu=cmp, step_vs_cpu=step_cpu,
+         contention=contention, seconds=time.perf_counter() - t_phase,
+         gates=FE_GATES, precision="float32: TF32 off inside fit, the steps and eval")
+    emit("main_fe", config=str(smoke_cfg.relative_to(REPO)), returncode=proc.returncode,
+         seconds=main_s, checkpoints=made, stdout_tail=proc.stdout[-400:],
+         stderr_tail=proc.stderr[-600:])
+    if not cmp["ok"]:
+        raise AssertionError(f"eval_fe on the card differs from the CPU: {cmp}")
+    if proc.returncode != 0 or "Completed!" not in proc.stdout or made != [
+            "epoch=0-step=3", "epoch=1-step=6"]:
+        raise AssertionError(f"main (FE) failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return paths
+
+
+def fe_phases(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """fe_transform and fe_fit, everything under the git-ignored
+    ``smoke_out/fe``, deleted after them."""
+    import shutil
+
+    shutil.rmtree(FE_OUT, ignore_errors=True)
+    try:
+        paths = fe_transform_phase(dev, kernels_mod, smi)
+        paths.update(fe_fit_phase(dev, kernels_mod, smi))
+    finally:
+        shutil.rmtree(FE_OUT, ignore_errors=True)   # ~0.2 GB an FE checkpoint
+    return paths
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -2082,6 +2837,7 @@ def main() -> int:
     train_vs_cpu_phase(dev)
     mobile_train_vs_cpu_phase(dev)
     paths.update(keypoint_fit_phase(dev, kernels, smi))
+    paths.update(fe_phases(dev, kernels, smi))   # fe_transform, fe_reproduce, fe_fit
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
         read = [p for p in paths if p.startswith("mobile_") or not name.endswith("_mobile")]

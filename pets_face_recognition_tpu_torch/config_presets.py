@@ -1,6 +1,6 @@
-"""Config factories (counterpart of the JAX ``config_presets.py``): only the
-keypoint R-CNN one is ported; the feature-extractor and Mask R-CNN ones come
-with their training (ROADMAP §1)."""
+"""Config factories (counterpart of the JAX ``config_presets.py``): the
+feature extractor's and the keypoint R-CNN's; the Mask R-CNN one comes with
+its training (ROADMAP §1)."""
 
 from __future__ import annotations
 
@@ -9,11 +9,123 @@ from pathlib import Path
 
 import numpy as np
 
-from .data_loading import CatLMDDataset, CatLMDSubset, DataLoader
+from .data_loading import (CatLMDDataset, CatLMDSubset, ConcatDataset, DataLoader,
+                           PairGenerator, RecDataset, RecSubset, simple_init_dataset)
 from .utils.collate import DetectionCollate
-from .utils.optim import detection_sgd_optimizer
+from .utils.optim import detection_sgd_optimizer, fe_adamw_optimizer, fe_sgd_optimizer
+from .utils.preprocs import FETrainAug, FEValAug
 
 DOG_FIXTURES = (("paths.pickle", "others.pickle"), ("paths2.pickle", "others2.pickle"))
+
+
+def build_fe_config(
+    dataset_dir: str,
+    extra_dataset_dir: str | None = None,
+    seed: int = 123,
+    n_epochs: int = 50,
+    train_batch_size: int = 64,
+    test_batch_size: int = 20,
+    optimizer_kind: str = "sgd",
+    lr: float | None = None,
+    crop: int = 220,
+    size: int = 224,
+    emb_size: int = 512,
+    experiment_name: str = "default",
+    run_name: str = "run",
+    output: str = "results",
+    num_workers: int = 8,
+    n_pairs: int = 10000,
+) -> dict:
+    """The feature extractor's config (the JAX ``build_fe_config``, reference
+    ``configs/cat_fe/cat_fe_head.py``): aligned crops in card folders under
+    ``dataset_dir`` (a simple scan, at least 3 images an identity), split
+    50/50 by identity from ``RandomState(seed).permutation``; the training
+    identities relabelled 0..n-1 and, when ``extra_dataset_dir`` exists, its
+    identities appended after them (``start_class``) through
+    ``ConcatDataset``; ``FETrainAug`` on the training crops, ``FEValAug`` on
+    the validation ones; ``PairGenerator(dataset, n_pairs, 1, None, seed,
+    val_users)``; ResNet-50 -> ``emb_size`` with ArcFace (s 64, m 0.5) and the
+    focal loss (gamma 0); SGD in three groups at ``lr`` (1e-2) or AdamW
+    (``optimizer_kind="adamw"``, 1e-4), the rate x 0.1 at epochs 35 and 45;
+    ``thrs`` ``linspace(0.5, 0.99, 6)``, the ``far_thr`` list, ``k`` 5, 10,
+    100. The port trains in float32 (the JAX ``compute_dtype`` is not taken).
+
+    ``optimizer(config)`` returns the factory ``model -> (optimizer,
+    schedule)`` the FE controller calls with the wrapper."""
+    from .losses import SoftmaxBasedMetricLearning
+    from .models.embedder import resnet50_embedder
+
+    train_aug = FETrainAug(np.random.RandomState(seed), crop=crop, size=size)
+    val_aug = FEValAug()
+
+    dataset = RecDataset(Path(dataset_dir), None, 3, init_dataset_method=simple_init_dataset)
+    perm = np.random.RandomState(seed).permutation(dataset.get_users())
+    tr_size = 0.5
+    train_users = [perm[i] for i in range(int(len(perm) * tr_size))]
+    val_users = [perm[i] for i in range(int(len(perm) * tr_size), len(perm))]
+    train_indices = [j for u in train_users for j in dataset.uid_to_indices[u]]
+    val_indices = [j for u in val_users for j in dataset.uid_to_indices[u]]
+    assert not set(train_indices) & set(val_indices)
+
+    train = RecSubset(dataset, train_indices, train_aug)
+    n_extra_classes = 0
+    if extra_dataset_dir is not None and Path(extra_dataset_dir).exists():
+        extra = RecDataset(Path(extra_dataset_dir), None, 3,
+                           init_dataset_method=simple_init_dataset,
+                           start_class=len(train_users))
+        n_extra_classes = len(extra.get_users())
+        train = ConcatDataset((train, RecSubset(extra, list(range(len(extra))), train_aug)))
+    val = RecSubset(dataset, val_indices, val_aug)
+    # the training identities relabelled contiguously from 0
+    for a, b in enumerate(train_users):
+        dataset.label_map[b] = a
+
+    pair_gen = PairGenerator(dataset, n_pairs, 1, None, seed, val_users)
+    num_classes = len(train_users) + n_extra_classes
+    steps_per_epoch = max(len(train) // train_batch_size, 1)
+
+    def model():
+        return resnet50_embedder(embedding_dim=emb_size)
+
+    def loss(config, m):
+        return SoftmaxBasedMetricLearning(model=m, emb_size=emb_size, num_classes=num_classes,
+                                          margin_type="arc", use_focal=True)
+
+    def optimizer(config):
+        milestones = [35 * steps_per_epoch, 45 * steps_per_epoch]
+        if optimizer_kind == "adamw":
+            return partial(fe_adamw_optimizer, lr=lr or 1e-4, milestones_steps=milestones)
+        return partial(fe_sgd_optimizer, lr=lr or 1e-2, milestones_steps=milestones)
+
+    def train_dataloader():
+        return DataLoader(train, train_batch_size, shuffle=True, seed=seed, drop_last=True,
+                          num_workers=num_workers)
+
+    def val_dataloader():
+        return DataLoader(val, test_batch_size, shuffle=False, drop_last=False,
+                          num_workers=num_workers)
+
+    def pair_generator(idx):
+        if idx == 0:
+            return "Val", pair_gen
+        if idx == 1:
+            return "Val 1", pair_gen
+        raise Exception(idx)
+
+    out = Path(output)
+    out.mkdir(exist_ok=True)
+    return dict(
+        seed=seed, n_epochs=n_epochs,
+        train_batch_size=train_batch_size, test_batch_size=test_batch_size,
+        emb_size=emb_size, num_classes=num_classes,
+        thrs=np.linspace(0.5, 0.99, 6),
+        far_thr=[0.1, 0.05, 0.03, 0.01, 0.005, 0.001],
+        k=[5, 10, 100],
+        model=model, loss=loss, optimizer=optimizer,
+        train_dataloader=train_dataloader, val_dataloader=val_dataloader,
+        pair_generator=pair_generator,
+        output=out, experiment_name=experiment_name, run_name=run_name, dataset=dataset,
+    )
 
 
 def build_keypoint_config(

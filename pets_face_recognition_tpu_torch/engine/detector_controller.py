@@ -34,11 +34,10 @@ from ..device import float32_matmuls, resolve_device
 from ..losses import sum_detection_loss
 from ..models.rcnn import (KEYPOINT_ARCHS, GeneralizedRCNN, frozen_twin,
                            keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn)
-from ..utils.optim import (accumulate_mean_, clip_by_global_norm_,
-                           detection_sgd_optimizer, set_learning_rate)
+from ..utils.optim import detection_sgd_optimizer
 from ..weights import init_random_
 from .detection_metrics import detection_metrics, unpad_detections, unpad_targets
-from .train_state import TrainState, step_generator
+from .train_state import TrainState, finish_step, step_generator
 
 
 def keypoint_model(arch: str = "resnet50") -> GeneralizedRCNN:
@@ -134,24 +133,7 @@ class KeyPointsController:
                                        generator=generator))
         out["loss"].backward()
         metrics = {k: float(v.detach()) for k, v in out.items()}
-        every = self.accumulate_grad_batches
-        mini_step = state.step % every
-        state.step += 1
-        if every > 1:
-            params = [p for g in state.optimizer.param_groups for p in g["params"]]
-            if state.accum is None:
-                state.accum = [torch.zeros_like(p) for p in params]
-            accumulate_mean_(state.accum, [p.grad for p in params], mini_step)
-            if mini_step + 1 < every:
-                return metrics
-            for p, a in zip(params, state.accum):
-                p.grad = a
-            state.accum = None
-        if self.gradient_clip_val:
-            clip_by_global_norm_(model.parameters(), self.gradient_clip_val)
-        # the schedule counts updates, not mini-steps (optax.MultiSteps)
-        set_learning_rate(state.optimizer, state.schedule((state.step - 1) // every))
-        state.optimizer.step()
+        finish_step(state, self.accumulate_grad_batches, self.gradient_clip_val)
         return metrics
 
     # -- evaluation ----------------------------------------------------------

@@ -16,7 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..utils.optim import Schedule
+from ..utils.optim import (Schedule, accumulate_mean_, clip_by_global_norm_,
+                           set_learning_rate)
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -35,3 +36,31 @@ class TrainState:
     # the running mean of this accumulation's gradients, a tensor a trainable
     # parameter (``optax.MultiSteps``' ``acc_grads``); None outside one
     accum: list[torch.Tensor] | None = None
+
+
+def finish_step(state: TrainState, accumulate_grad_batches: int = 1,
+                gradient_clip_val: float | None = None) -> bool:
+    """After a mini-step's ``backward()``: count it, and update unless an
+    accumulation is unfinished (``optax.MultiSteps``). With ``k > 1`` each
+    mini-step's gradient joins the running mean, and every ``k``-th the mean is
+    stepped; the update clips if asked and steps the optimiser at the
+    scheduled rate of its count of updates, not of mini-steps. Returns whether
+    it updated."""
+    every = accumulate_grad_batches
+    mini_step = state.step % every
+    state.step += 1
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    if every > 1:
+        if state.accum is None:
+            state.accum = [torch.zeros_like(p) for p in params]
+        accumulate_mean_(state.accum, [p.grad for p in params], mini_step)
+        if mini_step + 1 < every:
+            return False
+        for p, a in zip(params, state.accum):
+            p.grad = a
+        state.accum = None
+    if gradient_clip_val:
+        clip_by_global_norm_(params, gradient_clip_val)
+    set_learning_rate(state.optimizer, state.schedule((state.step - 1) // every))
+    state.optimizer.step()
+    return True

@@ -2,8 +2,13 @@
 timestamped run directory under the config's ``output`` with a copy of the
 config, the metrics logger, then ``configure_trainer(config, logger).fit``.
 ``--device`` defaults to ``cuda`` and raises without a card; pass ``cpu`` to
-run the plain path. Only the keypoint R-CNN task is ported, so the command is
-``python -m pets_face_recognition_tpu_torch.main_keypoints``."""
+run the plain path. Without a controller it trains the feature extractor, as
+the JAX ``main.py`` does:
+
+    python -m pets_face_recognition_tpu_torch.main \
+        --config pets_face_recognition_tpu_torch/configs/fe_smoke.py [--device cpu]
+
+``main_keypoints`` passes the keypoint R-CNN's controller."""
 
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ def setup_run(config, config_path: Path) -> MetricsLogger | None:
     return logger
 
 
-def main(controller_cls, argv=None) -> Trainer:
+def main(controller_cls=None, argv=None) -> Trainer:
+    if controller_cls is None:
+        from .engine.controller import Controller as controller_cls
     args = parse_args(argv)
     resolve_device(args.device)
     config = get_config(args.config)
@@ -65,3 +72,7 @@ def main(controller_cls, argv=None) -> Trainer:
     trainer.fit(controller)
     print("Completed!")
     return trainer
+
+
+if __name__ == "__main__":
+    main()

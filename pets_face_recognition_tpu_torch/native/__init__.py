@@ -1,13 +1,16 @@
-"""Native JPEG decode + letterbox on the host (counterpart of the JAX
-``native/``), built with ``g++`` at first use and loaded with ``ctypes``.
+"""Native JPEG decode + letterbox, and JPEG encode (counterpart of the JAX
+``native/``), built with ``g++`` at first use and loaded with ``ctypes``;
+PNG in :mod:`.png`.
 
-Two routes export one C ABI (``pfr_decode_batch``, ``pfr_decode_single``) and
-share the letterbox code (``pfr_common.h``):
+Two routes export one C ABI (``pfr_decode_batch``, ``pfr_decode_single``,
+``pfr_encode_jpeg``) and share the letterbox code (``pfr_common.h``):
 
 - ``libjpeg`` (``pfr_native.cpp``, the JAX package's decoder): libjpeg on a
-  thread pool, with its DCT-domain downscale for large photos;
-- ``nvjpeg`` (``pfr_nvjpeg.cpp``): the CUDA toolkit's nvJPEG decodes on the
-  GPU, the host letterboxes. Pixels may differ from libjpeg's by a few levels.
+  thread pool, with its DCT-domain downscale for large photos; the encoder is
+  PIL's default save (libjpeg's defaults: 4:2:0, integer DCT);
+- ``nvjpeg`` (``pfr_nvjpeg.cpp``): the CUDA toolkit's nvJPEG decodes and
+  encodes on the GPU, the host letterboxes. Pixels may differ from libjpeg's
+  by a few levels, both ways.
 
 :func:`route` picks by what is installed, never by catching a failure:
 ``libjpeg`` where ``g++`` and ``jpeglib.h`` are found, else ``nvjpeg`` where
@@ -27,6 +30,7 @@ import shlex
 import shutil
 import subprocess
 import threading
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -134,7 +138,35 @@ def _load() -> ctypes.CDLL:
     lib.pfr_decode_single.argtypes = [
         ctypes.c_char_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.pfr_encode_jpeg.restype = ctypes.c_long
+    lib.pfr_encode_jpeg.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_long]
     return lib
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
+    """An ``(H, W, 3)`` uint8 RGB image as baseline JPEG bytes at ``quality``
+    with 4:2:0 chroma (PIL's ``save`` defaults at quality 75). Raises
+    ``RuntimeError`` if the encoder fails; there is no fallback."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, not {img.shape}")
+    h, w = img.shape[:2]
+    lib = library()
+    capacity = img.size + (1 << 16)
+    for _ in range(2):
+        out = np.empty(capacity, np.uint8)
+        n = lib.pfr_encode_jpeg(img.ctypes.data, w, h, int(quality), out.ctypes.data, capacity)
+        if n > 0:
+            return out[:n].tobytes()
+        if n == 0:
+            break
+        capacity = -n
+    raise RuntimeError(f"JPEG encode failed ({route()} route, {w} x {h})")
+
+
+def write_jpeg(path: str | Path, img: np.ndarray, quality: int = 75) -> None:
+    Path(path).write_bytes(encode_jpeg(img, quality))
 
 
 def decode_batch(paths: list[str | Path], out_size: tuple[int, int], num_threads: int = 0
@@ -201,3 +233,23 @@ def jpeg_components(path: str | Path) -> int:
         i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
     return 0
 
+
+
+def read_rgb(path: str | Path) -> np.ndarray:
+    """A JPEG or PNG file as ``(H, W, 3)`` uint8 RGB (PIL's
+    ``open(path).convert("RGB")``), told apart by their signatures, not the
+    name; ``OSError`` if it is neither or does not decode."""
+    from . import png
+
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    try:
+        if magic == png.SIGNATURE:
+            return png.read_png(path)
+    except (ValueError, zlib.error) as e:
+        raise OSError(f"cannot decode {path}: {e}") from e
+    if magic[:2] == b"\xff\xd8":
+        img = decode_single(path)
+        if img is not None:
+            return img
+    raise OSError(f"cannot decode {path}")

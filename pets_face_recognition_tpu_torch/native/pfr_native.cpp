@@ -1,4 +1,5 @@
-// pfr_native (libjpeg route): threaded JPEG decode + letterbox on the host.
+// pfr_native (libjpeg route): threaded JPEG decode + letterbox on the host,
+// and JPEG encode.
 //
 // Decodes a batch of JPEG files on a thread pool straight into one
 // preallocated uint8 NHWC array, letterboxed to a fixed (H, W) with the
@@ -9,6 +10,9 @@
 // 1/2, 1/4, 1/8 factor whose output still covers the target, so a 4000 px
 // photo headed for 320 px decodes ~8x cheaper before the bilinear pass.
 //
+// The encoder is PIL's default JPEG save: libjpeg's defaults (baseline,
+// integer DCT, 4:2:0 chroma) at a given quality, 75 when PIL is given none.
+//
 // C ABI only (ctypes), shared with pfr_nvjpeg.cpp.
 
 #include <cstdio>
@@ -17,6 +21,7 @@
 
 #include <csetjmp>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 
@@ -106,6 +111,46 @@ int pfr_decode_single(const char* path, uint8_t* out, int* width, int* height,
   *height = h;
   if (out != nullptr) std::memcpy(out, pixels.data(), pixels.size());
   return 1;
+}
+
+// Encode an (height, width, 3) uint8 RGB image as a baseline JPEG at
+// `quality` with 4:2:0 chroma into `out` (`capacity` bytes). Returns the
+// size; 0 on failure; minus the size when `capacity` is too small.
+long pfr_encode_jpeg(const uint8_t* rgb, int width, int height, int quality,
+                     uint8_t* out, long capacity) {
+  jpeg_compress_struct cinfo;
+  ErrorMgr jerr;
+  unsigned char* buffer = nullptr;
+  unsigned long size = 0;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.setjmp_buffer)) {
+    jpeg_destroy_compress(&cinfo);
+    std::free(buffer);
+    return 0;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_mem_dest(&cinfo, &buffer, &size);
+  cinfo.image_width = width;
+  cinfo.image_height = height;
+  cinfo.input_components = 3;
+  cinfo.in_color_space = JCS_RGB;
+  jpeg_set_defaults(&cinfo);  // YCbCr, 2x2 / 1x1 / 1x1 sampling, JDCT_ISLOW
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  const int stride = width * 3;
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<uint8_t*>(rgb) +
+                   static_cast<size_t>(cinfo.next_scanline) * stride;
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  long n = static_cast<long>(size);
+  if (n > capacity) n = -n;
+  else std::memcpy(out, buffer, size);
+  std::free(buffer);
+  return n;
 }
 
 }  // extern "C"

@@ -17,6 +17,11 @@
 // Departures from the libjpeg route: no DCT-domain downscale (target_min_side
 // is ignored; every image decodes at full size), and nvJPEG's IDCT may round
 // differently from libjpeg's integer one.
+//
+// The encoder (pfr_encode_jpeg) is nvJPEG's on the GPU at the quality asked
+// for and 4:2:0 chroma, PIL's defaults; its DCT, quantisation rounding and
+// chroma downsampling are nvJPEG's own, so its pixels differ from libjpeg's
+// by a few levels. One encoder state serves the process, one call at a time.
 
 #include <cuda_runtime.h>
 #include <nvjpeg.h>
@@ -223,6 +228,36 @@ bool decode_jpeg_file(const char* path, int /*target_min_side*/,
   return true;
 }
 
+// The process's encoder: state, parameters, stream and device buffer,
+// created on first use and kept; guarded by g_encode_mutex.
+struct Encoder {
+  nvjpegEncoderState_t state = nullptr;
+  nvjpegEncoderParams_t params = nullptr;
+  cudaStream_t stream = nullptr;
+  unsigned char* buffer = nullptr;  // device: the interleaved RGB input
+  size_t capacity = 0;
+};
+
+std::mutex g_encode_mutex;
+Encoder* g_encoder = nullptr;
+
+Encoder* encoder_locked() {
+  if (g_encoder != nullptr) return g_encoder;
+  nvjpegHandle_t h_nv = handle();
+  if (h_nv == nullptr) return nullptr;
+  auto* e = new Encoder;
+  if (cudaStreamCreateWithFlags(&e->stream, cudaStreamNonBlocking) != cudaSuccess ||
+      nvjpegEncoderStateCreate(h_nv, &e->state, e->stream) != NVJPEG_STATUS_SUCCESS ||
+      nvjpegEncoderParamsCreate(h_nv, &e->params, e->stream) != NVJPEG_STATUS_SUCCESS ||
+      nvjpegEncoderParamsSetSamplingFactors(e->params, NVJPEG_CSS_420, e->stream) !=
+          NVJPEG_STATUS_SUCCESS) {
+    delete e;
+    return nullptr;
+  }
+  g_encoder = e;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -252,6 +287,49 @@ int pfr_decode_single(const char* path, uint8_t* out, int* width, int* height,
   *height = h;
   std::memcpy(out, pixels.data(), pixels.size());
   return 1;
+}
+
+// As pfr_native.cpp's pfr_encode_jpeg, with nvJPEG on the GPU.
+long pfr_encode_jpeg(const uint8_t* rgb, int width, int height, int quality,
+                     uint8_t* out, long capacity) {
+  std::lock_guard<std::mutex> lock(g_encode_mutex);
+  Encoder* e = encoder_locked();
+  if (e == nullptr) return 0;
+  const size_t n = static_cast<size_t>(width) * height * 3;
+  if (n > e->capacity) {
+    if (e->buffer != nullptr) cudaFreeAsync(e->buffer, e->stream);
+    e->buffer = nullptr;
+    e->capacity = 0;
+    if (cudaMallocAsync(reinterpret_cast<void**>(&e->buffer), n, e->stream) !=
+        cudaSuccess) {
+      return 0;
+    }
+    e->capacity = n;
+  }
+  nvjpegImage_t image;
+  std::memset(&image, 0, sizeof(image));
+  image.channel[0] = e->buffer;
+  image.pitch[0] = static_cast<size_t>(width) * 3;
+  size_t length = 0;
+  if (nvjpegEncoderParamsSetQuality(e->params, quality, e->stream) !=
+          NVJPEG_STATUS_SUCCESS ||
+      cudaMemcpyAsync(e->buffer, rgb, n, cudaMemcpyHostToDevice, e->stream) !=
+          cudaSuccess ||
+      nvjpegEncodeImage(g_handle, e->state, e->params, &image, NVJPEG_INPUT_RGBI,
+                        width, height, e->stream) != NVJPEG_STATUS_SUCCESS ||
+      nvjpegEncodeRetrieveBitstream(g_handle, e->state, nullptr, &length,
+                                    e->stream) != NVJPEG_STATUS_SUCCESS ||
+      cudaStreamSynchronize(e->stream) != cudaSuccess) {
+    cudaStreamSynchronize(e->stream);
+    return 0;
+  }
+  if (static_cast<long>(length) > capacity) return -static_cast<long>(length);
+  if (nvjpegEncodeRetrieveBitstream(g_handle, e->state, out, &length, e->stream) !=
+          NVJPEG_STATUS_SUCCESS ||
+      cudaStreamSynchronize(e->stream) != cudaSuccess) {
+    return 0;
+  }
+  return static_cast<long>(length);
 }
 
 }  // extern "C"

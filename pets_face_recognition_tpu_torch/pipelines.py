@@ -11,6 +11,7 @@ exist); ``weights.retrieval_state_dicts`` carries the JAX package's over.
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -21,7 +22,7 @@ from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
 from .models.rcnn import KEYPOINT_ARCHS
 from .preprocessor import Preproc3
-from .serving import build_serving_models
+from .serving import build_serving_models, serving_detector
 from .weights import init_random_
 
 DOG, CAT = 1, 2
@@ -39,6 +40,40 @@ def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
     detector, dog, _ = build_serving_models(dev, seed, detector_kind=arch)
     cat = init_random_(resnet50_embedder(512), seed + 2).eval().requires_grad_(False).to(dev)
     return detector, dog, cat
+
+
+def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0) -> nn.Module:
+    """The head detector of the offline transforms, as the JAX
+    ``configs/pipelines.py::keypoint_pipeline`` resolves it: the port
+    checkpoint named by ``PFR_KEYPOINT_CKPT`` (default
+    ``results/keypoint/checkpoints``; a folder gives its newest
+    ``epoch=*-step=*``), loaded into the ``PFR_KEYPOINT_ARCH`` detector with
+    frozen norms at ``RCNNConfig``'s test budgets (the RPN's top 1000 a
+    level into NMS, 1000 an image out), as the JAX factory builds it. Without the
+    variable and without a checkpoint at the default, the serving detector
+    of :func:`build_retrieval_models` with weights from ``seed``
+    (``serving.serving_detector``, at the serving budgets of 128 and 16); a
+    ``PFR_KEYPOINT_CKPT`` that names no checkpoint raises. In eval mode on
+    ``device``."""
+    from .engine.checkpoint import latest_checkpoint, load_params
+    from .models.rcnn import keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn
+
+    dev = resolve_device(device)
+    arch = keypoint_arch()
+    named = os.environ.get("PFR_KEYPOINT_CKPT")
+    ckpt = Path(named or "results/keypoint/checkpoints")
+    if ckpt.is_dir():
+        ckpt = latest_checkpoint(ckpt)
+    if ckpt is None or not ckpt.is_file():
+        if named:
+            raise FileNotFoundError(f"PFR_KEYPOINT_CKPT={named}: no port checkpoint there")
+        print(f"no keypoint checkpoint at {ckpt or 'results/keypoint/checkpoints'}: "
+              f"seeded random weights (seed {seed})", flush=True)
+        return serving_detector(dev, seed, arch)
+    detector = (keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3) if arch == "resnet50"
+                else mobile_net_v3_large_keypoint_rcnn(frozen_stats=True))
+    detector.load_state_dict(load_params(ckpt), strict=True)
+    return detector.eval().requires_grad_(False).to(dev)
 
 
 def keypoint_arch() -> str:

@@ -55,6 +55,17 @@ def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
     serving detector, so that callers written for it keep their meaning; the
     JAX ``bench.py`` defaults to ``"mobile"``."""
     dev = resolve_device(device)
+    detector = serving_detector(dev, seed, detector_kind)
+    embedder = init_random_(resnet50_embedder(512), seed + 1)
+    embedder = embedder.eval().requires_grad_(False).to(dev)
+    return detector, embedder, torch.tensor(DEFAULT_BASE_PTS, device=dev)
+
+
+def serving_detector(device: str | torch.device = "cuda", seed: int = 0,
+                     detector_kind: str = "resnet50") -> nn.Module:
+    """:func:`build_serving_models`' detector alone, the same weights from
+    ``seed``."""
+    dev = resolve_device(device)
     budgets = dict(rpn_pre_nms_top_n_test=RPN_PRE_NMS_TOP_N,
                    rpn_post_nms_top_n_test=RPN_POST_NMS_TOP_N)
     if detector_kind == "resnet50":
@@ -63,12 +74,8 @@ def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
         detector = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, **budgets)
     else:
         raise ValueError(f"detector kind {detector_kind!r}: expected one of {KEYPOINT_ARCHS}")
-    embedder = resnet50_embedder(512)
     init_random_(detector, seed)
-    init_random_(embedder, seed + 1)
-    detector = detector.eval().requires_grad_(False).to(dev)
-    embedder = embedder.eval().requires_grad_(False).to(dev)
-    return detector, embedder, torch.tensor(DEFAULT_BASE_PTS, device=dev)
+    return detector.eval().requires_grad_(False).to(dev)
 
 
 def _decode_batch_host(paths: Sequence[Path], input_size: tuple[int, int]):

@@ -1,0 +1,111 @@
+"""Seeded synthetic corpora in the reference layouts, for the feature
+extractor's training and for the aligned-corpus transform (counterpart of
+``tools/make_smoke_datasets.py``'s ``make_fe``, ``make_data25`` and
+``make_petfinder_extras``).
+
+Each writer makes the same arrays from the same ``RandomState`` call sequence
+as the tool, and encodes them with the port's own encoders (``native``: JPEG
+at the tool's quality 92; :mod:`.native.png`), since the card's machine runs
+no PIL for the port. On a host whose JPEG route is libjpeg the files are
+byte-identical to the tool's; through nvJPEG the JPEGs differ by its
+encoder's rounding.
+
+- ``make_fe``: ``smoke_fe_cats/card_XXX/img_J.jpg``, ``n_ids`` identities of
+  ``n_imgs`` textured crops, an identity colour each;
+- ``make_data25``: ``data_25/<card>/{card.json, *.jpg}`` (kashtanka layout,
+  animal 1 or 2 by turns) with two of ``DATA_25_EXCLUDE``'s names;
+- ``make_petfinder_extras``: ``petfinder_extra_{dogs,cats}/<id>/<j>.png``
+  with the entries the transform excludes.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+from .native import png, write_jpeg
+
+
+def _texture(rng: np.random.RandomState, base: np.ndarray, size: int) -> np.ndarray:
+    """Identity-coloured noisy texture with two "eyes" and a "nose"."""
+    img = np.clip(base[None, None, :] + rng.normal(0, 25, (size, size, 3)), 0,
+                  255).astype(np.uint8)
+    yy, xx = np.mgrid[:size, :size]
+    for cx, cy, r, col in ((size // 3, size // 3, size // 12, 0),
+                           (2 * size // 3, size // 3, size // 12, 0),
+                           (size // 2, 2 * size // 3, size // 10, 255)):
+        m = (xx - cx) ** 2 + (yy - cy) ** 2 < r ** 2
+        img[m] = col
+    return img
+
+
+def make_fe(root: Path, n_ids: int = 16, n_imgs: int = 6, size: int = 224,
+            seed: int = 0) -> Path:
+    rng = np.random.RandomState(seed)
+    out = Path(root) / "smoke_fe_cats"
+    for i in range(n_ids):
+        d = out / f"card_{i:03d}"
+        d.mkdir(parents=True, exist_ok=True)
+        base = rng.uniform(40, 215, 3)
+        for j in range(n_imgs):
+            write_jpeg(d / f"img_{j}.jpg", _texture(rng, base, size), quality=92)
+    return out
+
+
+def pet_image(rng: np.random.RandomState, size: int = 320,
+              base: np.ndarray | None = None) -> np.ndarray:
+    """A pet-like photo with the eyes and nose of the CAT miniature's
+    construction; ``base`` tints its background."""
+    if base is not None:
+        img = np.clip(base[None, None, :] + rng.normal(0, 20, (size, size, 3)), 0,
+                      255).astype(np.uint8)
+    else:
+        img = rng.randint(30, 120, (size, size, 3), np.uint8)
+    cx, cy = rng.randint(size // 3, 2 * size // 3, 2)
+    d = rng.randint(30, 60)
+    pts = [(cx - d, cy), (cx + d, cy), (cx, cy + int(1.2 * d))]
+    yy, xx = np.mgrid[:size, :size]
+    for (x, y), col in zip(pts, ((255, 255, 255), (255, 255, 255), (255, 128, 128))):
+        m = (xx - x) ** 2 + (yy - y) ** 2 < 36
+        img[m] = col
+    return img
+
+
+def make_data25(root: Path, n_cards: int = 6, n_imgs: int = 3, seed: int = 3) -> Path:
+    rng = np.random.RandomState(seed)
+    out = Path(root) / "data_25"
+    for i in range(n_cards):
+        card = out / (f"rl{131336 + i}" if i % 2 == 0 else f"rf{337006 + i}")
+        card.mkdir(parents=True, exist_ok=True)
+        (card / "card.json").write_text('{"pet": {"animal": %d}}' % (1 + i % 2))
+        for j in range(n_imgs):
+            write_jpeg(card / f"{600000 + 10 * i + j}.jpg", pet_image(rng), quality=92)
+    # two names of the transform's exclusion list
+    for rel in ("rl131336/216319.jpg", "rl378360/660074.jpg"):
+        p = out / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        if not (p.parent / "card.json").exists():
+            (p.parent / "card.json").write_text('{"pet": {"animal": 1}}')
+        write_jpeg(p, pet_image(rng), quality=92)
+    return out
+
+
+def make_petfinder_extras(root: Path, n_cards: int = 3, n_imgs: int = 2,
+                          seed: int = 4) -> tuple[Path, Path]:
+    rng = np.random.RandomState(seed)
+    dogs = Path(root) / "petfinder_extra_dogs"
+    cats = Path(root) / "petfinder_extra_cats"
+    for base, first in ((dogs, 48009947), (cats, 24355557)):
+        for i in range(n_cards):
+            d = base / str(first + i)
+            d.mkdir(parents=True, exist_ok=True)
+            for j in range(n_imgs):
+                png.write_png(d / f"{j}.png", pet_image(rng))
+    # the excluded entries exist (the transform lists them unconditionally)
+    for d in (dogs / "48683845", dogs / "45528036"):
+        d.mkdir(parents=True, exist_ok=True)
+        png.write_png(d / "0.png", pet_image(rng))
+    png.write_png(dogs / "48009947" / "3.png", pet_image(rng))
+    png.write_png(cats / "24355557" / "4.png", pet_image(rng))
+    return dogs, cats

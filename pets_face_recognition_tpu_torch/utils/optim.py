@@ -1,4 +1,4 @@
-"""Optimiser for the R-CNN configs (counterpart of the JAX ``utils/optim.py``).
+"""Optimisers of the port (counterpart of the JAX ``utils/optim.py``).
 
 ``detection_sgd_optimizer`` is ``torch.optim.SGD`` with momentum and weight
 decay over every trainable parameter, which equals the JAX package's
@@ -12,6 +12,14 @@ Gradient accumulation over ``k`` batches is ``optax.MultiSteps(every_k_schedule
 gradient joins a running mean (:func:`accumulate_mean_`); on every ``k``-th
 the mean is clipped and stepped once, at the rate of the schedule's count of
 such updates, and the mean restarts from zero.
+
+The feature extractor's recipes: ``fe_sgd_optimizer``, the JAX
+``optax.multi_transform`` over ``_label_fn``'s three groups as three
+``torch.optim.SGD`` parameter groups, each scaled from the one schedule by its
+``lr_scale`` (backbone 1/2, ``fc`` 1, margin head 1 with weight decay 1e-4
+added before momentum), and ``fe_adamw_optimizer``, ``optax.adamw`` as
+``torch.optim.AdamW`` (eps 1e-8; the decoupled decay scaled by the scheduled
+rate, as optax scales its whole update).
 """
 
 from __future__ import annotations
@@ -49,9 +57,50 @@ def detection_sgd_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 5e
     return opt, multistep_schedule(lr, milestones_steps, gamma)
 
 
+def fe_param_group(name: str) -> str:
+    """The JAX ``_label_fn``: ``margin`` for the head ``add_margin``, ``fc``
+    for the embedder's projection, ``backbone`` for the rest (BN affine
+    included)."""
+    parts = name.split(".")
+    if "add_margin" in parts:
+        return "margin"
+    if "fc" in parts and "backbone" not in parts:
+        return "fc"
+    return "backbone"
+
+
+def fe_sgd_optimizer(model: torch.nn.Module, lr: float = 1e-2, momentum: float = 0.9,
+                     margin_weight_decay: float = 1e-4, milestones_steps: Sequence[int] = (),
+                     gamma: float = 0.1) -> tuple[torch.optim.SGD, Schedule]:
+    """The reference FE SGD over ``model``'s named parameters: backbone at
+    lr/2, ``fc`` at lr, the margin head at lr with weight decay; momentum 0.9
+    for all. Returns the optimiser and the schedule of ``lr``."""
+    groups = {"backbone": [], "fc": [], "margin": []}
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            groups[fe_param_group(name)].append(p)
+    scale = {"backbone": 0.5, "fc": 1.0, "margin": 1.0}
+    opt = torch.optim.SGD(
+        [{"params": ps, "lr": lr * scale[g], "lr_scale": scale[g],
+          "weight_decay": margin_weight_decay if g == "margin" else 0.0}
+         for g, ps in groups.items() if ps], lr=lr, momentum=momentum)
+    return opt, multistep_schedule(lr, milestones_steps, gamma)
+
+
+def fe_adamw_optimizer(model: torch.nn.Module, lr: float = 1e-4, weight_decay: float = 1e-4,
+                       milestones_steps: Sequence[int] = (), gamma: float = 0.1,
+                       ) -> tuple[torch.optim.AdamW, Schedule]:
+    """``optax.adamw(schedule, weight_decay)`` over every trainable parameter
+    of ``model``: betas (0.9, 0.999), eps 1e-8."""
+    opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    return opt, multistep_schedule(lr, milestones_steps, gamma)
+
+
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Each group's rate: ``lr`` times its ``lr_scale`` (1 when absent)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_scale", 1.0)
 
 
 @torch.no_grad()

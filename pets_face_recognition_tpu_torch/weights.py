@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .losses.large_margin import MarginHead
 from .models.resnet import FrozenBatchNorm2d, LiveBatchNorm2d
 
 
@@ -47,25 +48,20 @@ def _dense(k) -> np.ndarray:
 _deconv = _conv  # (kh, kw, O, I) -> (I, O, kh, kw): the same axis permutation
 
 
-def _bn(sd: dict, dst: str, params: Mapping, stats: Mapping | None,
-        num_batches_tracked: bool) -> None:
+def _bn(sd: dict, dst: str, params: Mapping, stats: Mapping | None) -> None:
     sd[f"{dst}.weight"] = np.asarray(params["scale"])
     sd[f"{dst}.bias"] = np.asarray(params["bias"])
     if stats is None:
         return
     sd[f"{dst}.running_mean"] = np.asarray(stats["mean"])
     sd[f"{dst}.running_var"] = np.asarray(stats["var"])
-    if num_batches_tracked:
-        sd[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
 
 
-def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "",
-                      num_batches_tracked: bool = False) -> dict[str, np.ndarray]:
-    """flax ``models.resnet.ResNet`` variables -> torchvision ResNet keys.
-
-    ``num_batches_tracked`` adds the ``BatchNorm2d`` counter (FE trunks);
-    frozen detection trunks have none. ``stats=None`` leaves out the running
-    statistics.
+def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = ""
+                      ) -> dict[str, np.ndarray]:
+    """flax ``models.resnet.ResNet`` variables -> torchvision ResNet keys (no
+    ``num_batches_tracked``: the port's norms keep no counter, as flax).
+    ``stats=None`` leaves out the running statistics.
     """
 
     def sub(tree, name):
@@ -73,7 +69,7 @@ def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "",
 
     sd: dict[str, np.ndarray] = {}
     sd["conv1.weight"] = _conv(params["conv1"]["kernel"])
-    _bn(sd, "bn1", params["bn1"], sub(stats, "bn1"), num_batches_tracked)
+    _bn(sd, "bn1", params["bn1"], sub(stats, "bn1"))
     for name in sorted(params):
         m = re.fullmatch(r"layer(\d+)_(\d+)", name)
         if not m:
@@ -82,12 +78,11 @@ def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "",
         blk, bst = params[name], sub(stats, name)
         for c in (1, 2, 3):
             sd[f"{base}.conv{c}.weight"] = _conv(blk[f"conv{c}"]["kernel"])
-            _bn(sd, f"{base}.bn{c}", blk[f"bn{c}"], sub(bst, f"bn{c}"),
-                num_batches_tracked)
+            _bn(sd, f"{base}.bn{c}", blk[f"bn{c}"], sub(bst, f"bn{c}"))
         if "downsample_conv" in blk:
             sd[f"{base}.downsample.0.weight"] = _conv(blk["downsample_conv"]["kernel"])
             _bn(sd, f"{base}.downsample.1", blk["downsample_bn"],
-                sub(bst, "downsample_bn"), num_batches_tracked)
+                sub(bst, "downsample_bn"))
     if "fc" in params:
         sd["fc.weight"] = _dense(params["fc"]["kernel"])
         sd["fc.bias"] = np.asarray(params["fc"]["bias"])
@@ -106,7 +101,7 @@ def mobilenet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "
 
     sd: dict[str, np.ndarray] = {}
     sd["stem.weight"] = _conv(params["stem"]["kernel"])
-    _bn(sd, "bn_stem", params["bn_stem"], sub(stats, "bn_stem"), False)
+    _bn(sd, "bn_stem", params["bn_stem"], sub(stats, "bn_stem"))
     for name in params:
         m = re.fullmatch(r"block(\d+)", name)
         if not m:
@@ -116,13 +111,13 @@ def mobilenet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "
                          ("project", "bn_project")):
             if conv in blk:
                 sd[f"{base}.{conv}.weight"] = _conv(blk[conv]["kernel"])
-                _bn(sd, f"{base}.{bn}", blk[bn], sub(bst, bn), False)
+                _bn(sd, f"{base}.{bn}", blk[bn], sub(bst, bn))
         if "se" in blk:
             for fc in ("fc1", "fc2"):
                 _conv_pair(sd, f"{base}.se.{fc}", blk["se"][fc])
     if "head_conv" in params:
         sd["head_conv.weight"] = _conv(params["head_conv"]["kernel"])
-        _bn(sd, "bn_head", params["bn_head"], sub(stats, "bn_head"), False)
+        _bn(sd, "bn_head", params["bn_head"], sub(stats, "bn_head"))
         for fc in ("head_fc1", "head_fc2"):
             if fc in params:
                 _dense_pair(sd, fc, params[fc])
@@ -130,12 +125,29 @@ def mobilenet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "
 
 
 def embedder_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
-    """flax ``EmbeddingModel`` variables -> torchvision ``resnet50`` with
-    ``fc = Linear(2048, 512)`` (the inverse of ``convert_fe_embedder``)."""
-    p, st = variables["params"], variables["batch_stats"]
-    sd = resnet_state_dict(p["backbone"], st["backbone"], num_batches_tracked=True)
+    """flax ``EmbeddingModel`` variables -> torchvision ``resnet50`` keys with
+    ``fc = Linear(2048, 512)`` (the inverse of ``convert_fe_embedder``, less
+    the ``num_batches_tracked`` counters). Without ``batch_stats`` the result
+    holds the trainable parameters only."""
+    p, st = variables["params"], variables.get("batch_stats")
+    sd = resnet_state_dict(p["backbone"], None if st is None else st["backbone"])
     sd["fc.weight"] = _dense(p["fc"]["kernel"])
     sd["fc.bias"] = np.asarray(p["fc"]["bias"])
+    return sd
+
+
+def fe_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
+    """flax ``SoftmaxBasedMetricLearning`` variables (``params`` ``model/
+    backbone``, ``model/fc``, ``add_margin/weight``; ``batch_stats`` ``model/
+    backbone``) -> the port's ``losses.SoftmaxBasedMetricLearning`` keys
+    (``model.*``, ``add_margin.weight``; the head's ``(C, D)`` weight as is).
+    A ``params`` tree alone (a gradient tree of ``jax.grad``) gives the
+    trainable parameters' entries."""
+    p, st = variables["params"], variables.get("batch_stats")
+    sd = _prefixed("model.", embedder_state_dict(
+        {"params": p["model"], **({} if st is None else {"batch_stats": st["model"]})}))
+    if "add_margin" in p:
+        sd["add_margin.weight"] = np.asarray(p["add_margin"]["weight"])
     return sd
 
 
@@ -260,7 +272,8 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
 
     Weights are ``N(0, 1) / sqrt(fan_in)`` (keeps a random 50-layer forward
     finite), biases zero, norms near identity: ``weight ~ U(0.5, 1.5)``,
-    ``bias ~ 0.1 N``, ``running_mean ~ 0.1 N``, ``running_var ~ U(0.5, 1.5)``.
+    ``bias ~ 0.1 N``, ``running_mean ~ 0.1 N``, ``running_var ~ U(0.5, 1.5)``;
+    a margin head's ``(C, D)`` weight xavier-uniform, as flax initialises it.
     """
     g = torch.Generator().manual_seed(seed)
 
@@ -280,6 +293,9 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
             draw(m.bias, lambda s: torch.randn(s, generator=g) * 0.1)
             draw(m.running_mean, lambda s: torch.randn(s, generator=g) * 0.1)
             draw(m.running_var, lambda s: torch.rand(s, generator=g) + 0.5)
+        elif isinstance(m, MarginHead):
+            bound = math.sqrt(6.0 / sum(m.weight.shape))
+            draw(m.weight, lambda s: (torch.rand(s, generator=g) * 2 - 1) * bound)
     return module
 
 

@@ -48,10 +48,14 @@ def test_importing_the_port_loads_no_jax():
         "utils.collate", "preprocessor", "preprocessor.align", "pipelines", "generate_tsv",
         "utils", "data_loading", "data_loading.dataset", "data_loading.lmd_dataset",
         "data_loading.loader", "engine.detection_metrics", "engine.logging",
-        "engine.checkpoint", "config_presets", "main", "main_keypoints", "eval_landmark")]
+        "engine.checkpoint", "config_presets", "main", "main_keypoints", "eval_landmark",
+        "losses.losses", "losses.large_margin", "engine.metrics", "engine.controller",
+        "data_loading.pairs", "native.png", "utils.preprocs", "smoke_data", "eval_fe",
+        "transform_reproduce", "transform_dataset")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-              " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL')]\n"
+              " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
+              " 'sklearn', 'matplotlib')]\n"
               "assert not bad, bad\nprint('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -59,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
 
 
-NOT_ON_THE_CARD_PATH = re.compile(r"^(\s*)(import|from)\s+(cv2|pandas|PIL)\b", re.MULTILINE)
+NOT_ON_THE_CARD_PATH = re.compile(r"^(\s*)(import|from)\s+(cv2|pandas|PIL|sklearn|matplotlib)\b",
+                                  re.MULTILINE)
 # PIL only as the CPU fallback where no native JPEG route is installed, and in
 # chip_smoke.py to measure the native decode against PIL's libjpeg where PIL is
 PIL_FALLBACKS = {"serving.py", "generate_tsv.py", "chip_smoke.py"}
@@ -95,6 +100,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         eval_landmark.main(["--ckpt", str(REPO)])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_fe_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The feature extractor's and the transform's entry points, as those above."""
+    from pets_face_recognition_tpu_torch import (eval_fe, main, transform_dataset,
+                                                 transform_reproduce)
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Controller(None).init_state(0, model=torch.nn.Linear(1, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main.main(None, ["--config", str(REPO)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_fe.main(["--ckpt", str(REPO)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transform_dataset.main(["--input", str(REPO), "--output", str(REPO)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transform_reproduce.main(["--data-root", str(REPO)])
 
 
 def test_kernel_build_is_one_nvcc_call_over_the_port_sources():

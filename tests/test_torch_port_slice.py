@@ -134,6 +134,8 @@ def test_embedder_bridge_round_trip():
                 "model.model.")
     params, stats = torch_convert.convert_fe_embedder({"model." + k: v for k, v in sd.items()})
     back = weights.embedder_state_dict({"params": params, "batch_stats": stats})
+    # the port's live norms, as flax's, keep no num_batches_tracked counter
+    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     assert sorted(back) == sorted(sd)
     for k in sd:
         np.testing.assert_array_equal(back[k], sd[k], err_msg=k)
