@@ -19,8 +19,9 @@ Phases, each printing one JSON line (or one per kernel):
    library call that computes the same function where there is one, and its
    bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32), and (but K4's
    pre-pass) with its kernels' device time per call from ``torch.profiler``
-   (for K2 and K5 the sum of K2's two kernels), K1 also beside the
-   library's whole route from the maps (inverse, grid, ``grid_sample``,
+   (for K2 and K5 the sum of K2's two kernels; null where the profiler lost
+   their launches, as it now and then does: the reading gates nothing), K1
+   also beside the library's whole route from the maps (inverse, grid, ``grid_sample``,
    permutes), and against ``grid_sample`` alone in paired rounds (the two
    timed one after the other, in alternating order). K4 must give the same
    bits in two launches on the same inputs, and its pre-pass the same
@@ -153,12 +154,37 @@ epoch's ``data_time_s`` and ``step_time_s``, the step alone and beside a
 running loader, eval ms a batch and the metrics' ms (pairs, verification,
 Recall@K apart), checkpoint bytes and save / load ms are printed.
 
+Then Mask R-CNN's serving paths, under the git-ignored ``smoke_out/mask``
+(deleted after them). mask_serve: ``pipelines.mask_detector`` (full-width
+ResNet-50-FPN Mask R-CNN, 3 detections, RPN 1000/1000, box NMS 0.5, score
+threshold 0.05, seeded random weights) at B = 8 on 320 x 320: one call's
+launches by call site (K2 in the RPN and in the box NMS, K3 on box and mask
+RoIs: one each), the same batch on the CPU (boxes within 1e-4 of the side,
+scores 1e-5, masks 1e-4, labels and validity equal), K2 on the call's own
+(8, 1000) box-NMS groups (keep masks equal) and K3 on its 24 mask RoIs at
+14 x 14 (1e-4) against their plain versions, timed beside their bounds, a
+warm call's ms and peak memory. body_tsv: ``generate_tsv --body`` over the
+committed corpus with the threshold 0 on the card and on the CPU: the same
+kept photos and body boxes, the 256 x 256 body crops equal where the boxes
+agree, head and body embeddings within 1e-5 relative, scores within 1e-6,
+the same tsv rows; images/s and ms a photo in decode, ``Preproc3``,
+``Preproc4``, ``resize_with_padding`` and the embedders. masked_transform:
+``transform_dataset --pipeline body --masked --mask-thr 0.7 --thr 0`` on
+seeded layouts through a ``PFR_MASK_CKPT`` checkpoint (random weights, mask
+logits spread by ``MASK_LOGIT_SPREAD``) on the card and on the CPU (the
+same files and tightened boxes, crops within 1e-3 but at pixels whose pasted
+masks both lie within 1e-4 of the threshold, counted; the card's JPEGs
+against libjpeg), ``prepare_tables`` on both (rows, landmarks and boxes
+byte for byte, scores within 1e-5) and ``transform_reproduce``'s masked route
+on the card, each with its launch counts and photos/s.
+
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
-pre-pass again on the mobile pyramid, ``_mobile``; ``max_abs_err`` is each
+pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
+R-CNN's shapes, ``_mask``; ``max_abs_err`` is each
 row's largest absolute difference from its plain version on the card, 0 or 1
 for a keep mask, an integer for the pre-pass; ``launches`` sums every path's
-counts, the ``_mobile`` rows the mobile paths' alone), the ``nvidia-smi``
-line, and last
+counts, the ``_mobile`` rows the mobile paths' alone, the ``_mask`` rows the
+Mask R-CNN paths'), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``, printed only if every phase passed. The
 script leaves torch's TF32 defaults as they are: the entry points
 (``embed_batch``, ``train_step``) turn TF32 off inside themselves, a forward
@@ -197,6 +223,17 @@ K2_KERNELS = "nms_keep_sorted_batch_"  # K2's two kernels: the IoU words, the sw
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def kernel_us(fn, kernel_name: str, **kw) -> float | None:
+    """``kernel_ab.device_us``: the kernels' device time per call from
+    ``torch.profiler``, or None (written as null, not measured) when the
+    profiler lost launches in every window it took. It is a reading beside
+    the CUDA-event ``ms``, never a gate: the launch counts come from the
+    wrappers' own counters, not from the profiler."""
+    from pets_face_recognition_tpu_torch.kernel_ab import device_us
+
+    return device_us(fn, kernel_name, strict=False, **kw)
 
 
 def grid_sample_grid(Hs, hw: tuple[int, int] = (IMAGE, IMAGE)):
@@ -308,7 +345,7 @@ def similarity_landmarks(g, B: int, base, image: int):
 def kernel_phase(dev) -> dict[str, dict]:
     """Phase 2, serving: K1-K3 against their plain versions at serving shapes."""
     import torch
-    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, device_us, random_rois
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
     from pets_face_recognition_tpu_torch.ops import homography, nms, roi_align
     from pets_face_recognition_tpu_torch.profile_serving import nms_work
 
@@ -329,7 +366,7 @@ def kernel_phase(dev) -> dict[str, dict]:
         err, tol = max_err(got, want), 1e-4
         k1 = lambda: homography.warp_perspective_batch_cuda(  # noqa: E731
             images, Hs, (CROP, CROP))
-        kernel_us = device_us(k1, "warp_perspective_kernel")
+        k1_us = kernel_us(k1, "warp_perspective_kernel")
         plain = cuda_ms(lambda: homography.warp_perspective_batch(images, Hs, (CROP, CROP)))
         # the library: grid_sample (zero padding) on a grid from H^-1, alone on a
         # grid built beforehand, and as the whole route from Hs (inverse, grid,
@@ -346,7 +383,7 @@ def kernel_phase(dev) -> dict[str, dict]:
         pairs = paired_ms(k1, lib_call)
         ms = statistics.median(a for a, _ in pairs)
         lib_ms = statistics.median(b for _, b in pairs)
-        lib_us = device_us(lib_call, "", strict=False)
+        lib_us = kernel_us(lib_call, "")
         # the wrapper's and the library call's host time: with one small
         # kernel each, the single-call times above are mostly host work
         wrap_host = host_us(k1)
@@ -358,7 +395,7 @@ def kernel_phase(dev) -> dict[str, dict]:
         n_flops = B * CROP * CROP * (24 + 7 * 3)
         b, by = bound_ms(n_bytes, n_flops)
         emit("kernel", name="K1 warp_perspective_batch", shape=list(images.shape),
-             max_abs_err=err, atol=tol, ms=ms, kernel_device_us=kernel_us, plain_ms=plain,
+             max_abs_err=err, atol=tol, ms=ms, kernel_device_us=k1_us, plain_ms=plain,
              wrapper_host_us=wrap_host, library_ms=lib_ms, library_device_us=lib_us,
              library_host_us=lib_host,
              library="grid_sample(zeros, align_corners=True) alone, "
@@ -384,7 +421,7 @@ def kernel_phase(dev) -> dict[str, dict]:
     torch.cuda.synchronize()
     n_diff = int((got != want).sum())
     ms = cuda_ms(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7))
-    k2_us = device_us(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7), K2_KERNELS)
+    k2_us = kernel_us(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7), K2_KERNELS)
     # at this size the call is mostly host work
     k2_host = host_us(lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, 0.7))
     plain = cuda_ms(lambda: nms.nms_keep_sorted_batch(boxes, valid, 0.7), iters=5)
@@ -421,7 +458,7 @@ def kernel_phase(dev) -> dict[str, dict]:
         err, tol = max_err(got, want), 1e-4
         k3_err = max(k3_err, err)
         ms = cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args))
-        us = device_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
+        us = kernel_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
                        "multilevel_roi_align_kernel")
         plain = cuda_ms(lambda: roi_align.multilevel_roi_align(*args))
         cells = touched_cells(levels, rois, bidx, (out, out), strides)
@@ -448,7 +485,7 @@ def train_kernel_phase(dev) -> dict[str, dict]:
     """Phase 2, training: K2 at the training budget, K5, and K3/K4 at the
     training step's shapes, each against its plain version."""
     import torch
-    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, device_us, random_rois
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
     from pets_face_recognition_tpu_torch.ops import nms, roi_align
     from pets_face_recognition_tpu_torch.profile_serving import nms_work
 
@@ -479,7 +516,7 @@ def train_kernel_phase(dev) -> dict[str, dict]:
         torch.cuda.synchronize()
         n_diff = int((got != ref).sum())
         ms = cuda_ms(fn, warmup=2, iters=10)
-        us = device_us(fn, K2_KERNELS)
+        us = kernel_us(fn, K2_KERNELS)
         plain = cuda_ms(plain_fn, warmup=1, iters=3)
         b, by = bound_ms(nb, ious * 13)
         emit("kernel", name=label, groups=groups, boxes_per_group=K, mismatches=n_diff,
@@ -514,7 +551,7 @@ def roi_kernel_rows(dev, g, strides, min_level: int, max_level: int,
     ``multilevel_roi_align_backward`` and ``roi_footprints``, each summed
     over the two RoI sets."""
     import torch
-    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, device_us, random_rois
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
     from pets_face_recognition_tpu_torch.ops import roi_align
 
     C, n_levels = 256, len(strides)
@@ -586,13 +623,13 @@ def roi_kernel_rows(dev, g, strides, min_level: int, max_level: int,
                             iters=10),
                  plain=cuda_ms(lambda: roi_align.multilevel_roi_align(*args, **span), warmup=1,
                                iters=3),
-                 us=device_us(lambda: roi_align.multilevel_roi_align_cuda(*args, **span),
+                 us=kernel_us(lambda: roi_align.multilevel_roi_align_cuda(*args, **span),
                               "multilevel_roi_align_kernel", iters=5))
         tb = dict(ms=cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(
                       *bargs, **span), iters=10),
                   plain=cuda_ms(lambda: roi_align.multilevel_roi_align_backward(*bargs, **span),
                                 warmup=1, iters=3),
-                  us=device_us(lambda: roi_align.multilevel_roi_align_backward_cuda(
+                  us=kernel_us(lambda: roi_align.multilevel_roi_align_backward_cuda(
                       *bargs, **span), "multilevel_roi_align_backward_kernel", iters=5))
         cells = touched_cells(levels, rois, bidx, (out, out), strides, min_level=min_level,
                               max_level=max_level)
@@ -2769,6 +2806,559 @@ def fe_phases(dev, kernels_mod, smi: str) -> dict[str, dict]:
     return paths
 
 
+MASK_OUT = REPO / "smoke_out" / "mask"      # git-ignored; deleted after the phases
+# the Mask R-CNN paths: their launches make the kernels line's "_mask" rows
+MASK_PATHS = ("mask_serve", "body_tsv", "masked_transform", "masked_reproduce",
+              "prepare_tables")
+MASK_GATES = dict(box_rel_to_side=1e-4, score_abs=1e-5, mask_abs=1e-4, k3_abs=1e-4,
+                  crop_abs_01=1e-3, table_score_abs=1e-5, threshold_band=1e-4)
+MASK_TRANSFORM_BATCH = 8
+# random mask logits sit near 0 (probabilities 0.5 +- 0.05 at full width):
+# the masked smoke's checkpoint scales the logits' 1 x 1 conv by this, so
+# that the route's 0.7 threshold cuts inside the masks
+MASK_LOGIT_SPREAD = 10.0
+
+
+@contextlib.contextmanager
+def mask_call_sites():
+    """Mask R-CNN's K2 and K3 calls on CUDA tensors by call site while the
+    block runs: K2 in the RPN and in the box NMS, K3 on the box and on the
+    mask RoIs; with copies of the last box NMS's and mask RoIAlign's inputs.
+    Yields ``(tally, last)``."""
+    from pets_face_recognition_tpu_torch.models import rcnn, roi_heads, rpn
+
+    tally = dict(k2_rpn=0, k2_box=0, k3_box=0, k3_mask=0)
+    last = {}
+    rpn_nms, box_nms = rpn.nms_keep_sorted_batch_cuda, roi_heads.nms_keep_sorted_batch_cuda
+    roi_align = rcnn.GeneralizedRCNN._roi_align
+
+    def counted(fn, key):
+        def call(boxes, valid, thr):
+            if boxes.is_cuda:
+                tally[key] += 1
+                last[key] = (boxes.clone(), valid.clone(), thr)
+            return fn(boxes, valid, thr)
+        return call
+
+    def pooled(self, pool, strides, boxes_flat, batch_idx, output_size):
+        if boxes_flat.is_cuda:
+            key = "k3_mask" if tuple(output_size) == (self.cfg.mask_roi_size,) * 2 else "k3_box"
+            tally[key] += 1
+            last[key] = ([f.clone() for f in pool[1]], boxes_flat.clone(), batch_idx.clone(),
+                         tuple(strides[:len(pool[1])]))
+        return roi_align(self, pool, strides, boxes_flat, batch_idx, output_size)
+
+    rpn.nms_keep_sorted_batch_cuda = counted(rpn_nms, "k2_rpn")
+    roi_heads.nms_keep_sorted_batch_cuda = counted(box_nms, "k2_box")
+    rcnn.GeneralizedRCNN._roi_align = pooled
+    try:
+        yield tally, last
+    finally:
+        rpn.nms_keep_sorted_batch_cuda, roi_heads.nms_keep_sorted_batch_cuda = rpn_nms, box_nms
+        rcnn.GeneralizedRCNN._roi_align = roi_align
+
+
+def mask_serve_phase(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
+    """Phase mask_serve: ``pipelines.mask_detector`` (the full-width
+    ResNet-50-FPN Mask R-CNN, 3 detections, RPN 1000/1000, box NMS 0.5,
+    score threshold 0.05; seeded random weights) on a seeded B = 8 batch of
+    320 x 320: the launch counts of one call by call site, the same batch on
+    the CPU (boxes within 1e-4 of the image side, scores 1e-5, masks 1e-4,
+    labels and validity equal), K2 on the call's own (8, 1000) box NMS input
+    and K3 on its 24 mask RoIs at 14 x 14 against their plain versions, each
+    timed beside its bound, a warm call's ms and peak memory. Returns the
+    path's launch counts and the two kernel rows."""
+    import torch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+    from pets_face_recognition_tpu_torch.ops import nms, roi_align
+    from pets_face_recognition_tpu_torch.pipelines import mask_detector
+    from pets_face_recognition_tpu_torch.profile_serving import nms_work
+
+    t_phase = time.perf_counter()
+    det = mask_detector(dev, 0)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(0, 256, (B_KERNELS, IMAGE, IMAGE, 3), generator=g,
+                      dtype=torch.uint8).float() / 255.0
+    xd = x.to(dev)
+    with torch.inference_mode(), float32_matmuls():
+        det(xd)                                  # cuDNN's and the allocator's set-up
+        torch.cuda.synchronize()
+        with mask_call_sites() as (tally, last):
+            kernels_mod.reset_launch_counts()
+            out = det(xd)
+            torch.cuda.synchronize()
+            launches = kernels_mod.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            det(xd)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        det_cpu = mask_detector("cpu", 0)
+        t = time.perf_counter()
+        ref = det_cpu(x)
+        cpu_s = time.perf_counter() - t
+    del det_cpu
+    got = {k: v.cpu() for k, v in out.items()}
+    checks = dict(
+        valid_equal=bool(torch.equal(got["valid"], ref["valid"])),
+        labels_equal=bool(torch.equal(got["labels"], ref["labels"])),
+        box_rel_to_side=max_err(got["boxes"], ref["boxes"]) / IMAGE,
+        score_abs=max_err(got["scores"], ref["scores"]),
+        mask_abs=max_err(got["masks"], ref["masks"]),
+        finite=all(bool(torch.isfinite(v.float()).all()) for v in got.values()))
+
+    # K2 on the box NMS's own input: (B, N * (C - 1)) = (8, 1000) sorted groups
+    boxes, valid, thr = last["k2_box"]
+    k2 = lambda: nms.nms_keep_sorted_batch_cuda(boxes, valid, thr)  # noqa: E731
+    keep, want = k2(), nms.nms_keep_sorted_batch(boxes, valid, thr)
+    torch.cuda.synchronize()
+    n_iou = int(nms_work(boxes, valid, want, thr)["ious"].sum())
+    b, by = bound_ms(boxes.numel() * 4 + valid.numel() + keep.numel(), n_iou * 13)
+    k2_row = dict(max_abs_err=max_err(keep, want), ms=cuda_ms(k2),
+                  plain_ms=cuda_ms(lambda: nms.nms_keep_sorted_batch(boxes, valid, thr),
+                                   iters=5),
+                  bound_ms=b, bound_by=by, library_ms=None)
+    emit("kernel", name="K2 nms_keep_sorted_batch (box NMS)", shape=list(boxes.shape),
+         mismatches=int((keep != want).sum()), valid=int(valid.sum()), kept=int(keep.sum()),
+         ious=n_iou, kernel_device_us=kernel_us(k2, K2_KERNELS), card=smi,
+         library="none (no torchvision)", **k2_row)
+
+    # K3 on the mask RoIs: B * D = 24 detections at 14 x 14 on p2..p5
+    feats, rois, bidx, strides = last["k3_mask"]
+    r = det.cfg.mask_roi_size
+    args = (feats, rois, bidx, (r, r), strides)
+    k3 = lambda: roi_align.multilevel_roi_align_cuda(*args)  # noqa: E731
+    pooled, plain = k3(), roi_align.multilevel_roi_align(*args)
+    torch.cuda.synchronize()
+    C = feats[0].shape[-1]
+    cells = touched_cells(feats, rois, bidx, (r, r), strides)
+    b, by = bound_ms(cells * C * 4 + rois.numel() * 4 + bidx.numel() * 4 + pooled.numel() * 4,
+                     pooled.numel() * (8 * 4 + 1))
+    k3_row = dict(max_abs_err=max_err(pooled, plain), ms=cuda_ms(k3),
+                  plain_ms=cuda_ms(lambda: roi_align.multilevel_roi_align(*args)),
+                  bound_ms=b, bound_by=by, library_ms=None)
+    emit("kernel", name=f"K3 multilevel_roi_align {r}x{r} (mask RoIs)", rois=rois.shape[0],
+         atol=MASK_GATES["k3_abs"], touched_cells=cells, card=smi,
+         kernel_device_us=kernel_us(k3, "multilevel_roi_align_kernel"),
+         library="none (no torchvision)", **k3_row)
+    emit("mask_serve", card=smi, batch=B_KERNELS, image=IMAGE,
+         config=dict(rpn_pre_nms_top_n_test=det.cfg.rpn_pre_nms_top_n_test,
+                     rpn_post_nms_top_n_test=det.cfg.rpn_post_nms_top_n_test,
+                     box_nms_thresh=det.cfg.box_nms_thresh,
+                     box_score_thresh=det.cfg.box_score_thresh,
+                     box_detections_per_img=det.cfg.box_detections_per_img),
+         launches=launches, launches_by_call_site=tally, box_nms_shape=list(boxes.shape),
+         detections=int(got["valid"].sum()), ms_median=statistics.median(times),
+         ms_min=min(times), ms_max=max(times), ms_all=times, images_per_s=B_KERNELS * 1e3
+         / statistics.median(times), peak_mem_gib=peak, cpu_forward_s=cpu_s,
+         vs_cpu=checks, gates=MASK_GATES, seconds=time.perf_counter() - t_phase)
+    if tally != dict(k2_rpn=1, k2_box=1, k3_box=1, k3_mask=1) or launches[
+            "nms_keep_sorted_batch"] != 2 or launches["multilevel_roi_align"] != 2:
+        raise AssertionError(f"mask_serve launches {launches}, by call site {tally}")
+    if tuple(boxes.shape) != (B_KERNELS, 1000, 4) or tuple(rois.shape) != (B_KERNELS * 3, 4):
+        raise AssertionError(f"mask_serve shapes: box NMS {tuple(boxes.shape)}, "
+                             f"mask RoIs {tuple(rois.shape)}")
+    if not (checks["valid_equal"] and checks["labels_equal"] and checks["finite"]
+            and checks["box_rel_to_side"] <= MASK_GATES["box_rel_to_side"]
+            and checks["score_abs"] <= MASK_GATES["score_abs"]
+            and checks["mask_abs"] <= MASK_GATES["mask_abs"]):
+        raise AssertionError(f"mask_serve: the card against the CPU: {checks}")
+    if k2_row["max_abs_err"] or not k3_row["max_abs_err"] <= MASK_GATES["k3_abs"]:
+        raise AssertionError(f"mask kernels against their plain versions: K2 {k2_row}, "
+                             f"K3 {k3_row}")
+    del det, out, last
+    torch.cuda.empty_cache()
+    return {"mask_serve": launches}, {"nms_keep_sorted_batch_mask": k2_row,
+                                      "multilevel_roi_align_mask": k3_row}
+
+
+@contextlib.contextmanager
+def body_probe(sync):
+    """Record each photo's steps inside ``generate_tsv``'s walk with the
+    body: its (width, height) and seconds of decode, ``Preproc3``,
+    ``Preproc4`` and ``resize_with_padding`` (the device synchronised after
+    each), of each pipeline call, and what they gave (validity, the body box,
+    the 256 x 256 letterboxed crop, the two vectors). Yields ``(rec,
+    wrap_head, wrap_body)``."""
+    from pets_face_recognition_tpu_torch import generate_tsv, pipelines
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc3, Preproc4
+
+    rec: list[dict] = []
+    read, b3, b4 = generate_tsv.read_image, Preproc3.batch, Preproc4.batch
+    resize = pipelines.resize_with_padding
+
+    def timed(fn, key, what):
+        def call(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            sync()
+            rec[-1][key] = time.perf_counter() - t
+            rec[-1].update(what(out))
+            return out
+        return call
+
+    def timed_read(path):
+        t = time.perf_counter()
+        img = read(path)
+        rec.append(dict(size=(img.shape[1], img.shape[0]), decode=time.perf_counter() - t,
+                        head_valid=False, body_valid=False, vec=None, body_vec=None))
+        return img
+
+    generate_tsv.read_image = timed_read
+    Preproc3.batch = timed(b3, "preproc3", lambda o: dict(head_valid=bool(o[1][0])))
+    Preproc4.batch = timed(b4, "preproc4", lambda o: dict(body_valid=bool(o[1][0]),
+                                                          box=o[2]["boxes"][0].copy()))
+    pipelines.resize_with_padding = timed(resize, "resize", lambda o: dict(padded=o))
+    wrap_head = lambda fn: timed(fn, "head", lambda v: dict(vec=v))  # noqa: E731
+    wrap_body = lambda fn: timed(fn, "body", lambda v: dict(body_vec=v))  # noqa: E731
+    try:
+        yield rec, wrap_head, wrap_body
+    finally:
+        generate_tsv.read_image, Preproc3.batch, Preproc4.batch = read, b3, b4
+        pipelines.resize_with_padding = resize
+
+
+def run_body_chain(device, kernels_mod, label: str) -> dict:
+    """``generate_tsv --body`` over the committed corpus on ``device``
+    (``PFR_RETRIEVAL_THR=0``), its tsv and score dump under ``OUT_DIR``, with
+    the launch counts and each photo's record (``body_probe``) of its walk;
+    on the card, each photo size's first photo goes through both pipelines
+    once before the walk (cuDNN's and the allocator's set-up)."""
+    from unittest import mock
+
+    import torch
+    from pets_face_recognition_tpu_torch import generate_tsv, retrieval
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tsv, dump = OUT_DIR / f"pred_scores_test1_{label}.tsv", OUT_DIR / f"scores1_{label}.npz"
+    run = {}
+    walk = generate_tsv.prepare_data
+
+    def timed_walk(path, head, cache=None, body_pipeline=None):
+        if cuda:
+            firsts = {}
+            for p in sorted(path.rglob("*.jpg")):
+                img = generate_tsv.read_image(p)
+                firsts.setdefault(img.shape, img)
+            for img in firsts.values():
+                for animal in (1, 2):
+                    head(img, animal)
+                    body_pipeline(img, animal)
+            sync()
+        with body_probe(sync) as (rec, wrap_head, wrap_body):
+            kernels_mod.reset_launch_counts()
+            t = time.perf_counter()
+            db = walk(path, wrap_head(head), cache, wrap_body(body_pipeline))
+            sync()
+            run.update(chain_s=time.perf_counter() - t, launches=kernels_mod.launch_counts(),
+                       rec=rec, db=db)
+        return db
+
+    with mock.patch.dict(os.environ, PFR_RETRIEVAL_THR="0.0", PFR_SCORES_DUMP=str(dump)), \
+            mock.patch.object(generate_tsv, "prepare_data", timed_walk):
+        os.environ.pop("PFR_MASK_CKPT", None)
+        rc = generate_tsv.main(["--data", str(CORPUS), "--body", "--output", str(tsv),
+                                "--device", str(device)])
+    if rc != 0:
+        raise AssertionError(f"generate_tsv --body on {device} returned {rc}")
+    return dict(run, rows=retrieval._read_tsv(tsv), dump=retrieval.load_scores_dump(dump))
+
+
+def body_tsv_phase(dev, kernels_mod, smi: str) -> dict:
+    """Phase body_tsv: ``generate_tsv --body`` (the head+body ensemble) over
+    the committed kashtanka corpus on the card and on the CPU, with seeded
+    random weights and the detection threshold 0: the same kept photos, the
+    same body boxes, the letterboxed body crops equal where the boxes agree,
+    head and body embeddings within 1e-5 relative, scores within 1e-6 (rank
+    flips only across gaps below that), the same tsv rows (numbers within
+    1e-6); the launch counts of the card's walk (K1 once per kept head, K2
+    and K3 launched); images/s and each step's ms a photo."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import retrieval
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    card = run_body_chain(dev, kernels_mod, "card")
+    cpu = run_body_chain(torch.device("cpu"), kernels_mod, "cpu")
+    a, b = card["rec"], cpu["rec"]
+    if [r["size"] for r in a] != [r["size"] for r in b]:
+        raise AssertionError("body_tsv: the two runs read other photos")
+
+    def rel(x, y):
+        return float(np.abs(x - y).max() / np.abs(y).max())
+
+    heads = [(x, y) for x, y in zip(a, b) if x["head_valid"] and y["head_valid"]]
+    bodies = [(x, y) for x, y in zip(a, b) if x["body_valid"] and y["body_valid"]]
+    same_box = [(x, y) for x, y in bodies if (np.round(x["box"]) == np.round(y["box"])).all()]
+    report = retrieval.near_tie_report(cpu["dump"], card["dump"])
+    rows_a, rows_b = card["rows"], cpu["rows"]
+    numbers = max((abs(p - q) for ra, rb in zip(rows_a, rows_b) for p, q in zip(ra[1:4], rb[1:4])
+                   if p is not None and q is not None), default=0.0)
+    d = dict(photos=len(a), head_kept=len(heads), body_kept=len(bodies),
+             head_valid_differ=sum(x["head_valid"] != y["head_valid"] for x, y in zip(a, b)),
+             body_valid_differ=sum(x["body_valid"] != y["body_valid"] for x, y in zip(a, b)),
+             body_boxes_differ=len(bodies) - len(same_box),
+             body_crops_differ=sum(not np.array_equal(x["padded"], y["padded"])
+                                   for x, y in same_box),
+             head_emb_rel=max((rel(x["vec"], y["vec"]) for x, y in heads), default=0.0),
+             body_emb_rel=max((rel(x["body_vec"], y["body_vec"]) for x, y in same_box),
+                              default=0.0),
+             max_score_drift=report["max_score_drift"],
+             max_flip_gap=report["max_flip_float_gap"],
+             same_queries=[r[0] for r in rows_a] == [r[0] for r in rows_b],
+             same_answers=[r[4] for r in rows_a] == [r[4] for r in rows_b],
+             max_row_number_diff=numbers)
+
+    def steps(run):
+        rs = run["rec"]
+        mean = lambda xs: float(np.mean(xs)) * 1e3 if xs else None  # noqa: E731
+        return dict(
+            photos_per_s=len(rs) / run["chain_s"], chain_s=run["chain_s"],
+            decode_ms=mean([r["decode"] for r in rs]),
+            preproc3_ms=mean([r["preproc3"] for r in rs]),
+            preproc4_ms=mean([r["preproc4"] for r in rs]),
+            resize_with_padding_ms=mean([r["resize"] for r in rs if "resize" in r]),
+            head_embed_ms=mean([r["head"] - r["preproc3"] for r in rs if r["head_valid"]]),
+            body_embed_ms=mean([r["body"] - r["preproc4"] - r["resize"] for r in rs
+                                if r["body_valid"]]))
+
+    k = card["launches"]
+    emit("body_tsv", card=smi, corpus=str(CORPUS.relative_to(REPO)), steps_card=steps(card),
+         steps_cpu=steps(cpu), launches=k, rows=len(rows_a), vs_cpu=d,
+         budget=dict(emb_rel=EMB_DRIFT, score=SCORE_DRIFT),
+         near_tie=report, seconds=time.perf_counter() - t_phase)
+    if not (k["warp_perspective_batch"] == len([r for r in a if r["head_valid"]])
+            and k["nms_keep_sorted_batch"] and k["multilevel_roi_align"]):
+        raise AssertionError(f"body_tsv launches {k}")
+    finite = all(np.isfinite(r[v]).all() for r in a for v in ("vec", "body_vec")
+                 if r[v] is not None)
+    if not (finite and d["body_kept"] and rows_a and d["same_queries"]
+            and d["head_valid_differ"] == 0 and d["body_valid_differ"] == 0
+            and d["body_crops_differ"] == 0 and d["head_emb_rel"] <= EMB_DRIFT
+            and d["body_emb_rel"] <= EMB_DRIFT and d["max_score_drift"] <= SCORE_DRIFT
+            and d["max_flip_gap"] <= SCORE_DRIFT and d["max_row_number_diff"] <= SCORE_DRIFT
+            and (d["same_answers"] or report["n_flipped_pairs"])):
+        raise AssertionError(f"body_tsv: the card against the CPU: {d}")
+    return k
+
+
+@contextlib.contextmanager
+def recorded_preproc4():
+    """Each ``Preproc4.batch`` call's results and each mask it pasted (on the
+    CPU), while the block runs."""
+    import torch
+    from pets_face_recognition_tpu_torch import preprocessor
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc4
+
+    calls, pastes, batch, paste = [], [], Preproc4.batch, preprocessor.paste_mask
+
+    def recording(self, images):
+        out = batch(self, images)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        calls.append(([None if c is None else c.cpu() for c in out[0]], out[1], out[2]))
+        return out
+
+    def pasting(*a, **k):
+        full = paste(*a, **k)
+        pastes.append(full.cpu())
+        return full
+
+    Preproc4.batch, preprocessor.paste_mask = recording, pasting
+    try:
+        yield calls, pastes
+    finally:
+        Preproc4.batch, preprocessor.paste_mask = batch, paste
+
+
+def masked_transform_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase masked_transform, under the git-ignored ``smoke_out/mask``:
+    seeded ``data_25`` and petfinder-extras layouts (``smoke_data``, 320 x
+    320) and a Mask R-CNN checkpoint named by ``PFR_MASK_CKPT`` (seeded
+    random weights, the mask logits spread by ``MASK_LOGIT_SPREAD``).
+    ``transform_dataset --pipeline body --masked --mask-thr 0.7 --thr 0`` on
+    the card (launch counts around it) and on the CPU: the same files under
+    the same names, the same tightened boxes, the crops before encoding
+    within 1e-3 on [0, 1] but at pixels whose pasted mask lies within 1e-4 of
+    the threshold on both sides (counted), the card's JPEGs against PIL's
+    libjpeg on the CPU's crops (``jpeg_gap``); ``prepare_tables --thr 0`` on
+    both: the same rows, landmarks and boxes byte for byte, scores within
+    1e-5 (float32 sums differ in the last bits between cuDNN and the CPU);
+    ``transform_reproduce``'s masked route on the card over the whole layout.
+    Photos/s of each."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import (prepare_tables, smoke_data, transform_dataset,
+                                                 transform_reproduce)
+    from pets_face_recognition_tpu_torch.pipelines import mask_detector
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc4
+
+    t_phase = time.perf_counter()
+    root, tables_root = MASK_OUT / "transform", MASK_OUT / "labeled"
+    smoke_data.make_data25(root, n_cards=4, n_imgs=2)
+    smoke_data.make_petfinder_extras(root, n_cards=2, n_imgs=1)
+    smoke_data.make_data25(tables_root, n_cards=3, n_imgs=1, seed=13)
+    smoke_data.make_petfinder_extras(tables_root, n_cards=1, n_imgs=1, seed=14)
+    ckpts = MASK_OUT / "mask" / "checkpoints"
+    ckpts.mkdir(parents=True)
+    model = mask_detector("cpu", 0)
+    with torch.no_grad():
+        model.roi_heads.mask_predictor.mask_fcn_logits.weight.mul_(MASK_LOGIT_SPREAD)
+    torch.save({"model": model.state_dict()}, ckpts / "epoch=0-step=0")
+    del model
+    photos = sorted((root / "data_25").glob("*/*.jpg"))
+    argv = ["--input", str(root / "data_25"), "--pipeline", "body", "--masked", "--mask-thr",
+            str(transform_reproduce.MASK_THR), "--thr", "0.0", "--batch-size",
+            str(MASK_TRANSFORM_BATCH)]
+    paths, runs, tables = {}, {}, {}
+    with mock.patch.dict(os.environ, PFR_MASK_CKPT=str(ckpts)):
+        os.environ.pop("PFR_KEYPOINT_CKPT", None)
+        for label, device in (("card", str(dev)), ("cpu", "cpu")):
+            out = MASK_OUT / f"out_{label}"
+            with recorded_preproc4() as (calls, pastes):
+                if label == "card":
+                    torch.cuda.synchronize()
+                    kernels_mod.reset_launch_counts()
+                t = time.perf_counter()
+                written = transform_dataset.main(argv + ["--output", str(out), "--device",
+                                                         device])
+                if label == "card":
+                    torch.cuda.synchronize()
+                    paths["masked_transform"] = kernels_mod.launch_counts()
+                runs[label] = dict(seconds=time.perf_counter() - t, calls=calls, pastes=pastes,
+                                   written=written,
+                                   files=sorted(str(p.relative_to(out)) for p in written))
+            if label == "card":
+                kernels_mod.reset_launch_counts()
+            t = time.perf_counter()
+            tables[label] = dict(paths=prepare_tables.main(
+                ["--data", str(tables_root), "--thr", "0.0", "--out-dir",
+                 str(MASK_OUT / f"tables_{label}"), "--device", device]))
+            if label == "card":
+                torch.cuda.synchronize()
+                paths["prepare_tables"] = kernels_mod.launch_counts()
+            tables[label]["seconds"] = time.perf_counter() - t
+        pre4 = Preproc4(mask_detector(dev), thr=0.0, use_mask=True,
+                        mask_thr=transform_reproduce.MASK_THR,
+                        serve_batch=MASK_TRANSFORM_BATCH, device=dev)
+    n_inputs = len([p for d in ("data_25", "petfinder_extra_dogs", "petfinder_extra_cats")
+                    for p in (root / d).glob("*/*.*") if p.suffix in (".jpg", ".png")])
+    kernels_mod.reset_launch_counts()
+    t = time.perf_counter()
+    reproduced = transform_reproduce.masked(pre4, root)
+    torch.cuda.synchronize()
+    reproduce_s = time.perf_counter() - t
+    paths["masked_reproduce"] = kernels_mod.launch_counts()
+
+    # the card's crops against the CPU's: equal boxes, and pixels apart only
+    # where both pasted masks lie within the band around the threshold
+    card, cpu = runs["card"], runs["cpu"]
+    thr, band = transform_reproduce.MASK_THR, MASK_GATES["threshold_band"]
+    valid_equal = len(card["calls"]) == len(cpu["calls"])
+    boxes_differ = crop_err = 0
+    near, crops, pastes = 0, [], iter(zip(card["pastes"], cpu["pastes"]))
+    for (c_gpu, v_gpu, r_gpu), (c_cpu, v_cpu, r_cpu) in zip(card["calls"], cpu["calls"]):
+        valid_equal &= bool((v_gpu == v_cpu).all())
+        for i in range(len(v_cpu)):
+            # each detection that reached the paste pasted once on each side
+            if not (r_gpu["all_scores"][i, 0] > 0.0 and r_cpu["all_scores"][i, 0] > 0.0):
+                continue
+            p_gpu, p_cpu = next(pastes)
+            if not (v_gpu[i] and v_cpu[i]):
+                continue
+            if not np.array_equal(r_gpu["boxes"][i], r_cpu["boxes"][i]):
+                boxes_differ += 1
+                continue
+            x1, y1 = (max(int(v), 0) for v in r_cpu["boxes"][i][:2])
+            band_px = ((p_gpu - thr).abs() <= band) & ((p_cpu - thr).abs() <= band)
+            band_px = band_px[y1:y1 + c_cpu[i].shape[0], x1:x1 + c_cpu[i].shape[1]]
+            diff = (c_gpu[i] - c_cpu[i]).abs().amax(-1)
+            near += int(((diff > 0) & band_px).sum())
+            if diff.numel():
+                crop_err = max(crop_err, float(torch.where(band_px, 0.0, diff).max()) / 255.0)
+            crops.append(np.clip(c_cpu[i].numpy(), 0, 255).astype(np.uint8))
+    same_files = card["files"] == cpu["files"] and len(card["files"]) == len(crops) > 0
+    jpeg = jpeg_gap([p.read_bytes() for p in card["written"]], crops) if same_files else None
+
+    def read(path):
+        with open(path, newline="") as f:
+            return [line.split("\t") for line in f.read().splitlines()]
+
+    table_diff = {}
+    for p_gpu, p_cpu in zip(tables["card"]["paths"], tables["cpu"]["paths"]):
+        a, b = read(p_gpu), read(p_cpu)
+        exact = [(x[:2] if p_gpu.name != "landmark.tsv" else x) for x in a] == \
+            [(y[:2] if p_cpu.name != "landmark.tsv" else y) for y in b]
+        scores = max((abs(s - q) for x, y in zip(a[1:], b[1:]) if p_gpu.name != "landmark.tsv"
+                      for s, q in zip(json.loads(x[2]), json.loads(y[2]))), default=0.0)
+        table_diff[p_gpu.name] = dict(rows=len(a) - 1, equal_but_scores=exact,
+                                      bytes_equal=p_gpu.read_bytes() == p_cpu.read_bytes(),
+                                      max_score_diff=scores)
+    reproduced_rel = sorted(str(p.relative_to(root)) for p in reproduced)
+    k, kt, kr = paths["masked_transform"], paths["prepare_tables"], paths["masked_reproduce"]
+    emit("masked_transform", card=smi, photos=len(photos), batch=MASK_TRANSFORM_BATCH,
+         mask_thr=thr, logit_spread=MASK_LOGIT_SPREAD, files=len(card["files"]),
+         seconds_card=card["seconds"], seconds_cpu=cpu["seconds"],
+         photos_per_s_card=len(photos) / card["seconds"],
+         photos_per_s_cpu=len(photos) / cpu["seconds"], crop_abs_err_01=crop_err,
+         threshold_band_pixels_apart=near, boxes_differ=boxes_differ, valid_equal=valid_equal,
+         same_files=same_files, jpeg=jpeg, launches=k,
+         tables=dict(diff=table_diff, launches=kt, seconds_card=tables["card"]["seconds"],
+                     seconds_cpu=tables["cpu"]["seconds"]),
+         reproduce=dict(seconds=reproduce_s, files=len(reproduced), launches=kr,
+                        photos=n_inputs, photos_per_s=n_inputs / reproduce_s,
+                        outputs=sorted({p.split("/")[0] for p in reproduced_rel})),
+         gates=dict(crop_abs_01=MASK_GATES["crop_abs_01"], jpeg_gap=JPEG_GAP,
+                    table_score_abs=MASK_GATES["table_score_abs"], threshold_band=band),
+         seconds=time.perf_counter() - t_phase)
+    for name, counts in (("masked_transform", k), ("prepare_tables", kt),
+                         ("masked_reproduce", kr)):
+        if not (counts["nms_keep_sorted_batch"] and counts["multilevel_roi_align"]):
+            raise AssertionError(f"{name} launches {counts}")
+    if not (valid_equal and same_files and boxes_differ == 0):
+        raise AssertionError(f"masked_transform: the card and the CPU kept other crops "
+                             f"({boxes_differ} boxes apart)")
+    if not crop_err <= MASK_GATES["crop_abs_01"]:
+        raise AssertionError(f"masked_transform: crops {crop_err} apart")
+    if not (jpeg["tables_equal"] and jpeg["files"]["max"] <= JPEG_GAP["max"]
+            and jpeg["files"]["mean"] <= JPEG_GAP["mean"]):
+        raise AssertionError(f"masked_transform: the card's JPEGs against libjpeg: {jpeg}")
+    if not all(d["rows"] and d["equal_but_scores"]
+               and d["max_score_diff"] <= MASK_GATES["table_score_abs"]
+               for d in table_diff.values()):
+        raise AssertionError(f"prepare_tables: the card against the CPU: {table_diff}")
+    outputs = {p.split("/")[0] for p in reproduced_rel}
+    if len(reproduced_rel) < 4 or not outputs <= {f"{d}_transformed_v4_masked_{s}"
+                                                   for d, s in (("data_25", "dogs"),
+                                                                ("data_25", "cats"))} | {
+            f"petfinder_extra_{s}_transformed_v4_masked" for s in ("dogs", "cats")}:
+        raise AssertionError(f"transform_reproduce --stages masked wrote {reproduced_rel}")
+    return paths
+
+
+def mask_phases(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
+    """mask_serve, body_tsv and masked_transform; everything written under
+    the git-ignored ``smoke_out/mask`` is deleted after them."""
+    import shutil
+
+    shutil.rmtree(MASK_OUT, ignore_errors=True)
+    try:
+        paths, rows = mask_serve_phase(dev, kernels_mod, smi)
+        paths["body_tsv"] = body_tsv_phase(dev, kernels_mod, smi)
+        paths.update(masked_transform_phase(dev, kernels_mod, smi))
+    finally:
+        shutil.rmtree(MASK_OUT, ignore_errors=True)
+    return paths, rows
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -2791,11 +3381,30 @@ KERNEL_ROWS = (
      "csrc/roi_align_backward.cu", "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
     ("roi_footprints_mobile", ("roi_footprints",), "csrc/roi_align_backward.cu",
      "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
+    # the same kernels on Mask R-CNN's paths, timed at its new shapes (K2 on
+    # the box NMS's (8, 1000) groups, K3 on 24 mask RoIs at 14 x 14); their
+    # launches are the Mask R-CNN paths' alone (MASK_PATHS; body_tsv and
+    # prepare_tables also run the keypoint detector, whose launches they count)
+    ("nms_keep_sorted_batch_mask", ("nms_keep_sorted_batch",), "csrc/nms.cu",
+     "pets_face_recognition_tpu/ops/pallas_nms.py:153"),
+    ("multilevel_roi_align_mask", ("multilevel_roi_align",), "csrc/roi_align.cu",
+     "pets_face_recognition_tpu/ops/pallas_roi_align.py:120"),
 )
 
 
+def row_paths(name: str, paths: dict) -> list[str]:
+    """The paths whose launches a kernel row sums: the mobile paths for a
+    ``_mobile`` row, the Mask R-CNN paths for a ``_mask`` row, every path for
+    the others."""
+    if name.endswith("_mobile"):
+        return [p for p in paths if p.startswith("mobile_")]
+    if name.endswith("_mask"):
+        return [p for p in paths if p in MASK_PATHS]
+    return list(paths)
+
+
 def main() -> int:
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     t_start = time.perf_counter()
     import torch
 
@@ -2838,12 +3447,15 @@ def main() -> int:
     mobile_train_vs_cpu_phase(dev)
     paths.update(keypoint_fit_phase(dev, kernels, smi))
     paths.update(fe_phases(dev, kernels, smi))   # fe_transform, fe_reproduce, fe_fit
+    mask_paths, mask_rows = mask_phases(dev, kernels, smi)
+    paths.update(mask_paths)
+    rows.update(mask_rows)
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
-        read = [p for p in paths if p.startswith("mobile_") or not name.endswith("_mobile")]
         table.append(dict(rows[name], name=name, route="cuda",
                           source=f"pets_face_recognition_tpu_torch/{src}", replaces=replaces,
-                          launches=sum(paths[p][k] for p in read for k in counted)))
+                          launches=sum(paths[p][k] for p in row_paths(name, paths)
+                                       for k in counted)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit("done", seconds=time.perf_counter() - t_start)

@@ -50,12 +50,13 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def device_us_by_kernel(fn, kernel_name: str, iters: int = 10, strict: bool = True,
-                        attempts: int = 3) -> dict[str, float] | None:
+                        attempts: int = 5) -> dict[str, float] | None:
     """Device time per call of ``fn()`` of each kernel whose name holds
     ``kernel_name`` (every kernel for ""), in us: the median of its launches
     over ``iters`` calls (after one) under ``torch.profiler``. The profiler may
-    miss the window's first launch, and now and then every launch of a window:
-    such a window is profiled again, up to ``attempts`` windows. Each call must
+    miss the window's first launch, now and then most or every launch of a
+    window, and on one H100 machine it did so in three windows running: such
+    a window is profiled again, up to ``attempts`` windows. Each call must
     launch each such kernel once; else raise, or return None when not
     ``strict``."""
     import torch

@@ -1,18 +1,21 @@
-"""Keypoint R-CNN (counterpart of the JAX ``models/rcnn.py``).
+"""Keypoint and Mask R-CNN (counterpart of the JAX ``models/rcnn.py``).
 
 ``forward(images)`` takes a fixed ``(B, H, W, 3)`` NHWC float batch (no resize
 or normalisation, as the JAX model) and returns padded detections with
 validity masks: ``boxes (B, D, 4)``, ``labels``, ``scores``, ``valid``,
-``keypoints (B, D, NK, 3)``, ``keypoints_scores``. With ``targets`` it returns
+``keypoints (B, D, NK, 3)``, ``keypoints_scores``, or ``masks (B, D, 28, 28)``
+(the sigmoid of each detection's own label's mask logits). With ``targets`` it returns
 the training loss dict of the JAX ``_forward_train``: RPN loss, proposals at
 the training budgets, box sampling and loss, and the keypoint head on the
 positive budget. Inside it runs NCHW. Two detectors: the ResNet-50-FPN one
 (4 pooled levels, p2..p5) and the MobileNetV3-Large one (2 pooled levels,
 p4 and p5, 15 anchors a location), the JAX package's default serving
-detector. The RPN's NMS is kernel K2; both
-RoIAligns (box 7x7, keypoint 14x14) run forward through kernel K3 and, in
-training, backward through kernel K4 (``MultilevelRoIAlign``); their wrappers
-take the plain versions only for CPU tensors.
+detector; and the ResNet-50-FPN Mask R-CNN (body detector, 3 detections an
+image). The RPN's NMS is kernel K2, as is the box NMS when more than one
+detection is kept; the RoIAligns (box 7x7, keypoint and mask 14x14) run
+forward through kernel K3 and, in training, backward through kernel K4
+(``MultilevelRoIAlign``); their wrappers take the plain versions only for CPU
+tensors. Mask R-CNN training is not ported.
 
 The two samplers take uniform noise, ``sampler_noise = {"rpn": (B, N_anchors),
 "box": (B, rpn_post_nms_top_n_train + G)}``, or draw it from ``generator``
@@ -43,7 +46,8 @@ KEYPOINT_ARCHS = ("resnet50", "mobile")
 @dataclasses.dataclass(frozen=True)
 class RCNNConfig:
     """Hyper-parameters (torchvision defaults unless noted), the JAX
-    ``RCNNConfig``'s fields less the mask head's and the box NMS's."""
+    ``RCNNConfig``'s fields. ``box_detections_per_img`` defaults to the JAX
+    config's 100; every factory passes its own."""
 
     num_classes: int = 2
     anchor_sizes: tuple = ((32,), (64,), (128,), (256,), (512,))
@@ -60,25 +64,31 @@ class RCNNConfig:
     rpn_positive_fraction: float = 0.5
     # box head
     box_score_thresh: float = 0.05
-    box_detections_per_img: int = 1
+    box_nms_thresh: float = 0.5
+    box_detections_per_img: int = 100
     box_fg_iou_thresh: float = 0.5
     box_bg_iou_thresh: float = 0.5
     box_batch_size_per_image: int = 512
     box_positive_fraction: float = 0.25
     # task heads
+    with_mask: bool = False
     num_keypoints: int = 0
+    mask_roi_size: int = 14
     keypoint_roi_size: int = 14
     # training: the keypoint head runs on the sampled-positive budget only
     task_heads_on_positives_only: bool = True
 
 
 class RoIHeads(nn.Module):
-    """Box and keypoint heads under torchvision's ``roi_heads.*`` names."""
+    """Box, mask and keypoint heads under torchvision's ``roi_heads.*`` names."""
 
     def __init__(self, cfg: RCNNConfig, channels: int):
         super().__init__()
         self.box_head = rh.TwoMLPHead(channels * 7 * 7)
         self.box_predictor = rh.FastRCNNPredictor(1024, cfg.num_classes)
+        if cfg.with_mask:
+            self.mask_head = rh.MaskHead(channels)
+            self.mask_predictor = rh.MaskPredictor(256, cfg.num_classes)
         if cfg.num_keypoints:
             self.keypoint_head = rh.KeypointHead(channels)
             self.keypoint_predictor = rh.KeypointPredictor(512, cfg.num_keypoints)
@@ -95,8 +105,6 @@ class GeneralizedRCNN(nn.Module):
 
     def __init__(self, backbone: BackboneWithFPN, cfg: RCNNConfig):
         super().__init__()
-        if cfg.box_detections_per_img != 1:
-            raise NotImplementedError("only box_detections_per_img == 1 is ported")
         self.cfg = cfg
         self.backbone = backbone
         self.num_anchors = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
@@ -214,21 +222,45 @@ class GeneralizedRCNN(nn.Module):
         class_logits, box_deltas = heads.box_predictor(heads.box_head(pooled))
         boxes, labels, scores, valid = rh.postprocess_detections_batch(
             class_logits.reshape(B, S, -1), box_deltas.reshape(B, S, -1, 4),
-            proposals, prop_valid, image_size, c.box_score_thresh)
+            proposals, prop_valid, image_size, c.box_score_thresh, c.box_nms_thresh,
+            c.box_detections_per_img)
         out = {"boxes": boxes, "labels": labels, "scores": scores, "valid": valid}
 
+        D = boxes.shape[1]
+        det_flat = boxes.reshape(B * D, 4)
+        det_bidx = batch_idx.repeat_interleave(D)
+        if c.with_mask:
+            r = c.mask_roi_size
+            pooled = self._roi_align(pool, strides, det_flat, det_bidx, (r, r))
+            logits = heads.mask_predictor(heads.mask_head(pooled.permute(0, 3, 1, 2)))
+            own = torch.gather(logits, 3, labels.reshape(B * D, 1, 1, 1).expand(
+                B * D, *logits.shape[1:3], 1))[..., 0]
+            out["masks"] = torch.sigmoid(own).reshape(B, D, *own.shape[1:])
         if c.num_keypoints:
-            D = boxes.shape[1]
-            det_flat = boxes.reshape(B * D, 4)
             r = c.keypoint_roi_size
-            pooled = self._roi_align(pool, strides, det_flat,
-                                     batch_idx.repeat_interleave(D), (r, r))
+            pooled = self._roi_align(pool, strides, det_flat, det_bidx, (r, r))
             kp_logits = heads.keypoint_predictor(
                 heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
             kps, kp_scores = rh.heatmaps_to_keypoints(kp_logits, det_flat)
             out["keypoints"] = kps.reshape(B, D, c.num_keypoints, 3)
             out["keypoints_scores"] = kp_scores.reshape(B, D, c.num_keypoints)
         return out
+
+
+def maskrcnn_resnet50_fpn(num_classes: int = 2, box_detections_per_img: int = 3,
+                          stage_sizes: tuple[int, ...] = (3, 4, 6, 3), quant=None,
+                          **overrides) -> GeneralizedRCNN:
+    """The production body detector and segmenter: ResNet-50-FPN Mask R-CNN
+    with a frozen-BN trunk, 2 classes, 3 detections an image (JAX
+    ``maskrcnn_resnet50_fpn``). ``stage_sizes`` cuts depth for tests;
+    ``overrides`` set :class:`RCNNConfig` fields. ``quant`` (int8) is not
+    ported and raises when given."""
+    if quant is not None:
+        raise NotImplementedError("quant (int8 serving) is not ported")
+    cfg = RCNNConfig(num_classes=num_classes, with_mask=True,
+                     box_detections_per_img=box_detections_per_img, **overrides)
+    body = ResNet(stage_sizes=stage_sizes, features_only=True)
+    return GeneralizedRCNN(BackboneWithFPN(body), cfg)
 
 
 def keypointrcnn_resnet50_fpn(num_classes: int = 2, num_keypoints: int = 3,

@@ -1,8 +1,10 @@
-"""RoI heads (counterpart of the JAX ``models/roi_heads.py``): the box and
-keypoint heads, the eval postprocess and keypoint decode, and for training the
-proposal sampler, the Fast R-CNN loss and the keypoint heatmap targets and loss.
+"""RoI heads (counterpart of the JAX ``models/roi_heads.py``): the box, mask
+and keypoint heads, the eval postprocess (top-1, or class-aware NMS through
+kernel K2) and keypoint decode, and for training the proposal sampler, the
+Fast R-CNN loss and the keypoint heatmap targets and loss.
 
 torchvision module names (``box_head.fc6``, ``box_predictor.cls_score``,
+``mask_head.mask_fcn{1..4}``, ``mask_predictor.{conv5_mask,mask_fcn_logits}``,
 ``keypoint_head.{0,2,..,14}``, ``keypoint_predictor.kps_score_lowres``). The
 heads take the JAX layout: pooled RoIs ``(K, oh, ow, C)`` NHWC. ``fc6``
 flattens that NHWC block in ``(h, w, c)`` order, as the JAX ``TwoMLPHead`` does,
@@ -18,7 +20,8 @@ from torch import nn
 
 from ..losses import cross_entropy, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
-from .rpn import batched_iou, sample_balanced
+from ..ops.nms import nms_keep_sorted_batch_cuda
+from .rpn import _top_k, batched_iou, sample_balanced
 
 BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
@@ -46,6 +49,36 @@ class FastRCNNPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor):
         return self.cls_score(x), self.bbox_pred(x).reshape(x.shape[0], -1, 4)
+
+
+class MaskHead(nn.Module):
+    """4 x (conv3x3 + relu) at 256 channels (torchvision ``MaskRCNNHeads``,
+    0.12 names); NCHW in and out."""
+
+    def __init__(self, in_channels: int, channels: int = 256):
+        super().__init__()
+        for i in range(1, 5):
+            setattr(self, f"mask_fcn{i}", nn.Conv2d(in_channels if i == 1 else channels,
+                                                    channels, 3, padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(1, 5):
+            x = torch.relu(getattr(self, f"mask_fcn{i}")(x))
+        return x
+
+
+class MaskPredictor(nn.Module):
+    """Transposed conv (2, stride 2) + relu, then the 1x1 per-class logits
+    (torchvision ``MaskRCNNPredictor``); NCHW in, ``(K, 2S, 2S, C)`` NHWC
+    logits out, as the JAX ``MaskHead`` returns them."""
+
+    def __init__(self, in_channels: int, num_classes: int, channels: int = 256):
+        super().__init__()
+        self.conv5_mask = nn.ConvTranspose2d(in_channels, channels, 2, 2)
+        self.mask_fcn_logits = nn.Conv2d(channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mask_fcn_logits(torch.relu(self.conv5_mask(x))).permute(0, 2, 3, 1)
 
 
 class KeypointHead(nn.Sequential):
@@ -77,14 +110,21 @@ class KeypointPredictor(nn.Module):
 def postprocess_detections_batch(class_logits: torch.Tensor, box_deltas: torch.Tensor,
                                   proposals: torch.Tensor, prop_valid: torch.Tensor,
                                   image_size: tuple[int, int],
-                                  score_thresh: float = 0.05):
-    """Top-1 detection per image: ``class_logits (B, N, C)``, ``box_deltas
-    (B, N, C, 4)``, ``proposals (B, N, 4)``, ``prop_valid (B, N)`` ->
-    ``(boxes (B, 1, 4), labels (B, 1), scores (B, 1), valid (B, 1))``.
+                                  score_thresh: float = 0.05, nms_thresh: float = 0.5,
+                                  detections_per_img: int = 1):
+    """Detections per image, the JAX device path: ``class_logits (B, N, C)``,
+    ``box_deltas (B, N, C, 4)``, ``proposals (B, N, 4)``, ``prop_valid (B, N)``
+    -> ``(boxes (B, D, 4), labels (B, D), scores (B, D), valid (B, D))`` for
+    ``D = detections_per_img``.
 
-    Greedy NMS never suppresses the best box, so top-1 after NMS is the argmax
-    over valid candidates (ties: lower index first). This is the JAX
-    ``detections_per_img == 1`` path; the NMS branch is Mask R-CNN's.
+    ``D == 1``: greedy NMS never suppresses the best box, so top-1 after NMS
+    is the argmax over valid candidates (ties: lower index first), without
+    NMS. Otherwise class-aware NMS over the ``N * (C - 1)`` candidates of
+    each image as one K2 call of ``B`` groups: boxes shifted by
+    ``label * (max(image_size) + 2)`` so that classes never suppress each
+    other, a stable descending sort by score (invalid candidates last), the
+    keep mask, then the top ``D`` kept scores (ties: lower index first);
+    slots past the kept ones are invalid with score 0.
     """
     B, N, C = class_logits.shape
     scores = torch.softmax(class_logits, dim=-1)
@@ -97,12 +137,31 @@ def postprocess_detections_batch(class_logits: torch.Tensor, box_deltas: torch.T
     w = fg_boxes[..., 2] - fg_boxes[..., 0]
     h = fg_boxes[..., 3] - fg_boxes[..., 1]
     fg_valid = fg_valid & (w >= 0.01) & (h >= 0.01) & (fg_scores > score_thresh)
-
     masked = torch.where(fg_valid, fg_scores, torch.full_like(fg_scores, float("-inf")))
-    top_i = torch.argmax(masked, dim=1, keepdim=True)
-    top_s = torch.gather(masked, 1, top_i)
-    out_boxes = torch.gather(fg_boxes, 1, top_i[..., None].expand(B, 1, 4))
-    out_labels = fg_labels[top_i]
+
+    if detections_per_img == 1:
+        top_i = torch.argmax(masked, dim=1, keepdim=True)
+        top_s = torch.gather(masked, 1, top_i)
+        out_boxes = torch.gather(fg_boxes, 1, top_i[..., None].expand(B, 1, 4))
+        out_labels = fg_labels[top_i]
+        out_valid = top_s > float("-inf")
+        return out_boxes, out_labels, torch.where(out_valid, top_s, torch.zeros_like(top_s)), \
+            out_valid
+
+    max_coord = float(max(image_size)) + 2.0
+    shifted = fg_boxes + (fg_labels.to(fg_boxes.dtype) * max_coord)[None, :, None]
+    order = torch.argsort(-masked, dim=1, stable=True)
+    idx4 = order[..., None].expand(B, N * (C - 1), 4)
+    s_boxes = torch.gather(shifted, 1, idx4)          # fresh, contiguous, aligned
+    s_raw = torch.gather(fg_boxes, 1, idx4)
+    s_scores = torch.gather(fg_scores, 1, order)
+    s_labels = fg_labels[order]
+    s_valid = torch.gather(fg_valid, 1, order)
+    keep = nms_keep_sorted_batch_cuda(s_boxes, s_valid, nms_thresh)   # kernel K2
+    kept = torch.where(keep, s_scores, torch.full_like(s_scores, float("-inf")))
+    top_s, top_i = _top_k(kept, detections_per_img)
+    out_boxes = torch.gather(s_raw, 1, top_i[..., None].expand(B, detections_per_img, 4))
+    out_labels = torch.gather(s_labels, 1, top_i)
     out_valid = top_s > float("-inf")
     return out_boxes, out_labels, torch.where(out_valid, top_s, torch.zeros_like(top_s)), \
         out_valid

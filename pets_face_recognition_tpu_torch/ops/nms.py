@@ -10,7 +10,7 @@ passes, for the tests. ``nms_keep_sorted`` (one group) and
 ``nms_keep_sorted_grid`` (G groups) are K5, the JAX package's other two entry
 points over the same function (``pallas_nms.py:75`` and ``:191``); they launch
 the same kernels, each with its own launch count. ``nms`` is the
-index-returning form of the JAX package.
+index-returning form of the JAX package, over the K2 wrapper.
 """
 
 from __future__ import annotations
@@ -178,7 +178,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
 
     Returns ``(indices (max_output,) int64, keep_valid (max_output,) bool)``:
     kept boxes in descending-score order (ties: lower index first), padding
-    slots index 0.
+    slots index 0. The keep mask is K2's: the kernel for CUDA tensors.
     """
     scores = scores.float()
     if valid is not None:
@@ -188,7 +188,8 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
                              torch.full_like(scores, _NEG_INF))
     order = torch.sort(-scores, stable=True).indices
     alive0 = scores[order] > _NEG_INF / 2
-    alive = nms_keep_sorted_batch(boxes[order][None], alive0[None], iou_threshold)[0]
+    alive = nms_keep_sorted_batch_cuda(boxes.float()[order][None], alive0[None],
+                                       iou_threshold)[0]
     kept = order[alive][:max_output]
     idx = torch.zeros(max_output, dtype=torch.int64, device=boxes.device)
     ok = torch.zeros(max_output, dtype=torch.bool, device=boxes.device)

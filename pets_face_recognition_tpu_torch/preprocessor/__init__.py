@@ -1,5 +1,6 @@
-"""Detect -> align inference pipeline on original photos (counterpart of the JAX
-``preprocessor/__init__.py``: ``_ModelPipeline`` and ``Preproc3``).
+"""Detect -> align or crop inference pipelines on original photos (counterpart
+of the JAX ``preprocessor/__init__.py``: ``_ModelPipeline``, ``Preproc3``,
+``Preproc4``, ``Preproc5``, ``Preproc6`` and ``PreprocCombined``).
 
 ``Preproc3.batch(images)`` letterboxes each photo to the detector's input size
 on the pipeline's device, runs the keypoint detector once over the batch (zero
@@ -13,7 +14,17 @@ host. Where the JAX package warps the photos on the host with
 ``cv2.warpPerspective``, the port warps them on the device; cv2 snaps sample
 positions to 1/32 px, K1 does not. ``__call__(img)`` keeps the reference's
 single-image contract and raises ``AssertionError`` for an image that fails.
-Everything runs in float32 with TF32 off.
+
+``Preproc4`` crops the body box of the Mask R-CNN's top detection (rounded
+to the pixel grid) from the photo on its device; with ``use_mask`` it pastes
+the detection's 28 x 28 mask at the photo's full resolution
+(``ops.masks.paste_mask``), keeps the pixels strictly above ``mask_thr``,
+multiplies the photo by them and tightens the box to the mask's extents (the
+extents alone cross to the host); an empty mask or crop drops the image.
+``Preproc6`` is the same crop from the keypoint detector's head box,
+``Preproc5`` weighs the photo by a soft mask (squared below ``mask_thr``)
+without tightening, and ``PreprocCombined`` aligns the head of the masked
+body crop. Everything runs in float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -26,10 +37,12 @@ from torch import nn
 
 from ..device import float32_matmuls, resolve_device
 from ..ops.homography import alignment_homographies, warp_perspective_batch_cuda
+from ..ops.masks import paste_mask
 from ..utils.collate import letterbox_image
 from .align import align, align_batch
 
-__all__ = ["DEFAULT_BASE_PTS", "Preproc3", "align", "align_batch"]
+__all__ = ["DEFAULT_BASE_PTS", "Preproc3", "Preproc4", "Preproc5", "Preproc6",
+           "PreprocCombined", "align", "align_batch"]
 
 # Canonical head landmarks in the 224 x 224 crop.
 DEFAULT_BASE_PTS = np.array([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]], np.float32)
@@ -41,6 +54,14 @@ def _rgb(img: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
     if t.dim() == 2:
         t = torch.stack([t] * 3, -1)
     return t[..., :3]
+
+
+def _photos(images, device: torch.device) -> list[torch.Tensor]:
+    """A list of photos, or one ``(H, W, C)`` photo, as ``(H, W, 3)`` tensors on
+    ``device``."""
+    if isinstance(images, (np.ndarray, torch.Tensor)) and images.ndim == 3:
+        images = [images]
+    return [_rgb(img, device) for img in images]
 
 
 class _ModelPipeline:
@@ -112,9 +133,7 @@ class Preproc3(_ModelPipeline):
         float32 in the photos' value range on the device, zero where invalid;
         valid (B,) bool; raw)``, ``raw`` holding the top scores, the rounded
         landmarks and the boxes in photo coordinates."""
-        if isinstance(images, (np.ndarray, torch.Tensor)) and images.ndim == 3:
-            images = [images]
-        photos = [_rgb(img, self.device) for img in images]
+        photos = _photos(images, self.device)
         out, n, scales, pads = self._detect(photos)
 
         scores = out["scores"][:, 0]
@@ -152,3 +171,173 @@ class Preproc3(_ModelPipeline):
         if self.return_for_metrics:
             return raw["keypoints"][0].astype(int)
         return aligned[0]
+
+
+class Preproc4(_ModelPipeline):
+    """Body box crop through Mask R-CNN (the production body pipeline), with
+    the mask multiplied in and the box tightened to it when ``use_mask`` (or
+    the reference's keyword ``masked``)."""
+
+    def __init__(self, model: nn.Module, thr: float = 0.9, use_mask: bool = False,
+                 mask_thr: float = 0.5, out_size: tuple[int, int] | None = None,
+                 input_size=(320, 320), return_for_metrics: bool = False,
+                 serve_batch: int | None = None, masked: bool | None = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__(model, input_size, serve_batch, device)
+        self.thr = thr
+        self.use_mask = use_mask if masked is None else masked
+        self.mask_thr = mask_thr
+        self.out_size = out_size
+        self.return_for_metrics = return_for_metrics
+
+    def _mask_extents(self, mask: np.ndarray, box: np.ndarray, img: torch.Tensor):
+        """Paste ``mask`` into ``img``'s frame, keep ``> mask_thr``; returns
+        ``(img * binary, (col0, row0, col1, row1) extents)``, or ``None`` for
+        an all-zero mask."""
+        h, w = img.shape[:2]
+        binary = paste_mask(mask, box.astype(np.float64), h, w, device=self.device) \
+            > self.mask_thr
+        cols = torch.nonzero(binary.any(0)).flatten()
+        rows = torch.nonzero(binary.any(1)).flatten()
+        ext = torch.stack([cols[:1], rows[:1], cols[-1:], rows[-1:]]).flatten() \
+            if cols.numel() else cols
+        ext = ext.cpu().tolist()
+        if not ext:
+            return None
+        return img * binary[:, :, None], ext
+
+    @torch.inference_mode()
+    @float32_matmuls()
+    def batch(self, images):
+        """Photos -> ``(crops, valid (B,) bool, raw)``: ``crops`` a list of
+        float32 ``(h, w, 3)`` tensors on the device (``None`` where invalid),
+        or with ``out_size`` one ``(B, H, W, 3)`` tensor of letterboxed crops;
+        ``raw`` the top scores, the boxes in photo coordinates (tightened
+        where the mask tightened them) and every detection's score (0 where
+        invalid)."""
+        photos = _photos(images, self.device)
+        out, _, scales, pads = self._detect(photos)
+        all_scores = out["scores"]
+        scores = all_scores[:, 0]
+        valid = out["valid"][:, 0] & (scores > self.thr)
+        boxes = (out["boxes"][:, 0] - np.tile(pads, 2)) / scales[:, None]
+        crops = []
+        for i, photo in enumerate(photos):
+            img = photo.float()
+            if not valid[i]:
+                crops.append(None)
+                continue
+            h, w = img.shape[:2]
+            bb = np.round(boxes[i]).astype(int)          # rounded before tightening
+            if self.use_mask and "masks" in out:
+                cut = self._mask_extents(out["masks"][i, 0], boxes[i], img)
+                if cut is None:
+                    valid[i] = False
+                    crops.append(None)
+                    continue
+                img, (c0, r0, c1, r1) = cut
+                bb = np.array([max(bb[0], c0), max(bb[1], r0), min(bb[2], c1 + 1),
+                               min(bb[3], r1 + 1)])
+                boxes[i] = bb
+            x1, y1 = max(int(bb[0]), 0), max(int(bb[1]), 0)
+            x2, y2 = min(int(bb[2]), w), min(int(bb[3]), h)
+            if x2 <= x1 or y2 <= y1:
+                valid[i] = False
+                crops.append(None)
+                continue
+            crops.append(img[y1:y2, x1:x2])
+        if self.out_size is not None:
+            fixed = torch.zeros((len(photos), *self.out_size, 3), dtype=torch.float32,
+                                device=self.device)
+            for i, c in enumerate(crops):
+                if c is not None:
+                    fixed[i] = letterbox_image(c, self.out_size)[0]
+            crops = fixed
+        raw = {"scores": scores, "boxes": boxes,
+               "all_scores": np.where(out["valid"], all_scores, 0.0)}
+        return crops, np.asarray(valid), raw
+
+    def __call__(self, img):
+        crops, valid, raw = self.batch([img])
+        if not valid[0]:
+            raise AssertionError(f"{type(self).__name__}: low detection score")
+        if self.return_for_metrics:
+            return np.round(raw["boxes"][0]).astype(int), raw["all_scores"][0]
+        return crops[0]
+
+
+class Preproc6(Preproc4):
+    """Head box crop without alignment, from the keypoint detector's box."""
+
+    def __init__(self, model: nn.Module, thr: float = 0.9, out_size=None,
+                 input_size=(320, 320), return_for_metrics: bool = False,
+                 serve_batch: int | None = None, device: str | torch.device = "cuda"):
+        super().__init__(model, thr=thr, use_mask=False, out_size=out_size,
+                         input_size=input_size, return_for_metrics=return_for_metrics,
+                         serve_batch=serve_batch, device=device)
+
+
+class Preproc5(_ModelPipeline):
+    """Soft-mask body crop: mask probabilities below ``mask_thr`` squared,
+    those above it 1; the weighted photo cropped to the rounded top box, not
+    tightened."""
+
+    def __init__(self, model: nn.Module, thr: float = 0.9, mask_thr: float = 0.5,
+                 input_size=(320, 320), serve_batch: int | None = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__(model, input_size, serve_batch, device)
+        self.thr = thr
+        self.mask_thr = mask_thr
+
+    @torch.inference_mode()
+    @float32_matmuls()
+    def batch(self, images):
+        photos = _photos(images, self.device)
+        out, _, scales, pads = self._detect(photos)
+        scores = out["scores"][:, 0]
+        valid = out["valid"][:, 0] & (scores > self.thr)
+        boxes = (out["boxes"][:, 0] - np.tile(pads, 2)) / scales[:, None]
+        crops = []
+        for i, photo in enumerate(photos):
+            img = photo.float()
+            if not valid[i]:
+                crops.append(None)
+                continue
+            h, w = img.shape[:2]
+            x1, y1, x2, y2 = np.round(boxes[i]).astype(int)
+            x1, y1, x2, y2 = max(x1, 0), max(y1, 0), min(x2, w), min(y2, h)
+            if x2 <= x1 or y2 <= y1:
+                valid[i] = False
+                crops.append(None)
+                continue
+            full = paste_mask(out["masks"][i, 0], boxes[i].astype(np.float64), h, w,
+                              device=self.device)
+            soft = torch.where(full < self.mask_thr, full ** 2, torch.ones_like(full))
+            crops.append((img * soft[..., None])[y1:y2, x1:x2])
+        return crops, np.asarray(valid), {"scores": scores, "boxes": boxes}
+
+    def __call__(self, img):
+        crops, valid, _ = self.batch([img])
+        if not valid[0]:
+            raise AssertionError("Preproc5: low detection score")
+        return crops[0].clamp(0, 255).to(torch.uint8)
+
+
+class PreprocCombined:
+    """Mask, then landmarks: the head aligned from the masked body crop."""
+
+    def __init__(self, keypoint_pipeline: Preproc3, mask_pipeline: Preproc4):
+        self.keypoint_pipeline = keypoint_pipeline
+        self.mask_pipeline = mask_pipeline
+
+    def __call__(self, img):
+        return self.keypoint_pipeline(self.mask_pipeline(img))
+
+    def batch(self, images):
+        """Each photo's body crop (the photo itself where that fails) through
+        the keypoint pipeline; valid where both pipelines kept it."""
+        photos = _photos(images, self.mask_pipeline.device)
+        crops, valid, _ = self.mask_pipeline.batch(photos)
+        usable = [c if v and c is not None else p for c, v, p in zip(crops, valid, photos)]
+        aligned, valid2, raw = self.keypoint_pipeline.batch(usable)
+        return aligned, np.asarray(valid) & np.asarray(valid2), raw

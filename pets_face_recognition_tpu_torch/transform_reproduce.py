@@ -1,10 +1,16 @@
-"""Write the aligned head corpora (counterpart of the JAX
-``transform_reproduce.py``, its head route): every photo of ``data_25`` (dogs
-and cats) and of the petfinder extras goes through ``Preproc3`` (letterbox,
-the keypoint R-CNN with kernels K2 and K3, the landmarks' homography, the K1
-warp to 224 x 224) into ``data_25_transformed_v6_{dogs,cats}`` and
+"""Write the aligned head corpora and the masked body corpora (counterpart of
+the JAX ``transform_reproduce.py``). The head route (``aligned``): every photo
+of ``data_25`` (dogs and cats) and of the petfinder extras goes through
+``Preproc3`` (letterbox, the keypoint R-CNN with kernels K2 and K3, the
+landmarks' homography, the K1 warp to 224 x 224) into
+``data_25_transformed_v6_{dogs,cats}`` and
 ``petfinder_extra_{dogs,cats}_transformed_v6``, the feature extractor's
-training data.
+training data. The body route (``masked``): the same photos through
+``Preproc4(use_mask=True, mask_thr=0.7)`` (Mask R-CNN with K2 in the RPN and
+the box NMS and K3 at 7 x 7 and 14 x 14, the top detection's mask pasted at
+the photo's resolution, the photo multiplied by it, the box tightened to it)
+into ``data_25_transformed_v4_masked_{dogs,cats}`` and
+``petfinder_extra_{dogs,cats}_transformed_v4_masked``.
 
 As the JAX script: the same folder walks and hand-made exclusion lists, a
 photo that does not decode or has no head skipped silently, an output that
@@ -15,12 +21,11 @@ JPEG quality 75 with 4:2:0 chroma through the port's encoder (libjpeg, or
 nvJPEG on a host without it), a ``.png`` through :mod:`.native.png`.
 
     python -m pets_face_recognition_tpu_torch.transform_reproduce \\
-        --data-root ../pets_datasets [--stages aligned] [--device cpu]
+        --data-root ../pets_datasets [--stages aligned,masked] [--device cpu]
 
-The detector is :func:`pipelines.keypoint_detector`'s (``PFR_KEYPOINT_CKPT``,
-else seeded random weights), at ``Preproc3``'s detection threshold 0.9, as
-the reference's. The masked route (``--stages masked``, Mask R-CNN) is not
-ported and raises.
+The detectors are :func:`pipelines.keypoint_detector`'s (``PFR_KEYPOINT_CKPT``)
+and :func:`pipelines.mask_detector`'s (``PFR_MASK_CKPT``), else seeded random
+weights, at the pipelines' detection threshold 0.9, as the reference's.
 """
 
 from __future__ import annotations
@@ -35,10 +40,12 @@ import numpy as np
 from .data_loading import RecDataset
 from .device import resolve_device
 from .native import png, read_rgb, write_jpeg
-from .pipelines import keypoint_detector
-from .preprocessor import DEFAULT_BASE_PTS, Preproc3
+from .pipelines import keypoint_detector, mask_detector
+from .preprocessor import DEFAULT_BASE_PTS, Preproc3, Preproc4
 
 V = "v6"
+V_MASKED = "v4_masked"
+MASK_THR = 0.7
 BASE_PTS = DEFAULT_BASE_PTS
 
 # bad images the reference excludes by hand (transform_reproduce.py:58-105)
@@ -127,32 +134,34 @@ def _save(processed: np.ndarray, rel_path: Path) -> Path:
     return rel_path
 
 
-def data_25(preprocessor, type_: int = 1, data_root: Path | None = None) -> list[Path]:
+def data_25(preprocessor, type_: int = 1, data_root: Path | None = None,
+            version: str = V) -> list[Path]:
     """``data_25`` cards of ``type_`` (1 dogs, 2 cats), less the exclusion
     list and the images that do not decode, into
-    ``data_25_transformed_v6_{dogs,cats}``."""
+    ``data_25_transformed_{version}_{dogs,cats}``."""
     assert type_ in (1, 2)
     root = Path(data_root or DATA_ROOT)
     exclude = [(root / p).resolve() for p in DATA_25_EXCLUDE]
     ds = RecDataset(root / "data_25", type_, 1, paths_to_exclude=exclude)
     paths = [ds.index_to_path[i] for i in range(len(ds))]
     return transform_dataset(root / "data_25", preprocessor,
-                             root / f"data_25_transformed_{V}_{'dog' if type_ == 1 else 'cat'}s",
+                             root / f"data_25_transformed_{version}_"
+                             f"{'dog' if type_ == 1 else 'cat'}s",
                              paths)
 
 
-def extra_petfinder(preprocessor, tag: str = "dog", data_root: Path | None = None
-                    ) -> list[Path]:
+def extra_petfinder(preprocessor, tag: str = "dog", data_root: Path | None = None,
+                    version: str = V) -> list[Path]:
     """``petfinder_extra_{dogs,cats}`` less their exclusions into
-    ``petfinder_extra_{dogs,cats}_transformed_v6``."""
+    ``petfinder_extra_{dogs,cats}_transformed_{version}``."""
     root = Path(data_root or DATA_ROOT)
     if tag == "dog":
-        out = root / f"petfinder_extra_dogs_transformed_{V}"
+        out = root / f"petfinder_extra_dogs_transformed_{version}"
         src = root / "petfinder_extra_dogs"
         exclude = (list((src / "48683845").iterdir()) + list((src / "45528036").iterdir())
                    + [src / "48009947" / "3.png"])
     else:
-        out = root / f"petfinder_extra_cats_transformed_{V}"
+        out = root / f"petfinder_extra_cats_transformed_{version}"
         src = root / "petfinder_extra_cats"
         exclude = [src / "24355557" / "4.png"]
     exclude = {p.resolve() for p in exclude}
@@ -161,11 +170,18 @@ def extra_petfinder(preprocessor, tag: str = "dog", data_root: Path | None = Non
     return transform_dataset(src, preprocessor, output_root=out, paths=paths)
 
 
-def aligned(preprocessor, data_root: Path | None = None) -> list[Path]:
+def aligned(preprocessor, data_root: Path | None = None, version: str = V) -> list[Path]:
     """The head route: dog extras, data_25 dogs and cats, cat extras."""
-    return (extra_petfinder(preprocessor, "dog", data_root)
-            + data_25(preprocessor, 1, data_root) + data_25(preprocessor, 2, data_root)
-            + extra_petfinder(preprocessor, "cat", data_root))
+    return (extra_petfinder(preprocessor, "dog", data_root, version)
+            + data_25(preprocessor, 1, data_root, version)
+            + data_25(preprocessor, 2, data_root, version)
+            + extra_petfinder(preprocessor, "cat", data_root, version))
+
+
+def masked(preprocessor, data_root: Path | None = None) -> list[Path]:
+    """The body route: the head route's walks into the ``v4_masked`` corpora,
+    ``preprocessor`` a ``Preproc4(use_mask=True, mask_thr=0.7)``."""
+    return aligned(preprocessor, data_root, V_MASKED)
 
 
 def main(argv=None) -> list[Path]:
@@ -173,19 +189,23 @@ def main(argv=None) -> list[Path]:
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--data-root", type=Path, default=DATA_ROOT,
                         help="datasets root (default ../pets_datasets, env PFR_DATA_ROOT)")
-    parser.add_argument("--stages", default="aligned",
-                        help="comma list of {aligned,masked}; masked is not ported")
+    parser.add_argument("--stages", default="aligned,masked",
+                        help="comma list of {aligned,masked} passes to run")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     stages = set(args.stages.split(","))
-    if "masked" in stages:
-        raise NotImplementedError("the masked route needs Mask R-CNN, not ported yet")
+    if not stages <= {"aligned", "masked"}:
+        raise ValueError(f"--stages {args.stages}: a comma list of aligned, masked")
     dev = resolve_device(args.device)
     written = []
     if "aligned" in stages:
         pre3 = Preproc3(keypoint_detector(dev), base_pts=BASE_PTS,
                         dsize=(224, 224, 3), serve_batch=args.batch_size, device=dev)
-        written = aligned(pre3, args.data_root)
+        written += aligned(pre3, args.data_root)
+    if "masked" in stages:
+        pre4 = Preproc4(mask_detector(dev), use_mask=True, mask_thr=MASK_THR,
+                        serve_batch=args.batch_size, device=dev)
+        written += masked(pre4, args.data_root)
     print(f"wrote {len(written)} crops")
     return written
 

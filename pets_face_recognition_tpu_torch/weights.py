@@ -207,9 +207,22 @@ def keypoint_heads_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     return sd
 
 
+def mask_heads_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """flax ``MaskHead`` -> ``mask_head.mask_fcn{1..4}`` and
+    ``mask_predictor.{conv5_mask,mask_fcn_logits}``; ``conv5_mask`` is a
+    ``transpose_kernel=True`` deconv, carried over by :func:`_deconv`."""
+    sd: dict[str, np.ndarray] = {}
+    for i in range(1, 5):
+        _conv_pair(sd, f"mask_head.mask_fcn{i}", params[f"mask_fcn{i}"])
+    sd["mask_predictor.conv5_mask.weight"] = _deconv(params["conv5_mask"]["kernel"])
+    sd["mask_predictor.conv5_mask.bias"] = np.asarray(params["conv5_mask"]["bias"])
+    _conv_pair(sd, "mask_predictor.mask_fcn_logits", params["mask_fcn_logits"])
+    return sd
+
+
 def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
-    """flax ``GeneralizedRCNN`` variables -> torchvision keypoint R-CNN keys in
-    the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``);
+    """flax ``GeneralizedRCNN`` variables -> torchvision keypoint or Mask R-CNN
+    keys in the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``);
     a MobileNetV3 trunk (the tree has ``stem``) takes the port's MobileNetV3
     keys. Without ``batch_stats`` the result holds the trainable parameters
     only; with them, live-BN and frozen MobileNetV3 detectors load it alike."""
@@ -222,6 +235,8 @@ def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
     sd.update(_prefixed("rpn.head.", rpn_head_state_dict(p["rpn"])))
     sd.update(_prefixed("roi_heads.", box_heads_state_dict(p["box_head"],
                                                            p["box_predictor"])))
+    if "mask_head" in p:
+        sd.update(_prefixed("roi_heads.", mask_heads_state_dict(p["mask_head"])))
     if "keypoint_head" in p:
         sd.update(_prefixed("roi_heads.", keypoint_heads_state_dict(p["keypoint_head"])))
     return sd
@@ -229,20 +244,23 @@ def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
 
 _TV_NESTED = ((re.compile(r"^backbone\.fpn\.(inner|layer)_blocks\.(\d+)\.0\."),
                r"backbone.fpn.\1_blocks.\2."),
-              (re.compile(r"^rpn\.head\.conv\.0\.0\."), "rpn.head.conv."))
+              (re.compile(r"^rpn\.head\.conv\.0\.0\."), "rpn.head.conv."),
+              (re.compile(r"^roi_heads\.mask_head\.(\d+)\.0\."),
+               lambda m: f"roi_heads.mask_head.mask_fcn{int(m.group(1)) + 1}."))
 
 
 def torchvision_keypoint_state_dict(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """A torchvision ``keypointrcnn_resnet50_fpn`` ``state_dict`` (numpy
-    arrays) -> the port's keypoint R-CNN keys and layouts.
+    """A torchvision ``keypointrcnn_resnet50_fpn`` or ``maskrcnn_resnet50_fpn``
+    ``state_dict`` (numpy arrays) -> the port's keys and layouts.
 
     The port's box head flattens the NHWC pooled block in ``(h, w, c)``
     order, as the JAX ``TwoMLPHead`` does; torchvision's ``fc6`` takes NCHW
     ``(c, h, w)`` columns. So ``roi_heads.box_head.fc6.weight``'s columns are
     permuted ``(c, h, w) -> (h, w, c)``: loaded as is, they would feed the
     head permuted inputs. The nested FPN and RPN names of torchvision >= 0.13
-    (``inner_blocks.0.0.weight``, ``rpn.head.conv.0.0.weight``) become the
-    flat ones; ``num_batches_tracked`` counters are dropped (the port's
+    (``inner_blocks.0.0.weight``, ``rpn.head.conv.0.0.weight``,
+    ``mask_head.{i-1}.0.weight``) become the flat ones (``mask_fcn{i}``);
+    ``num_batches_tracked`` counters are dropped (the port's
     detection norms keep none). Every other tensor is copied unchanged.
     """
     out: dict[str, np.ndarray] = {}
@@ -260,6 +278,10 @@ def torchvision_keypoint_state_dict(sd: Mapping[str, np.ndarray]) -> dict[str, n
     out["roi_heads.box_head.fc6.weight"] = np.ascontiguousarray(
         w.reshape(n_out, c, 7, 7).transpose(0, 2, 3, 1).reshape(n_out, n_in))
     return out
+
+
+# the Mask R-CNN reader is the same function: the mask head's names are its own
+torchvision_maskrcnn_state_dict = torchvision_keypoint_state_dict
 
 
 def to_tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:

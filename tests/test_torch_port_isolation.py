@@ -51,7 +51,7 @@ def test_importing_the_port_loads_no_jax():
         "engine.checkpoint", "config_presets", "main", "main_keypoints", "eval_landmark",
         "losses.losses", "losses.large_margin", "engine.metrics", "engine.controller",
         "data_loading.pairs", "native.png", "utils.preprocs", "smoke_data", "eval_fe",
-        "transform_reproduce", "transform_dataset")]
+        "transform_reproduce", "transform_dataset", "ops.masks", "prepare_tables")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -119,6 +119,25 @@ def test_fe_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         transform_dataset.main(["--input", str(REPO), "--output", str(REPO)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transform_reproduce.main(["--data-root", str(REPO)])
+
+
+def test_mask_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """Mask R-CNN's entry points and pipelines, as those above."""
+    from pets_face_recognition_tpu_torch import pipelines, prepare_tables, transform_dataset
+    from pets_face_recognition_tpu_torch.preprocessor import (Preproc4, Preproc5, Preproc6)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: pipelines.mask_detector(),
+                 lambda: build_retrieval_models(body=True),
+                 lambda: pipelines.build_body_pipeline(*(torch.nn.Identity(),) * 3),
+                 lambda: Preproc4(torch.nn.Identity()), lambda: Preproc5(torch.nn.Identity()),
+                 lambda: Preproc6(torch.nn.Identity()),
+                 lambda: prepare_tables.main(["--data", str(REPO)]),
+                 lambda: generate_tsv.main(["--data", str(REPO), "--body"]),
+                 lambda: transform_dataset.main(["--input", str(REPO), "--output", str(REPO),
+                                                 "--pipeline", "body"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_kernel_build_is_one_nvcc_call_over_the_port_sources():
