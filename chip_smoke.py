@@ -178,13 +178,47 @@ against libjpeg), ``prepare_tables`` on both (rows, landmarks and boxes
 byte for byte, scores within 1e-5) and ``transform_reproduce``'s masked route
 on the card, each with its launch counts and photos/s.
 
+Then Mask R-CNN's training, under the git-ignored ``smoke_out/mask_train``
+(deleted after it), from the port's Oxford-IIIT Pet miniature
+(``smoke_data.make_oxford``, 40 photos of 320 x 320 with trimaps). mask_train:
+the mask config's full-width model (``build_mask_config``: RPN 2000/2000, 512
+box samples an image at 25% positive, 128 mask positives an image) on one
+batch of B = 8 letterboxed with its masks to 640 x 640 by
+``DetectionCollate(with_masks=True)``: a warm-up and 5 timed steps (median
+and range in ms, peak GiB), the launches by call site (K2 once a step in the
+RPN; K3, K4 and K4's pre-pass each once on the 7 x 7 box RoIs and once on the
+14 x 14 mask positives), ``loss_mask`` of the first step within 0.2 of
+ln 2, and K4 on the step's own mask-branch gradient against its plain
+version (the kernels line's ``_masktrain`` row; two launches bit-equal).
+mask_train_vs_cpu: one reduced step (B = 2, 256 x 256, budgets 256/128/16)
+on the card and on the CPU from the same weights and sampler noise: each
+loss term within 1e-3 relative, the mask head's gradients within 5e-3
+relative in norm, the gradients that are 0 by construction (the background
+class's mask logits and box deltas) within 1e-5, and every other gradient
+within 5e-3 at the median and at the worst within 5e-3 more than the
+card's own largest move under 1e-7 input rounding (flat image regions flip
+trunk ReLUs at the last bit). mask_fit:
+``python -m pets_face_recognition_tpu_torch.main_detection --config
+pets_face_recognition_tpu_torch/configs/mask_smoke.py`` for 1 epoch in a
+subprocess (exit 0, one ``epoch=0-step=8`` checkpoint), a restore of the
+checkpoint bit-equal to the file, and ``eval_detection`` on it on the card
+and on the CPU: AP 50/70/90, Mean/Median IoU and ``Masks Mean IoU`` within
+1e-3, the 28 x 28 mask probabilities and the pasted masks within 1e-4, a
+mask pixel on either side of 0.5 allowed only inside a 1e-4 band about it
+(counted), the device paste 1e-6 from the CPU's on the card's own masks and
+boxes; the same on the fit's initial weights, which must give detections
+(one smoke epoch can teach random weights to find none), their masks held
+in the card's boxes (random boxes are slivers a fraction of a pixel high,
+where the boxes' float32 rounding moves the paste's rows).
+
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
-R-CNN's shapes, ``_mask``; ``max_abs_err`` is each
+R-CNN's shapes, ``_mask``, and K4 on Mask R-CNN's training gradient,
+``_masktrain``; ``max_abs_err`` is each
 row's largest absolute difference from its plain version on the card, 0 or 1
 for a keep mask, an integer for the pre-pass; ``launches`` sums every path's
 counts, the ``_mobile`` rows the mobile paths' alone, the ``_mask`` rows the
-Mask R-CNN paths'), the ``nvidia-smi`` line, and last
+Mask R-CNN paths', the ``_masktrain`` row mask_train's), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``, printed only if every phase passed. The
 script leaves torch's TF32 defaults as they are: the entry points
 (``embed_batch``, ``train_step``) turn TF32 off inside themselves, a forward
@@ -1922,14 +1956,14 @@ def state_snapshot(state) -> dict:
             "step": state.step}
 
 
-def predictions(config, ckpt: Path, device) -> tuple[object, list[dict]]:
+def predictions(config, ckpt: Path, device, controller_cls=None) -> tuple[object, list[dict]]:
     """The checkpoint's detections over the validation loader on ``device``,
-    and the controller that made them."""
+    and the controller (by default the keypoint one) that made them."""
     from pets_face_recognition_tpu_torch.engine.checkpoint import load_params, merge_params
     from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
     from pets_face_recognition_tpu_torch.engine.trainer import Trainer
 
-    ctl = KeyPointsController(config=config)
+    ctl = (controller_cls or KeyPointsController)(config=config)
     state = ctl.init_state(0, device)
     merge_params(state.model, load_params(ckpt, device))
     outputs = Trainer(config, enable_checkpointing=False, device=device).predict(ctl, state)
@@ -2809,7 +2843,7 @@ def fe_phases(dev, kernels_mod, smi: str) -> dict[str, dict]:
 MASK_OUT = REPO / "smoke_out" / "mask"      # git-ignored; deleted after the phases
 # the Mask R-CNN paths: their launches make the kernels line's "_mask" rows
 MASK_PATHS = ("mask_serve", "body_tsv", "masked_transform", "masked_reproduce",
-              "prepare_tables")
+              "prepare_tables", "mask_train", "mask_eval")
 MASK_GATES = dict(box_rel_to_side=1e-4, score_abs=1e-5, mask_abs=1e-4, k3_abs=1e-4,
                   crop_abs_01=1e-3, table_score_abs=1e-5, threshold_band=1e-4)
 MASK_TRANSFORM_BATCH = 8
@@ -3359,6 +3393,488 @@ def mask_phases(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
     return paths, rows
 
 
+MASK_TRAIN_OUT = REPO / "smoke_out" / "mask_train"   # git-ignored; deleted after the phases
+B_MASK = 8                                          # mask config: train_batch_size
+MASK_BOXES = 4                                      # mask config: max_boxes
+MASK_STEPS = 6                                      # one warm-up and five timed
+# each step: K2 once (the RPN), K3, K4 and its pre-pass once at each RoI size
+MASK_STEP_SITES = {"nms_keep_sorted_batch": 1, "multilevel_roi_align 7x7": 1,
+                   "multilevel_roi_align 14x14": 1, "multilevel_roi_align_backward 7x7": 1,
+                   "multilevel_roi_align_backward 14x14": 1, "roi_footprints 7x7": 1,
+                   "roi_footprints 14x14": 1}
+MASK_FIT_GATES = dict(metric=1e-3, mask_abs=1e-4, threshold_band=1e-4, score_abs=1e-3,
+                      box_rel_to_side=1e-3, paste_abs=1e-6)
+# the background class's rows: the mask loss reads the target class's logits
+# and the box loss the target class's deltas, and every positive is class 1,
+# so these gradients are 0 exactly
+MASK_ZERO_ROWS = (("roi_heads.mask_predictor.mask_fcn_logits.weight", slice(0, 1)),
+                  ("roi_heads.mask_predictor.mask_fcn_logits.bias", slice(0, 1)),
+                  ("roi_heads.box_predictor.bbox_pred.weight", slice(0, 4)),
+                  ("roi_heads.box_predictor.bbox_pred.bias", slice(0, 4)))
+
+
+def oxford_miniature() -> Path:
+    """The port's Oxford-IIIT Pet miniature under ``MASK_TRAIN_OUT``."""
+    from pets_face_recognition_tpu_torch.smoke_data import make_oxford
+
+    root = MASK_TRAIN_OUT / "oxford"
+    if not (root / "oxford-iiit-pet").exists():
+        make_oxford(root)
+    return root
+
+
+def mask_batch(B: int, image: int) -> dict:
+    """The first batch of the mask config's training loader over the
+    miniature: B photos and their trimap masks letterboxed to image x image."""
+    from pets_face_recognition_tpu_torch.config_presets import build_mask_config
+
+    cfg = build_mask_config(data_root=str(oxford_miniature()), train_batch_size=B,
+                            image_size=(image, image), max_boxes=MASK_BOXES, num_workers=8,
+                            output=str(MASK_TRAIN_OUT / "out"))
+    batch = next(iter(cfg["train_dataloader"]()))
+    m = batch["masks"]
+    if m.shape != (B, MASK_BOXES, image, image) or not batch["valid"][:, 0].all() or not (
+            m[:, 0].reshape(B, -1).max(axis=1) == 1.0).all() or m.min() < 0 or m.max() > 1:
+        raise AssertionError(f"mask batch: {m.shape}, valid {batch['valid'].tolist()}")
+    return batch
+
+
+@contextlib.contextmanager
+def mask_train_sites(kernels_mod):
+    """K3's, K4's and the pre-pass's launches by output size while the block
+    runs, and a copy of the arguments of the first 14 x 14 K4 launch (the
+    mask branch's). Yields ``(sites, k4_args)``."""
+    import collections
+
+    import torch
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    sites, k4_args = collections.Counter(), []
+    wrapped = (("multilevel_roi_align_cuda", "multilevel_roi_align", 3),
+               ("multilevel_roi_align_backward_cuda", "multilevel_roi_align_backward", 4),
+               ("roi_footprints_cuda", "roi_footprints", 4))
+    saved = {fn: getattr(roi_align, fn) for fn, _, _ in wrapped}
+
+    def site(fn_name, kernel, pos):
+        orig = saved[fn_name]
+
+        def call(*args, **kw):
+            size = tuple(args[pos] if len(args) > pos else kw["output_size"])
+            before = kernels_mod.launch_counts()[kernel]
+            out = orig(*args, **kw)
+            sites[f"{kernel} {size[0]}x{size[1]}"] += kernels_mod.launch_counts()[kernel] - before
+            if (kernel == "multilevel_roi_align_backward" and size == (14, 14) and not k4_args
+                    and args[0].is_cuda):
+                k4_args.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return out
+        return call
+
+    for fn_name, kernel, pos in wrapped:
+        setattr(roi_align, fn_name, site(fn_name, kernel, pos))
+    try:
+        yield sites, k4_args
+    finally:
+        for fn_name, fn in saved.items():
+            setattr(roi_align, fn_name, fn)
+
+
+def mask_train_phase(dev, kernels_mod, smi: str) -> tuple[dict, tuple]:
+    """Phase mask_train: full-width training steps of the mask config's model
+    on one batch of the miniature at B = 8 x 640 x 640. Returns the path's
+    launch counts and the arguments of the mask branch's K4 launch."""
+    import torch
+    from pets_face_recognition_tpu_torch.engine.detector_controller import DetectionController
+
+    batch = mask_batch(B_MASK, IMAGE_TRAIN)
+    ctl = DetectionController()
+    state = ctl.init_state(seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launch_counts()
+    steps = []
+    with mask_train_sites(kernels_mod) as (sites, k4_args), tf32_watch(state.model) as flags:
+        for _ in range(MASK_STEPS):
+            t = time.perf_counter()
+            metrics = ctl.train_step(state, batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t, metrics))
+    launches = kernels_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = [t * 1e3 for t, _ in steps[1:]]
+    by_site = dict(sites, nms_keep_sorted_batch=launches["nms_keep_sorted_batch"])
+    first_mask = steps[0][1]["loss_mask"]
+    emit("mask_train", card=smi, batch=B_MASK, image=IMAGE_TRAIN, max_boxes=MASK_BOXES,
+         masks_shape=list(batch["masks"].shape), steps=len(steps), warmup_steps=1,
+         step_ms=statistics.median(timed), step_ms_min=min(timed), step_ms_max=max(timed),
+         step_ms_all=[t * 1e3 for t, _ in steps], images_per_s=B_MASK * 1e3 / statistics.median(timed),
+         peak_mem_gib=peak, losses=[m for _, m in steps], launches=launches,
+         launches_by_site=by_site, first_loss_mask=first_mask, ln2=math.log(2),
+         precision="float32: TF32 off inside train_step", tf32_flags=flags)
+    bad = [i for i, (_, m) in enumerate(steps) if not all(math.isfinite(v) for v in m.values())]
+    if bad:
+        raise AssertionError(f"non-finite losses at steps {bad}")
+    if not abs(first_mask - math.log(2)) <= 0.2:
+        raise AssertionError(f"first loss_mask {first_mask} is not within 0.2 of ln 2")
+    want = {k: n * len(steps) for k, n in MASK_STEP_SITES.items()}
+    if {k: by_site.get(k, 0) for k in want} != want or sum(by_site.values()) != sum(
+            want.values()):
+        raise AssertionError(f"launches by call site {by_site}, expected {want}")
+    del state
+    torch.cuda.empty_cache()
+    return launches, k4_args[0]
+
+
+def masktrain_k4_row(dev, args: tuple) -> dict:
+    """K4 on the mask branch's own backward: its dense 14 x 14 gradient of
+    B x 128 positives onto the 4 levels of the B x 640 x 640 pyramid, against
+    its plain version on the same inputs, two launches compared bitwise,
+    timed beside its bound."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    grad, shapes, rois, bidx = args[:4]
+    out = tuple(args[4])
+    got = roi_align.multilevel_roi_align_backward_cuda(*args)
+    again = roi_align.multilevel_roi_align_backward_cuda(*args)
+    want = roi_align.multilevel_roi_align_backward(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(a, w) for a, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    bit_diff = sum(int((a != r).sum()) for a, r in zip(got, again))
+    del got, again, want
+    # float32 sums of a few hundred contributions in another order than the
+    # plain version's: 1e-4 of the largest gradient element
+    tol = 1e-4 * scale
+    ms = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*args), iters=10)
+    plain = cuda_ms(lambda: roi_align.multilevel_roi_align_backward(*args), warmup=1, iters=3)
+    us = kernel_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*args),
+                   "multilevel_roi_align_backward_kernel", iters=5)
+    n, C = rois.shape[0], grad.shape[-1]
+    level_bytes = sum(math.prod(sh) for sh in shapes) * 4
+    n_bytes = grad.numel() * 4 + rois.numel() * 4 + bidx.numel() * 4 + level_bytes
+    n_flops = n * out[0] * out[1] * C * (8 * 4 + 1)
+    b, by = bound_ms(n_bytes, n_flops)
+    nonzero = int((grad.reshape(n, -1).abs().amax(dim=1) > 0).sum())
+    emit("kernel", name="K4 multilevel_roi_align_backward 14x14 mask train", rois=n,
+         rois_with_gradient=nonzero, levels=[list(sh) for sh in shapes], max_abs_err=err,
+         atol=tol, grad_max_abs=scale, second_launch_bits_differ=bit_diff, ms=ms,
+         kernel_device_us=us, plain_ms=plain, library_ms=None,
+         library="none (no torchvision)", bound_ms=b, bound_by=by)
+    if not err <= tol:
+        raise AssertionError(f"K4 on the mask branch disagrees with its plain version: "
+                             f"{err} > {tol}")
+    if bit_diff:
+        raise AssertionError(f"K4 on the mask branch: two launches differ in {bit_diff}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+
+def mask_train_vs_cpu_phase(dev) -> None:
+    """Phase mask_train_vs_cpu: one reduced Mask R-CNN step (B = 2 photos of
+    the miniature at 256 x 256, budgets 256/128/16) on the card and on the
+    CPU, same weights and sampler noise: each loss term within 1e-3
+    relative; the mask head's gradients within 5e-3 relative in norm; the
+    background rows' gradients, 0 by construction, within 1e-5; every other
+    gradient within 5e-3 at the median tensor, and at the worst within 5e-3
+    more than the card's own step moves when its input images are rounded
+    differently (1e-7 relative, the largest of three draws): the photos'
+    flat blobs give the trunk whole regions of equal pre-activations, and
+    one that sits within rounding of 0 flips its ReLU over the region, in
+    float32 on either device (one draw flips the same one as the CPU and
+    moves ``layer2.3.conv1.weight`` by 9.70e-3, as card against CPU)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.engine.detector_controller import DetectionController
+    from pets_face_recognition_tpu_torch.models.rcnn import maskrcnn_resnet50_fpn
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    B, image = 2, 256
+    budgets = dict(rpn_pre_nms_top_n_train=256, rpn_post_nms_top_n_train=128,
+                   box_batch_size_per_image=16)
+    cpu_model = init_random_(maskrcnn_resnet50_fpn(**budgets), 1)
+    batch = mask_batch(B, image)
+    n_anchors = 3 * sum((image // st) ** 2 for st in (4, 8, 16, 32, 64))
+    noise = cpu_model.draw_sampler_noise(B, n_anchors, MASK_BOXES,
+                                         torch.Generator().manual_seed(1))
+    runs = [("gpu", copy.deepcopy(cpu_model), dev, batch)]
+    for s in (1, 2, 3):
+        jitter = 1 + np.random.RandomState(s).randn(*batch["images"].shape) * 1e-7
+        runs.append((f"gpu_rounded_{s}", copy.deepcopy(cpu_model), dev,
+                     dict(batch, images=(batch["images"] * jitter).astype(np.float32))))
+    runs.append(("cpu", cpu_model, "cpu", batch))
+    ctl = DetectionController()
+    out = {}
+    for name, model, device, b in runs:
+        state = ctl.init_state(0, device, model=model)
+        t = time.perf_counter()
+        losses = ctl.train_step(state, b, sampler_noise=noise)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[name] = (losses, {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     time.perf_counter() - t)
+    (l_gpu, g_gpu, t_gpu), (l_cpu, g_cpu, t_cpu) = out["gpu"], out["cpu"]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    loss_rel = {k: abs(l_gpu[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu}
+    zero_abs = max(max(float(g_gpu[n][rows].abs().max()), float(g_cpu[n][rows].abs().max()))
+                   for n, rows in MASK_ZERO_ROWS)
+    grad_rel = {n: rel(g_gpu[n], g_cpu[n]) for n in g_cpu}
+    head = {n: v for n, v in grad_rel.items() if ".mask_" in n}
+    names = [n for n in g_cpu if n not in head]
+    spreads = [[rel(out[f"gpu_rounded_{s}"][1][n], g_gpu[n]) for n in names] for s in (1, 2, 3)]
+    # a ReLU flipped at the last bit moves some tensors by what the card's
+    # own rounding moves them; the rest of the comparison is held at 5e-3
+    # (a wrong gradient is off by far more)
+    worst_bound = 5e-3 + max(max(x) for x in spreads)
+    median_bound = 5e-3
+    worst = max(names, key=grad_rel.get)
+    grad_median = statistics.median(grad_rel[n] for n in names)
+    head_worst = max(head, key=head.get)
+    emit("mask_train_vs_cpu", batch=B, image=image, budgets=budgets, losses_gpu=l_gpu,
+         losses_cpu=l_cpu, loss_rel_err=loss_rel, grad_rel_err_max=grad_rel[worst],
+         grad_rel_err_worst=worst, grad_rel_err_median=grad_median,
+         grad_rel_err_mask_head=head, card_rounding_spread={
+             "worst": [max(x) for x in spreads], "worst_tensor": [
+                 names[int(np.argmax(x))] for x in spreads],
+             "median": [statistics.median(x) for x in spreads]},
+         grad_bounds={"worst": worst_bound, "median": median_bound, "mask_head": 5e-3},
+         zero_by_construction_abs=zero_abs,
+         zero_by_construction=[f"{n}[{r.start}:{r.stop}]" for n, r in MASK_ZERO_ROWS],
+         grad_tensors=len(grad_rel), step_s_gpu=t_gpu, step_s_cpu=t_cpu,
+         tolerances=dict(loss_rel=1e-3, grad_rel_norm=5e-3, zero_by_construction_abs=1e-5))
+    if sorted(l_cpu) != sorted(l_gpu) or "loss_mask" not in l_cpu:
+        raise AssertionError(f"loss terms: {sorted(l_gpu)} against {sorted(l_cpu)}")
+    bad = {k: v for k, v in loss_rel.items() if not v <= 1e-3}
+    if bad:
+        raise AssertionError(f"losses differ from the CPU step: {bad}")
+    if not head[head_worst] <= 5e-3:
+        raise AssertionError(f"mask head gradient {head_worst} differs from the CPU step: "
+                             f"{head[head_worst]}")
+    if not (grad_rel[worst] <= worst_bound and grad_median <= median_bound):
+        raise AssertionError(f"gradient {worst} differs from the CPU step: {grad_rel[worst]} "
+                             f"(median {grad_median}); bounds {worst_bound}, {median_bound}")
+    if not zero_abs <= 1e-5:
+        raise AssertionError(f"zero-by-construction gradient is {zero_abs}")
+
+
+@contextlib.contextmanager
+def raw_masks():
+    """The eval step's 28 x 28 mask probabilities and boxes, batch by batch
+    on the host, as the block's eval steps paste them. Yields the list of
+    ``(masks, boxes, image_size)``."""
+    from pets_face_recognition_tpu_torch.engine import detector_controller
+
+    seen, paste = [], detector_controller.paste_masks
+
+    def record(masks, boxes, image_size):
+        seen.append((masks.detach().cpu(), boxes.detach().cpu(), image_size))
+        return paste(masks, boxes, image_size)
+
+    detector_controller.paste_masks = record
+    try:
+        yield seen
+    finally:
+        detector_controller.paste_masks = paste
+
+
+@contextlib.contextmanager
+def smoke_env(root: Path, cwd: Path):
+    """``PFR_SMOKE_ROOT`` set to ``root`` and ``cwd`` the working directory
+    while the block runs (the smoke config reads both)."""
+    saved = (os.environ.get("PFR_SMOKE_ROOT"), os.getcwd())
+    os.environ["PFR_SMOKE_ROOT"] = str(root)
+    os.chdir(cwd)
+    try:
+        yield
+    finally:
+        os.chdir(saved[1])
+        if saved[0] is None:
+            os.environ.pop("PFR_SMOKE_ROOT", None)
+        else:
+            os.environ["PFR_SMOKE_ROOT"] = saved[0]
+
+
+def eval_card_vs_cpu(config, ckpt: Path, dev, end_to_end: bool = True) -> dict:
+    """A Mask R-CNN checkpoint's validation detections on the card and on
+    the CPU: the metrics of each, their differences, and how far the
+    detections, the 28 x 28 mask probabilities and the pasted masks are
+    apart (pixels cut differently at 0.5 counted inside and outside the
+    threshold band), and the card's paste against the CPU's on the card's
+    own masks and boxes. The pasted masks are gated as each device pasted
+    them (``end_to_end``), or with the CPU's masks pasted into the card's
+    boxes: on a box a fraction of a pixel high, its coordinates' float32
+    rounding (within the box gate) moves the paste's sample rows by a
+    good part of a mask cell."""
+    import numpy as np
+    from pets_face_recognition_tpu_torch.engine.detector_controller import DetectionController
+    from pets_face_recognition_tpu_torch.ops.masks import paste_masks
+
+    with raw_masks() as raw_card:
+        t = time.perf_counter()
+        ctl_card, out_card = predictions(config, ckpt, dev, DetectionController)
+        t_card = time.perf_counter() - t
+    with raw_masks() as raw_cpu:
+        t = time.perf_counter()
+        ctl_cpu, out_cpu = predictions(config, ckpt, "cpu", DetectionController)
+        t_cpu = time.perf_counter() - t
+    m_card, m_cpu = ctl_card.evaluate([out_card]), ctl_cpu.evaluate([out_cpu])
+    side = max(config.image_size)
+    band = MASK_FIT_GATES["threshold_band"]
+    r = dict(valid_equal=True, detections=0, score_abs=0.0, box_rel_to_side=0.0, mask_abs=0.0,
+             mask_abs_end_to_end=0.0, raw_mask_abs=0.0, paste_abs=0.0, pasted_mask_max=0.0,
+             threshold_band_pixels_apart=0, pixels_apart_outside_band=0,
+             masks_pasted_into="each device's own boxes" if end_to_end else "the card's boxes")
+    for bc, br, rc, rr in zip(out_card, out_cpu, raw_card, raw_cpu):
+        pc, pr = bc["pred"], br["pred"]
+        r["valid_equal"] &= bool((pc["valid"] == pr["valid"]).all())
+        v = pc["valid"] & pr["valid"]
+        r["detections"] += int(v.sum())
+        r["score_abs"] = max(r["score_abs"],
+                             float(np.abs(pc["scores"] - pr["scores"])[v].max(initial=0)))
+        r["box_rel_to_side"] = max(r["box_rel_to_side"], float(
+            np.abs(pc["boxes"] - pr["boxes"])[v].max(initial=0)) / side)
+        r["raw_mask_abs"] = max(r["raw_mask_abs"],
+                                float((rc[0] - rr[0]).abs().numpy()[v].max(initial=0)))
+        # the device paste alone: the CPU's paste of the card's inputs
+        r["paste_abs"] = max(r["paste_abs"], float(np.abs(
+            paste_masks(*rc).numpy() - pc["masks"]).max(initial=0)))
+        mc, mr = pc["masks"][v], pr["masks"][v]
+        r["mask_abs_end_to_end"] = max(r["mask_abs_end_to_end"],
+                                       float(np.abs(mc - mr).max(initial=0)))
+        if not end_to_end:
+            mr = paste_masks(rr[0], rc[1], rc[2]).numpy()[v]
+        r["mask_abs"] = max(r["mask_abs"], float(np.abs(mc - mr).max(initial=0)))
+        r["pasted_mask_max"] = max(r["pasted_mask_max"], float(mc.max(initial=0)))
+        flip = (mc >= 0.5) != (mr >= 0.5)
+        inside = (np.abs(mc - 0.5) <= band) & (np.abs(mr - 0.5) <= band)
+        r["threshold_band_pixels_apart"] += int((flip & inside).sum())
+        r["pixels_apart_outside_band"] += int((flip & ~inside).sum())
+    r["metric_abs_diff"] = {m: abs(v - m_cpu["val"][m]) for m, v in m_card["val"].items()}
+    bad = [m for m, d in r["metric_abs_diff"].items()
+           if not (d <= MASK_FIT_GATES["metric"] or (math.isnan(m_card["val"][m])
+                                                     and math.isnan(m_cpu["val"][m])))]
+    bad += [n for n in ("score_abs", "box_rel_to_side", "mask_abs") if not r[n] <= MASK_FIT_GATES[n]]
+    bad += ["raw_mask_abs"] * (not r["raw_mask_abs"] <= MASK_FIT_GATES["mask_abs"])
+    bad += ["paste_abs"] * (not r["paste_abs"] <= MASK_FIT_GATES["paste_abs"])
+    bad += ["pixels_apart_outside_band"] * bool(r["pixels_apart_outside_band"])
+    bad += ["valid_equal"] * (not r["valid_equal"])
+    bad += ["metric names"] * (list(m_card["val"]) != list(m_cpu["val"]))
+    return dict(r, test_card=m_card, test_cpu=m_cpu, predict_s_card=t_card, predict_s_cpu=t_cpu,
+                failed=bad)
+
+
+def mask_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase mask_fit: ``main_detection`` on the mask smoke config in a
+    subprocess on the card, a restore of its checkpoint, and
+    ``eval_detection`` on it on the card (the path ``mask_eval``) and on the
+    CPU. One smoke epoch may teach random weights to find nothing (no
+    detection above the 0.05 score); the same comparison then also runs on
+    the fit's initial weights (the config's seed), where it must see
+    detections, with the masks compared in the card's boxes (random boxes
+    are slivers; see ``eval_card_vs_cpu``). Returns the eval's launch
+    counts."""
+    import torch
+    from pets_face_recognition_tpu_torch import eval_detection
+    from pets_face_recognition_tpu_torch.engine.checkpoint import (load_checkpoint,
+                                                                   restore_checkpoint)
+    from pets_face_recognition_tpu_torch.engine.detector_controller import DetectionController
+    from pets_face_recognition_tpu_torch.utils import get_config
+
+    work = MASK_TRAIN_OUT / "fit"
+    work.mkdir(parents=True)
+    smoke_cfg = REPO / "pets_face_recognition_tpu_torch" / "configs" / "mask_smoke.py"
+    data = work / "oxford"
+    env = dict(os.environ, PFR_SMOKE_ROOT=str(data), PFR_SMOKE_EPOCHS="1",
+               PYTHONPATH=os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH"))
+                                          if p))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main_detection",
+                           "--config", str(smoke_cfg)], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=300)
+    main_s = time.perf_counter() - t
+    made = sorted(work.glob("results_smoke/*/checkpoints/*"))
+    if proc.returncode != 0 or "Completed!" not in proc.stdout or [
+            p.name for p in made] != ["epoch=0-step=8"]:
+        raise AssertionError(f"main_detection failed ({proc.returncode}, {made}): "
+                             f"{proc.stderr[-2000:]}")
+    ckpt = made[0]
+    recs = [json.loads(line) for line in (ckpt.parent.parent / "metrics.jsonl")
+            .read_text().splitlines()]
+    with smoke_env(data, work):
+        config = get_config(smoke_cfg)
+        # the restore against the file, tensor by tensor
+        fresh = DetectionController(config=config).init_state(0, dev)
+        epoch = restore_checkpoint(fresh, ckpt)
+        payload = load_checkpoint(ckpt)
+        got = state_snapshot(fresh)
+        differ = [k for k, v in got["model"].items() if not torch.equal(v, payload["model"][k])]
+        moms = [payload["optimizer"]["state"][i]["momentum_buffer"]
+                for i in range(len(got["momentum"]))]
+        differ += [f"momentum {i}" for i, (a, b) in enumerate(zip(got["momentum"], moms))
+                   if not torch.equal(a, b)]
+        if differ or got["step"] != 8 or epoch != 0 or len(got["model"]) != len(payload["model"]):
+            raise AssertionError(f"restore of {ckpt.name}: step {got['step']}, epoch {epoch}, "
+                                 f"tensors {differ[:5]}")
+        del fresh, got, payload
+        torch.cuda.empty_cache()
+
+        kernels_mod.reset_launch_counts()
+        t = time.perf_counter()
+        metrics_card = eval_detection.evaluate(smoke_cfg, ckpt, device=dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        launches = kernels_mod.launch_counts()
+        trained = eval_card_vs_cpu(config, ckpt, dev)
+        # the fit's initial weights, as the trainer draws them
+        init = DetectionController(config=config).init_state(int(config.seed), "cpu").model
+        torch.save({"model": init.state_dict()}, work / "initial")
+        del init
+        initial = eval_card_vs_cpu(config, work / "initial", dev, end_to_end=False)
+    if not (launches["nms_keep_sorted_batch"] and launches["multilevel_roi_align"]) or (
+            launches["multilevel_roi_align_backward"] or launches["roi_footprints"]):
+        raise AssertionError(f"eval launches: {launches}")
+    # eval_detection's own numbers against the CPU's too
+    trained["failed"] += [f"eval_detection {m}" for m, v in metrics_card["val"].items()
+                          if not (abs(v - trained["test_cpu"]["val"][m]) <= MASK_FIT_GATES["metric"]
+                                  or (math.isnan(v)
+                                      and math.isnan(trained["test_cpu"]["val"][m])))]
+    emit("mask_fit", card=smi, config=str(smoke_cfg.relative_to(REPO)), main_detection_s=main_s,
+         checkpoints=[p.name for p in made], train_records=[r for r in recs if "epoch_time_s" in r],
+         validation=[{k: v for k, v in r.items() if k != "time"} for r in recs
+                     if any(k.startswith("val ") for k in r)],
+         eval_detection_s=eval_s, eval_detection=metrics_card, checkpoint_card_vs_cpu=trained,
+         initial_weights_card_vs_cpu=initial,
+         launches_eval=launches, gates=MASK_FIT_GATES, stdout_tail=proc.stdout[-600:])
+    if trained["failed"] or initial["failed"] or not initial["detections"]:
+        raise AssertionError(f"eval_detection on the card differs from the CPU: checkpoint "
+                             f"{trained['failed']}, initial weights {initial['failed']} "
+                             f"({initial['detections']} detections)")
+    return {"mask_eval": launches}
+
+
+def mask_train_phases(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
+    """mask_train, mask_train_vs_cpu and mask_fit; everything written under
+    the git-ignored ``smoke_out/mask_train`` is deleted after them. Returns
+    the paths' launch counts and the ``_masktrain`` kernel row."""
+    import shutil
+
+    shutil.rmtree(MASK_TRAIN_OUT, ignore_errors=True)
+    try:
+        launches, k4_args = mask_train_phase(dev, kernels_mod, smi)
+        paths = {"mask_train": launches}
+        rows = {"multilevel_roi_align_backward_masktrain": masktrain_k4_row(dev, k4_args)}
+        del k4_args
+        mask_train_vs_cpu_phase(dev)
+        paths.update(mask_fit_phase(dev, kernels_mod, smi))
+    finally:
+        shutil.rmtree(MASK_TRAIN_OUT, ignore_errors=True)
+    return paths, rows
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -3389,13 +3905,19 @@ KERNEL_ROWS = (
      "pets_face_recognition_tpu/ops/pallas_nms.py:153"),
     ("multilevel_roi_align_mask", ("multilevel_roi_align",), "csrc/roi_align.cu",
      "pets_face_recognition_tpu/ops/pallas_roi_align.py:120"),
+    # K4 timed on Mask R-CNN's training gradient (the mask branch's dense
+    # 14 x 14 one); its launches are the mask_train path's
+    ("multilevel_roi_align_backward_masktrain", ("multilevel_roi_align_backward",),
+     "csrc/roi_align_backward.cu", "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
 )
 
 
 def row_paths(name: str, paths: dict) -> list[str]:
     """The paths whose launches a kernel row sums: the mobile paths for a
-    ``_mobile`` row, the Mask R-CNN paths for a ``_mask`` row, every path for
-    the others."""
+    ``_mobile`` row, the Mask R-CNN paths for a ``_mask`` row, mask_train for
+    the ``_masktrain`` row, every path for the others."""
+    if name.endswith("_masktrain"):
+        return ["mask_train"]
     if name.endswith("_mobile"):
         return [p for p in paths if p.startswith("mobile_")]
     if name.endswith("_mask"):
@@ -3448,6 +3970,9 @@ def main() -> int:
     paths.update(keypoint_fit_phase(dev, kernels, smi))
     paths.update(fe_phases(dev, kernels, smi))   # fe_transform, fe_reproduce, fe_fit
     mask_paths, mask_rows = mask_phases(dev, kernels, smi)
+    paths.update(mask_paths)
+    rows.update(mask_rows)
+    mask_paths, mask_rows = mask_train_phases(dev, kernels, smi)
     paths.update(mask_paths)
     rows.update(mask_rows)
     table = []

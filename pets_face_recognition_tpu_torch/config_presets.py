@@ -1,6 +1,6 @@
 """Config factories (counterpart of the JAX ``config_presets.py``): the
-feature extractor's and the keypoint R-CNN's; the Mask R-CNN one comes with
-its training (ROADMAP §1)."""
+feature extractor's, the Mask R-CNN body detector's and the keypoint
+R-CNN's."""
 
 from __future__ import annotations
 
@@ -125,6 +125,66 @@ def build_fe_config(
         train_dataloader=train_dataloader, val_dataloader=val_dataloader,
         pair_generator=pair_generator,
         output=out, experiment_name=experiment_name, run_name=run_name, dataset=dataset,
+    )
+
+
+def build_mask_config(
+    data_root: str = "../pets_datasets",
+    seed: int = 123,
+    n_epochs: int = 65,
+    train_batch_size: int = 8,
+    test_batch_size: int = 8,
+    image_size: tuple[int, int] = (640, 640),
+    max_boxes: int = 4,
+    output: str = "results",
+    num_workers: int = 8,
+) -> dict:
+    """Mask R-CNN body config (the JAX ``build_mask_config``, reference
+    ``configs/mask/mask_rcnn_config.py``): Oxford-IIIT Pet under
+    ``data_root/oxford-iiit-pet`` with the trimap's body box and mask, split
+    80/20 by a ``RandomState(seed)`` permutation; the training view built
+    with ``rotate=True``, which the mask route never reads (ROADMAP note 19),
+    the validation view plain; masks letterboxed with the images; the
+    ResNet-50-FPN Mask R-CNN with 2 classes and 3 detections an image; SGD
+    lr 5e-3, momentum 0.9, weight decay 1e-4, the rate x 0.1 at epochs 40
+    and 55; ``drop_last`` on both loaders.
+
+    ``optimizer(config)`` returns the optimiser factory the controller calls
+    with the model's parameters (``params -> (SGD, schedule)``)."""
+    from .data_loading.oxford import OxfordIIITPet, OxfordSubset
+    from .engine.detector_controller import mask_model
+
+    base = OxfordIIITPet(Path(data_root) / "oxford-iiit-pet",
+                         target_types=("body_bbox", "segmentation"))
+    n = len(base)
+    perm = np.random.RandomState(seed).permutation(n)
+    split = int(n * 0.8)
+    train_ds = OxfordSubset(base, perm[:split].tolist(), rotate=True, seed=seed)
+    val_ds = OxfordSubset(base, perm[split:].tolist())
+    collate = DetectionCollate(image_size, max_boxes=max_boxes, with_masks=True)
+
+    def optimizer(config):
+        steps = max(split // train_batch_size, 1)
+        return partial(detection_sgd_optimizer, lr=5e-3,
+                       milestones_steps=[40 * steps, 55 * steps])
+
+    def train_dataloader():
+        return DataLoader(train_ds, train_batch_size, shuffle=True, seed=seed,
+                          drop_last=True, collate_fn=collate, num_workers=num_workers)
+
+    def val_dataloader():
+        return DataLoader(val_ds, test_batch_size, shuffle=False, drop_last=True,
+                          collate_fn=collate, num_workers=num_workers)
+
+    out = Path(output)
+    out.mkdir(exist_ok=True)
+    return dict(
+        seed=seed, n_epochs=n_epochs,
+        train_batch_size=train_batch_size, test_batch_size=test_batch_size,
+        image_size=image_size, max_boxes=max_boxes,
+        model=mask_model, optimizer=optimizer,
+        train_dataloader=train_dataloader, val_dataloader=val_dataloader,
+        output=out, experiment_name="Detection", run_name="mask_rcnn",
     )
 
 

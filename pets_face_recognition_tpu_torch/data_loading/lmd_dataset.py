@@ -5,14 +5,14 @@ of 9 landmarks, of which the first 3 (left eye, right eye, nose) are kept.
 The head box is synthesised from them exactly as in JAX: the eye centre
 +- 1.4 x the eye distance horizontally and +- 1.8 x the eye-centre-to-nose
 distance vertically, clamped to the image, and widened to hold every landmark
-+- 1 px. ``CatLMDSubset`` draws a random rot90 of the image, box and keypoints
-from its own seeded ``RandomState``.
++- 1 px. ``CatLMDSubset`` draws a random turn of the image, box and keypoints from
+its own seeded ``RandomState``: by an angle (``rotate``, cv2's rotation in
+numpy, ``transforms``) or by a multiple of 90 degrees (``rotate90``).
 
 Photos decode with the port's ``native/`` route (libjpeg, or nvJPEG on hosts
 with the CUDA toolkit only), never PIL; a grayscale JPEG comes back 2-D, as
-``np.array(PIL.Image.open(path))`` gives it. The JAX ``rotate=`` branch (a cv2
-rotation by a random angle) and ``LMDDataset`` (CelebA mixing) are not ported
-(ROADMAP §1).
+``np.array(PIL.Image.open(path))`` gives it. ``LMDDataset`` (CelebA
+mixing) is not ported (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 
 from .. import native
 from .dataset import rot90_boxes, rot90_keypoints
+from .transforms import rotate_bbox, rotate_image, rotate_points
 
 
 def read_jpeg(path: str | Path) -> np.ndarray:
@@ -75,18 +76,20 @@ class CatLMDDataset:
 
 
 class CatLMDSubset:
-    """``indices`` of ``dataset``; with ``rotate90`` each item is turned by a
-    random multiple of 90 degrees drawn from ``RandomState(seed)``. The state
+    """``indices`` of ``dataset``; with ``rotate`` (degrees, ``True`` for 15)
+    each item is turned by an angle drawn uniformly from ``[-rotate,
+    rotate)``, a keypoint turned off the image marked invisible; with
+    ``rotate90`` by a random multiple of 90 degrees; both drawn from
+    ``RandomState(seed)``. The state
     is shared by every thread that reads the subset, so under a threaded
     loader the draws follow the threads' order, in JAX as here (ROADMAP §3)."""
 
     def __init__(self, dataset, indices: Sequence[int], rotate: float | bool = False,
                  rotate90: bool = False, seed: int | None = None):
-        if rotate:
-            raise NotImplementedError(
-                "CatLMDSubset(rotate=...) (a cv2 rotation) is not ported: ROADMAP §1")
+        assert not (rotate and rotate90)
         self.dataset = dataset
         self.indices = list(indices)
+        self.rotate = 15.0 if rotate is True else float(rotate or 0.0)
         self.rotate90 = rotate90
         self.rng = np.random.RandomState(seed)
 
@@ -98,7 +101,16 @@ class CatLMDSubset:
         h, w = image.shape[:2]
         boxes = t["boxes"].astype(float)
         kps = t["keypoints"].astype(float)
-        if self.rotate90:
+        if self.rotate:
+            angle = float(self.rng.uniform(-self.rotate, self.rotate))
+            image = rotate_image(image, angle)
+            boxes = np.stack([np.round(rotate_bbox(b, angle, (h, w))) for b in boxes])
+            for i in range(len(kps)):
+                kps[i, :, :2] = rotate_points(kps[i, :, :2], angle, (h, w))
+            inside = ((kps[..., 0] >= 0) & (kps[..., 0] <= w)
+                      & (kps[..., 1] >= 0) & (kps[..., 1] <= h))
+            kps[..., 2] = inside.astype(float)
+        elif self.rotate90:
             k = int(self.rng.randint(0, 4))
             if k:
                 image = np.ascontiguousarray(np.rot90(image, k))

@@ -6,6 +6,8 @@
   (a match consumes it); the TP flags are scored by :func:`average_precision`.
 - **Mean/Median IoU**: IoU of the rounded top detection against the first
   ground truth of each image.
+- **Mask IoU**: predicted masks cut at 0.5, targets truncated to int;
+  ``TP pixels / union pixels`` per image, NaNs dropped.
 - **MAE/MSE/NMAE/NME**: keypoint errors, NME normalised per instance by the
   ground truth's inter-eye distance (keypoints 0 and 1).
 
@@ -31,6 +33,8 @@ def unpad_detections(dets: dict, batch_size: int) -> list[dict]:
             "labels": np.asarray(dets["labels"][b])[valid],
             "scores": np.asarray(dets["scores"][b])[valid],
         }
+        if "masks" in dets:
+            entry["masks"] = np.asarray(dets["masks"][b])[valid]
         if "keypoints" in dets:
             entry["keypoints"] = np.asarray(dets["keypoints"][b])[valid]
         out.append(entry)
@@ -45,6 +49,8 @@ def unpad_targets(targets: dict, batch_size: int) -> list[dict]:
             "boxes": np.asarray(targets["boxes"][b])[valid],
             "labels": np.asarray(targets["labels"][b])[valid],
         }
+        if "masks" in targets:
+            entry["masks"] = np.asarray(targets["masks"][b])[valid]
         if "keypoints" in targets:
             entry["keypoints"] = np.asarray(targets["keypoints"][b])[valid]
         out.append(entry)
@@ -131,6 +137,27 @@ def top_detection_iou(preds: list[dict], targets: list[dict]) -> dict[str, float
             "Median IoU": float(np.median(ious))}
 
 
+def mask_iou(preds: list[dict], targets: list[dict]) -> float:
+    """Pixel IoU of the predicted masks (>= 0.5) against the targets
+    (truncated to int) over each image's first ``min(#pred, #true)`` masks;
+    the mean over images, NaNs (an empty union) dropped."""
+    vals = []
+    for p, t in zip(preds, targets):
+        if "masks" not in p or "masks" not in t or not len(t["masks"]):
+            continue
+        pm = (np.asarray(p["masks"]) >= 0.5).astype(int)
+        tm = np.asarray(t["masks"]).astype(int)
+        n = min(len(pm), len(tm))
+        if n == 0:
+            continue
+        pm, tm = pm[:n], tm[:n]
+        union = ((pm == 1) | (tm == 1)).sum()
+        inter = ((pm == tm) & (tm == 1)).sum()
+        vals.append(inter / union if union else np.nan)
+    vals = [v for v in vals if not np.isnan(v)]
+    return float(np.mean(vals)) if vals else float("nan")
+
+
 def keypoint_errors(preds: list[dict], targets: list[dict]) -> dict[str, float]:
     """MAE/MSE/NMAE/NME: per-landmark errors, normalised by the ground
     truth's inter-eye distance (landmarks 0 and 1)."""
@@ -163,12 +190,15 @@ def detection_metrics(
     preds: list[dict],
     targets: list[dict],
     thresholds: tuple[float, ...] = (0.5, 0.7, 0.9),
+    with_masks: bool = False,
     with_keypoints: bool = False,
 ) -> dict[str, float]:
     """The per-split metric dict the reference logs."""
     out = dict(top_detection_iou(preds, targets))
     for thr in thresholds:
         out[f"AP {int(thr * 100)}"] = greedy_ap(preds, targets, thr)
+    if with_masks:
+        out["Masks Mean IoU"] = mask_iou(preds, targets)
     if with_keypoints:
         out.update(keypoint_errors(preds, targets))
     return out

@@ -1,26 +1,31 @@
-"""Keypoint R-CNN task controller (counterpart of the JAX
-``engine/detector_controller.py::KeyPointsController``).
+"""Detection task controllers (counterpart of the JAX
+``engine/detector_controller.py``): ``DetectionController`` (Mask R-CNN, the
+body detector) and its subclass ``KeyPointsController`` (keypoint R-CNN, the
+head and landmark detector).
 
 ``init_state`` builds the model with seeded random weights and its SGD;
 ``train_step`` turns a batch (the JAX batch contract: ``images (B, H, W, 3)``,
 ``boxes (B, G, 4)``, ``labels (B, G)`` with 0 the first foreground class,
-``valid (B, G)``, ``keypoints (B, G, NK, 3)``) into targets with the label +1
-shift (background is class 0), runs the training forward, sums the loss dict
-(``SumDetectionLoss``), backpropagates, and, with ``accumulate_grad_batches
-= k``, averages the gradients of ``k`` such mini-steps before one update
-(``optax.MultiSteps``); the update clips if asked and steps the optimiser at
-the scheduled rate of its count of updates. ``arch`` picks the model as the
-JAX keypoint config does: ``resnet50`` (frozen trunk statistics) or ``mobile``
-(MobileNetV3 with live BatchNorm, whose running statistics every mini-step
-moves).
+``valid (B, G)``, and ``masks (B, G, H, W)`` or ``keypoints (B, G, NK, 3)``)
+into targets with the label +1 shift (background is class 0), runs the
+training forward, sums the loss dict (``SumDetectionLoss``), backpropagates,
+and, with ``accumulate_grad_batches = k``, averages the gradients of ``k``
+such mini-steps before one update (``optax.MultiSteps``); the update clips if
+asked and steps the optimiser at the scheduled rate of its count of updates.
+The keypoint controller's ``arch`` picks the model as the JAX keypoint config
+does: ``resnet50`` (frozen trunk statistics) or ``mobile`` (MobileNetV3 with
+live BatchNorm, whose running statistics every mini-step moves).
 
 The eval step runs the model in ``eval()`` (a live-BN trunk normalises with
 its running statistics) without gradients, in float32, and puts it back in
-``train()``; ``run_eval_batch`` brings the detections and the targets (labels
-+1) to host numpy, and ``evaluate`` scores them (AP at IoU 0.5 and 0.7, the
-top detection's IoU, the keypoint errors, ``detection_metrics``). With
-``config=`` the model, the optimiser and the loaders come from a config
-(``config_presets.build_keypoint_config``).
+``train()``; with masks it pastes each detection's 28 x 28 mask into the
+batch's ``(H, W)`` on the detections' device (``ops.masks.paste_masks``).
+``run_eval_batch`` brings the detections and the targets (labels +1) to host
+numpy, and ``evaluate`` scores them (``detection_metrics``): AP at the
+controller's IoU thresholds (0.5, 0.7, 0.9 for masks; 0.5, 0.7 for
+keypoints), the top detection's IoU, and the mask IoU or the keypoint
+errors. With ``config=`` the model, the optimiser and the loaders come from a
+config (``config_presets.build_mask_config``, ``build_keypoint_config``).
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import torch
 from ..device import float32_matmuls, resolve_device
 from ..losses import sum_detection_loss
 from ..models.rcnn import (KEYPOINT_ARCHS, GeneralizedRCNN, frozen_twin,
-                           keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn)
+                           keypointrcnn_resnet50_fpn, maskrcnn_resnet50_fpn,
+                           mobile_net_v3_large_keypoint_rcnn)
+from ..ops.masks import paste_masks
 from ..utils.optim import detection_sgd_optimizer
 from ..weights import init_random_
 from .detection_metrics import detection_metrics, unpad_detections, unpad_targets
@@ -53,25 +60,31 @@ def keypoint_model(arch: str = "resnet50") -> GeneralizedRCNN:
     raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
 
 
-class KeyPointsController:
-    """Keypoint R-CNN task: ``model_fn`` builds the model (by default
-    :func:`keypoint_model` of ``arch``), ``optimizer_fn(params)`` returns
-    ``(optimizer, schedule)`` (the keypoint config's SGD, lr 5e-3, by
-    default). With ``config``, both come from it (``config.model``,
-    ``config.optimizer(config)``), and so do the loaders."""
+def mask_model() -> GeneralizedRCNN:
+    """The Mask R-CNN config's model (JAX ``config_presets.build_mask_config
+    ().model()``): ResNet-50-FPN, 2 classes, 3 detections an image."""
+    return maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3)
 
-    eval_thresholds = (0.5, 0.7)
+
+class DetectionController:
+    """Mask R-CNN task: ``model_fn`` builds the model (by default
+    :func:`mask_model`), ``optimizer_fn(params)`` returns ``(optimizer,
+    schedule)`` (SGD at lr 5e-3 by default). With ``config``, both come from
+    it (``config.model``, ``config.optimizer(config)``), and so do the
+    loaders."""
+
+    eval_thresholds = (0.5, 0.7, 0.9)
+    with_masks = True
+    with_keypoints = False
 
     def __init__(self, model_fn: Callable[[], GeneralizedRCNN] | None = None,
                  optimizer_fn: Callable = detection_sgd_optimizer,
-                 gradient_clip_val: float | None = None, arch: str = "resnet50", *,
+                 gradient_clip_val: float | None = None, *,
                  config=None, accumulate_grad_batches: int = 1):
         if config is not None:
             model_fn, optimizer_fn = config.model, config.optimizer(config)
         if model_fn is None:
-            if arch not in KEYPOINT_ARCHS:
-                raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
-            model_fn = lambda: keypoint_model(arch)  # noqa: E731
+            model_fn = mask_model
         self.config = config
         self.model_fn = model_fn
         self.optimizer_fn = optimizer_fn
@@ -88,6 +101,8 @@ class KeyPointsController:
         targets = {"labels": t(batch["labels"], torch.int64) + 1,
                    "boxes": t(batch["boxes"], torch.float32),
                    "valid": t(batch["valid"], torch.bool)}
+        if "masks" in batch:
+            targets["masks"] = t(batch["masks"], torch.float32)
         if "keypoints" in batch:
             targets["keypoints"] = t(batch["keypoints"], torch.float32)
         return targets
@@ -103,13 +118,6 @@ class KeyPointsController:
         optimizer, schedule = self.optimizer_fn(
             [p for p in model.parameters() if p.requires_grad])
         return TrainState(model, optimizer, schedule, seed)
-
-    @staticmethod
-    def serving_model(state: TrainState) -> GeneralizedRCNN:
-        """The frozen serving twin of a live-BN MobileNetV3 state
-        (``rcnn.frozen_twin``: its weights and running statistics under
-        frozen norms, eval mode)."""
-        return frozen_twin(state.model)
 
     @float32_matmuls()
     def train_step(self, state: TrainState, batch: dict,
@@ -139,16 +147,22 @@ class KeyPointsController:
     # -- evaluation ----------------------------------------------------------
     def make_eval_step(self) -> Callable:
         """``eval_step(state, images) -> detections``: the model in ``eval()``
-        under ``torch.no_grad()`` in float32, back in ``train()`` after."""
+        under ``torch.no_grad()`` in float32, back in ``train()`` after; with
+        ``with_masks`` the masks pasted into the images' ``(H, W)``."""
+        paste = self.with_masks
 
         @float32_matmuls()
         @torch.no_grad()
         def eval_step(state: TrainState, images: torch.Tensor) -> dict[str, torch.Tensor]:
             model = state.model.eval()
             try:
-                return model(images)
+                dets = model(images)
             finally:
                 model.train()
+            if paste and "masks" in dets:
+                dets["masks"] = paste_masks(dets["masks"], dets["boxes"],
+                                            tuple(images.shape[1:3]))
+            return dets
 
         return eval_step
 
@@ -163,6 +177,8 @@ class KeyPointsController:
             "labels": np.asarray(batch["labels"]) + 1,
             "valid": np.asarray(batch["valid"]),
         }
+        if "masks" in batch:
+            true["masks"] = np.asarray(batch["masks"])
         if "keypoints" in batch:
             true["keypoints"] = np.asarray(batch["keypoints"])
         return {"pred": {k: v.cpu().numpy() for k, v in dets.items()}, "true": true,
@@ -180,7 +196,8 @@ class KeyPointsController:
                 preds.extend(unpad_detections(b["pred"], b["batch_size"]))
                 trues.extend(unpad_targets(b["true"], b["batch_size"]))
             metrics = detection_metrics(preds, trues, thresholds=self.eval_thresholds,
-                                        with_keypoints=True)
+                                        with_masks=self.with_masks,
+                                        with_keypoints=self.with_keypoints)
             all_metrics[name] = metrics
             if logger is not None:
                 logger.log_metrics(
@@ -199,3 +216,31 @@ class KeyPointsController:
     def test_dataloader(self):
         dl = self.config.get("test_dataloader")
         return dl() if dl is not None else self.config.val_dataloader()
+
+
+class KeyPointsController(DetectionController):
+    """Keypoint R-CNN task (the JAX ``KeyPointsController``): the same
+    machinery with AP at 0.5 and 0.7, no masks and the keypoint errors;
+    ``model_fn`` defaults to :func:`keypoint_model` of ``arch``."""
+
+    eval_thresholds = (0.5, 0.7)
+    with_masks = False
+    with_keypoints = True
+
+    def __init__(self, model_fn: Callable[[], GeneralizedRCNN] | None = None,
+                 optimizer_fn: Callable = detection_sgd_optimizer,
+                 gradient_clip_val: float | None = None, arch: str = "resnet50", *,
+                 config=None, accumulate_grad_batches: int = 1):
+        if config is None and model_fn is None:
+            if arch not in KEYPOINT_ARCHS:
+                raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
+            model_fn = lambda: keypoint_model(arch)  # noqa: E731
+        super().__init__(model_fn, optimizer_fn, gradient_clip_val, config=config,
+                         accumulate_grad_batches=accumulate_grad_batches)
+
+    @staticmethod
+    def serving_model(state: TrainState) -> GeneralizedRCNN:
+        """The frozen serving twin of a live-BN MobileNetV3 state
+        (``rcnn.frozen_twin``: its weights and running statistics under
+        frozen norms, eval mode)."""
+        return frozen_twin(state.model)

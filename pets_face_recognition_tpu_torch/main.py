@@ -8,7 +8,8 @@ the JAX ``main.py`` does:
     python -m pets_face_recognition_tpu_torch.main \
         --config pets_face_recognition_tpu_torch/configs/fe_smoke.py [--device cpu]
 
-``main_keypoints`` passes the keypoint R-CNN's controller."""
+``main_keypoints`` and ``main_detection`` pass the keypoint and Mask R-CNN
+controllers."""
 
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ validity masks: ``boxes (B, D, 4)``, ``labels``, ``scores``, ``valid``,
 ``keypoints (B, D, NK, 3)``, ``keypoints_scores``, or ``masks (B, D, 28, 28)``
 (the sigmoid of each detection's own label's mask logits). With ``targets`` it returns
 the training loss dict of the JAX ``_forward_train``: RPN loss, proposals at
-the training budgets, box sampling and loss, and the keypoint head on the
-positive budget. Inside it runs NCHW. Two detectors: the ResNet-50-FPN one
+the training budgets, box sampling and loss, and the mask or keypoint head on
+the positive budget (the mask targets in ``targets["masks"] (B, G, H, W)``). Inside it runs NCHW. Two detectors: the ResNet-50-FPN one
 (4 pooled levels, p2..p5) and the MobileNetV3-Large one (2 pooled levels,
 p4 and p5, 15 anchors a location), the JAX package's default serving
 detector; and the ResNet-50-FPN Mask R-CNN (body detector, 3 detections an
@@ -15,7 +15,7 @@ image). The RPN's NMS is kernel K2, as is the box NMS when more than one
 detection is kept; the RoIAligns (box 7x7, keypoint and mask 14x14) run
 forward through kernel K3 and, in training, backward through kernel K4
 (``MultilevelRoIAlign``); their wrappers take the plain versions only for CPU
-tensors. Mask R-CNN training is not ported.
+tensors.
 
 The two samplers take uniform noise, ``sampler_noise = {"rpn": (B, N_anchors),
 "box": (B, rpn_post_nms_top_n_train + G)}``, or draw it from ``generator``
@@ -186,7 +186,7 @@ class GeneralizedRCNN(nn.Module):
                                        cls_t.reshape(-1), matched, valid.reshape(-1),
                                        fg.reshape(-1)))
 
-        if c.num_keypoints:
+        if c.with_mask or c.num_keypoints:
             P = S
             if c.task_heads_on_positives_only:
                 # the sampler never emits more positives than this budget, so
@@ -194,13 +194,27 @@ class GeneralizedRCNN(nn.Module):
                 P = min(max(1, int(c.box_batch_size_per_image * c.box_positive_fraction)), S)
             # stable fg-first order keeps the sampler's order
             pos_order = torch.argsort((~fg).to(torch.uint8), dim=1, stable=True)[:, :P]
-            pos_boxes_flat = _take(boxes, pos_order).reshape(B * P, 4)
+            pos_boxes = _take(boxes, pos_order)
+            pos_boxes_flat = pos_boxes.reshape(B * P, 4)
+            pos_gt_idx = _take(gt_idx, pos_order)
             pos_fg = _take(fg, pos_order).reshape(-1)
+            pos_cls = _take(cls_t, pos_order).reshape(-1)
+            pos_bidx = batch_idx.repeat_interleave(P)
+
+        if c.with_mask:
+            r = c.mask_roi_size
+            pooled = self._roi_align(pool, strides, pos_boxes_flat, pos_bidx, (r, r))
+            mask_logits = heads.mask_predictor(heads.mask_head(pooled.permute(0, 3, 1, 2)))
+            S_m = mask_logits.shape[1]
+            gt_masks = rh.project_masks_on_boxes(targets["masks"], pos_boxes, pos_gt_idx, S_m)
+            losses["loss_mask"] = rh.maskrcnn_loss(mask_logits, pos_cls,
+                                                   gt_masks.reshape(B * P, S_m, S_m), pos_fg)
+
+        if c.num_keypoints:
             r = c.keypoint_roi_size
-            pooled = self._roi_align(pool, strides, pos_boxes_flat,
-                                     batch_idx.repeat_interleave(P), (r, r))
+            pooled = self._roi_align(pool, strides, pos_boxes_flat, pos_bidx, (r, r))
             kp_logits = heads.keypoint_predictor(heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
-            gt_kps = _take(targets["keypoints"], _take(gt_idx, pos_order))
+            gt_kps = _take(targets["keypoints"], pos_gt_idx)
             kp_targets, kp_valid = rh.keypoints_to_heatmap_targets(
                 gt_kps.reshape(B * P, c.num_keypoints, 3), pos_boxes_flat, kp_logits.shape[1])
             losses["loss_keypoint"] = rh.keypointrcnn_loss(kp_logits, kp_targets,

@@ -1,7 +1,8 @@
 """RoI heads (counterpart of the JAX ``models/roi_heads.py``): the box, mask
 and keypoint heads, the eval postprocess (top-1, or class-aware NMS through
 kernel K2) and keypoint decode, and for training the proposal sampler, the
-Fast R-CNN loss and the keypoint heatmap targets and loss.
+Fast R-CNN loss, the mask targets (each positive's ground-truth mask
+projected onto its box) and loss, and the keypoint heatmap targets and loss.
 
 torchvision module names (``box_head.fc6``, ``box_predictor.cls_score``,
 ``mask_head.mask_fcn{1..4}``, ``mask_predictor.{conv5_mask,mask_fcn_logits}``,
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..losses import cross_entropy, smooth_l1
+from ..losses import cross_entropy, optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from ..ops.nms import nms_keep_sorted_batch_cuda
 from .rpn import _top_k, batched_iou, sample_balanced
@@ -313,3 +314,64 @@ def keypointrcnn_loss(kp_logits: torch.Tensor, kp_targets: torch.Tensor,
     flat = kp_logits.permute(0, 3, 1, 2).reshape(K * NK, S * S)
     weights = (kp_valid & fg[:, None]).float().reshape(K * NK)
     return cross_entropy(flat, kp_targets.reshape(K * NK), weights=weights)
+
+
+def _axis_interp_weights(starts: torch.Tensor, bins: torch.Tensor, n: int, size: int,
+                         s: int = 2) -> torch.Tensor:
+    """One axis of RoIAlign (``sampling_ratio=s``, ``aligned=False``) as a
+    ``(K, size, n)`` matrix, the JAX ``_axis_interp_weights``: sample
+    positions ``start + (i + (p + 0.5) / s) * bin``; a position at or below
+    -1 or at or past ``n`` weighs nothing; the others are clipped to ``[0,
+    n - 1]`` and weigh ``max(0, 1 - |pos - cell|)`` on each cell; the ``s``
+    samples of a bin are averaged."""
+    dev = starts.device
+    grid = (torch.arange(size, dtype=torch.float32, device=dev)[:, None]
+            + (torch.arange(s, dtype=torch.float32, device=dev)[None, :] + 0.5) / s
+            ).reshape(-1)
+    pos = starts[:, None] + grid[None, :] * bins[:, None]              # (K, size * s)
+    oob = (pos <= -1.0) | (pos >= n)
+    pos = pos.clamp(0.0, n - 1.0)
+    cells = torch.arange(n, dtype=torch.float32, device=dev)
+    w = (1.0 - (pos[..., None] - cells).abs()).clamp(min=0.0)          # (K, size * s, n)
+    w = torch.where(oob[..., None], torch.zeros_like(w), w)
+    return w.reshape(starts.shape[0], size, s, n).mean(dim=2)
+
+
+@torch.no_grad()
+def project_masks_on_boxes(gt_masks: torch.Tensor, boxes: torch.Tensor,
+                           matched_idx: torch.Tensor, size: int = 28) -> torch.Tensor:
+    """Each box's matched ground-truth mask cropped and resized to ``size x
+    size`` (torchvision's ``roi_align`` of the full-size mask against its own
+    box, ``sampling_ratio=2``, ``aligned=False``), batched: ``gt_masks (B, G,
+    H, W)``, ``boxes (B, P, 4)``, ``matched_idx (B, P)`` -> ``(B, P, size,
+    size)`` float32. Bilinear sampling is linear in the mask and separable,
+    so it is two batched products with the per-axis matrices of
+    :func:`_axis_interp_weights`, ``R_y @ M @ R_x^T``, as in JAX; the matched
+    mask is gathered where JAX multiplies by a one-hot (both exact). A box
+    narrower or lower than 1 is taken as 1 wide or high."""
+    B, G, H, W = gt_masks.shape
+    P = boxes.shape[1]
+    flat = boxes.reshape(B * P, 4).float()
+    x1, y1, x2, y2 = flat.unbind(-1)
+    roi_w = (x2 - x1).clamp(min=1.0)
+    roi_h = (y2 - y1).clamp(min=1.0)
+    ry = _axis_interp_weights(y1, roi_h / size, H, size)                # (K, size, H)
+    rx = _axis_interp_weights(x1, roi_w / size, W, size)                # (K, size, W)
+    img = torch.arange(B, device=boxes.device).repeat_interleave(P)
+    masks = gt_masks.float()[img, matched_idx.reshape(-1).long()]       # (K, H, W)
+    out = torch.bmm(torch.bmm(ry, masks), rx.transpose(1, 2))
+    return out.reshape(B, P, size, size)
+
+
+def maskrcnn_loss(mask_logits: torch.Tensor, cls_targets: torch.Tensor,
+                  mask_targets: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """Sigmoid cross entropy of the target class's ``S x S`` mask logits
+    (``mask_logits (K, S, S, C)``) against the targets cut at 0.5, averaged
+    over each RoI's pixels, summed over the fg RoIs and divided by their
+    count (at least 1)."""
+    K, S, _, _ = mask_logits.shape
+    idx = cls_targets.long().reshape(K, 1, 1, 1).expand(K, S, S, 1)
+    per_class = torch.gather(mask_logits, 3, idx)[..., 0]
+    bce = optax_sigmoid_ce(per_class, (mask_targets > 0.5).float())
+    per_roi = bce.mean(dim=(1, 2))
+    return (per_roi * fg.float()).sum() / fg.sum().clamp(min=1).float()

@@ -3,11 +3,15 @@ petfinder extras and the transform's ``.png`` outputs), in place of PIL.
 
 :func:`read_png` takes 8-bit grey, grey + alpha, RGB, RGBA and palette images
 without interlacing and returns them as PIL's ``convert("RGB")`` does: grey
-replicated, alpha dropped, palette entries looked up. The five row filters are
+replicated, alpha dropped, palette entries looked up; :func:`read_png_samples`
+returns the stored samples as ``np.array(PIL.Image.open(path))`` gives them
+(``(H, W)`` for grey, the palette *indices* of a palette image, ``(H, W, n)``
+otherwise), as a trimap is read. The five row filters are
 undone a row at a time where only None, Sub and Up occur, else along the
 anti-diagonals of the image, every byte of one anti-diagonal at once (each
 depends on its left, upper and upper-left neighbours only).
-:func:`write_png` writes 8-bit RGB with the ``Up`` filter.
+:func:`write_png` writes 8-bit RGB, or 8-bit grey from a 2-D array, with the
+``Up`` filter.
 """
 
 from __future__ import annotations
@@ -76,8 +80,8 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
     return out[1:, bpp:].astype(np.uint8)
 
 
-def read_png(path: str | Path) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG as ``(H, W, 3)`` uint8 RGB."""
+def _samples(path: str | Path) -> tuple[np.ndarray, int, np.ndarray | None]:
+    """The image's samples ``(H, W, n)`` uint8, its colour type and palette."""
     data = Path(path).read_bytes()
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
@@ -97,14 +101,27 @@ def read_png(path: str | Path) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != height * (width * n + 1):
         raise ValueError("PNG data has the wrong length")
-    img = _unfilter(raw, height, width * n, n).reshape(height, width, n)
+    return _unfilter(raw, height, width * n, n).reshape(height, width, n), colour, palette
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG as ``(H, W, 3)`` uint8 RGB."""
+    img, colour, palette = _samples(path)
     if colour == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
         return palette[img[..., 0]]
-    if n < 3:                      # grey, grey + alpha
+    if img.shape[2] < 3:           # grey, grey + alpha
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def read_png_samples(path: str | Path) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG's stored samples, uint8: ``(H, W)`` for
+    grey and for palette images (their indices, not looked up), ``(H, W, n)``
+    for grey + alpha, RGB and RGBA."""
+    img, _, _ = _samples(path)
+    return img[..., 0] if img.shape[2] == 1 else img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -113,17 +130,20 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray, level: int = 6) -> bytes:
-    """``(H, W, 3)`` uint8 RGB as PNG bytes (8-bit RGB, ``Up`` filter)."""
+    """``(H, W, 3)`` uint8 RGB, or ``(H, W)`` uint8 grey, as PNG bytes (8-bit,
+    ``Up`` filter)."""
     img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png takes (H, W, 3) uint8, not {img.shape}")
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes (H, W, 3) or (H, W) uint8, not {img.shape}")
     h, w = img.shape[:2]
-    rows = img.reshape(h, w * 3)
-    up = np.empty((h, w * 3 + 1), np.uint8)
+    n = 1 if img.ndim == 2 else 3
+    rows = img.reshape(h, w * n)
+    up = np.empty((h, w * n + 1), np.uint8)
     up[:, 0] = 2
     up[0, 1:] = rows[0]
     up[1:, 1:] = rows[1:] - rows[:-1]          # mod 256
-    return (SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    colour = 0 if n == 1 else 2
+    return (SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(up.tobytes(), level)) + _chunk(b"IEND", b""))
 
 

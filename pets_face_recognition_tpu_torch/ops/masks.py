@@ -1,6 +1,8 @@
 """Mask pasting: a detection's ``S x S`` box-frame mask -> the whole photo
-(counterpart of the JAX ``ops/masks.py::paste_mask_np``, torchvision's
-``paste_masks_in_image`` for one mask).
+(counterpart of the JAX ``ops/masks.py``): :func:`paste_mask` is its
+``paste_mask_np`` (torchvision's ``paste_masks_in_image`` for one mask, on
+the host's integer box), :func:`paste_masks` its device ``paste_masks`` (the
+eval step's, batched).
 
 :func:`paste_box` is the integer box, computed on the host from the float box
 with the JAX expression: pad the mask by 1, scale the box about its centre by
@@ -70,3 +72,47 @@ def paste_mask(mask, box, im_h: int, im_w: int, padding: int = 1,
     rows = m[y0] * (1.0 - ly)[:, None] + m[y1] * ly[:, None]          # float64
     out[y_0:y_1, x_0:x_1] = rows[:, x0] * (1.0 - lx)[None, :] + rows[:, x1] * lx[None, :]
     return out
+
+
+def _axis_taps(coord: torch.Tensor, size: int):
+    """Bilinear taps of sample positions ``coord`` on an axis of ``size``:
+    both taps clipped into it, the fraction, and whether each tap was in."""
+    c0 = torch.floor(coord)
+    frac = coord - c0
+    c0 = c0.long()
+    c1 = c0 + 1
+    return (c0.clamp(0, size - 1), c1.clamp(0, size - 1), frac,
+            (c0 >= 0) & (c0 < size), (c1 >= 0) & (c1 < size))
+
+
+def paste_masks(masks: torch.Tensor, boxes: torch.Tensor,
+                image_size: tuple[int, int]) -> torch.Tensor:
+    """``masks (..., S, S)`` probabilities in their float ``boxes (..., 4)``
+    -> ``(..., H, W)`` float32 on their device (the JAX ``paste_masks``,
+    vmapped there over the batch): pixel ``p`` samples the mask at ``(p + 0.5
+    - x1) / max(x2 - x1, 1e-6) * S - 0.5`` by a separable bilinear whose taps
+    off the mask count 0, and is 0 outside ``[floor(x1), ceil(x2)] x
+    [floor(y1), ceil(y2)]``."""
+    lead = masks.shape[:-2]
+    S = masks.shape[-1]
+    H, W = image_size
+    m = masks.reshape(-1, S, S).float()
+    N = m.shape[0]
+    x1, y1, x2, y2 = boxes.reshape(-1, 4).float().unbind(-1)
+    bw = (x2 - x1).clamp(min=1e-6)
+    bh = (y2 - y1).clamp(min=1e-6)
+    xs = torch.arange(W, dtype=torch.float32, device=m.device)[None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=m.device)[None, :]
+    x0, x1i, fx, inx0, inx1 = _axis_taps((xs + 0.5 - x1[:, None]) / bw[:, None] * S - 0.5, S)
+    y0, y1i, fy, iny0, iny1 = _axis_taps((ys + 0.5 - y1[:, None]) / bh[:, None] * S - 0.5, S)
+    row0 = torch.gather(m, 1, y0[:, :, None].expand(N, H, S)) * iny0[:, :, None]
+    row1 = torch.gather(m, 1, y1i[:, :, None].expand(N, H, S)) * iny1[:, :, None]
+    rows = row0 * (1 - fy)[:, :, None] + row1 * fy[:, :, None]              # (N, H, S)
+    c0 = torch.gather(rows, 2, x0[:, None, :].expand(N, H, W)) * inx0[:, None, :]
+    c1 = torch.gather(rows, 2, x1i[:, None, :].expand(N, H, W)) * inx1[:, None, :]
+    out = c0 * (1 - fx)[:, None, :] + c1 * fx[:, None, :]
+    inside = ((xs[:, None, :] >= torch.floor(x1)[:, None, None])
+              & (xs[:, None, :] <= torch.ceil(x2)[:, None, None])
+              & (ys[:, :, None] >= torch.floor(y1)[:, None, None])
+              & (ys[:, :, None] <= torch.ceil(y2)[:, None, None]))
+    return torch.where(inside, out, torch.zeros_like(out)).reshape(*lead, H, W)

@@ -1,7 +1,7 @@
 """Seeded synthetic corpora in the reference layouts, for the feature
-extractor's training and for the aligned-corpus transform (counterpart of
-``tools/make_smoke_datasets.py``'s ``make_fe``, ``make_data25`` and
-``make_petfinder_extras``).
+extractor's training, for the aligned-corpus transform and for Mask R-CNN's
+training (counterpart of ``tools/make_smoke_datasets.py``'s ``make_fe``,
+``make_data25``, ``make_petfinder_extras`` and ``make_oxford``).
 
 Each writer makes the same arrays from the same ``RandomState`` call sequence
 as the tool, and encodes them with the port's own encoders (``native``: JPEG
@@ -15,7 +15,9 @@ encoder's rounding.
 - ``make_data25``: ``data_25/<card>/{card.json, *.jpg}`` (kashtanka layout,
   animal 1 or 2 by turns) with two of ``DATA_25_EXCLUDE``'s names;
 - ``make_petfinder_extras``: ``petfinder_extra_{dogs,cats}/<id>/<j>.png``
-  with the entries the transform excludes.
+  with the entries the transform excludes;
+- ``make_oxford``: the Oxford-IIIT Pet layout (photos, 8-bit grey trimaps,
+  head-box XML, split files).
 """
 
 from __future__ import annotations
@@ -109,3 +111,43 @@ def make_petfinder_extras(root: Path, n_cards: int = 3, n_imgs: int = 2,
     png.write_png(dogs / "48009947" / "3.png", pet_image(rng))
     png.write_png(cats / "24355557" / "4.png", pet_image(rng))
     return dogs, cats
+
+
+_OXFORD_XML = """<annotation><object><name>{name}</name><bndbox>
+<xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax>
+</bndbox></object></annotation>"""
+
+
+def make_oxford(root: Path, n_imgs: int = 40, size: int = 320, seed: int = 2) -> Path:
+    """``oxford-iiit-pet/`` under ``root``: ``n_imgs`` photos of a dark blob
+    on a light ground, cats and dogs by turns, each with its trimap (1 on the
+    blob, 2 elsewhere, 8-bit grey PNG), a head box over the blob's upper
+    half in ``annotations/xmls`` and a line in ``trainval.txt`` (four in
+    five) or ``test.txt``."""
+    rng = np.random.RandomState(seed)
+    base = Path(root) / "oxford-iiit-pet"
+    for d in ("images", "annotations/xmls", "annotations/trimaps"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    lines = {"trainval": [], "test": []}
+    for i in range(n_imgs):
+        species = "cat" if i % 2 == 0 else "dog"
+        stem = f"{'Abyssinian' if species == 'cat' else 'beagle'}_{i + 1}"
+        img = rng.randint(140, 200, (size, size, 3), np.uint8)
+        cx, cy = rng.randint(size // 3, 2 * size // 3, 2)
+        ax, ay = rng.randint(40, 80, 2)
+        yy, xx = np.mgrid[:size, :size]
+        blob = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 < 1.0
+        img[blob] = rng.randint(0, 100, 3, np.uint8)
+        write_jpeg(base / "images" / f"{stem}.jpg", img, quality=92)
+        tri = np.full((size, size), 2, np.uint8)
+        tri[blob] = 1
+        png.write_png(base / "annotations" / "trimaps" / f"{stem}.png", tri)
+        x1, x2 = max(0, cx - ax // 2), min(size - 1, cx + ax // 2)
+        y1, y2 = max(0, cy - ay), cy
+        (base / "annotations" / "xmls" / f"{stem}.xml").write_text(
+            _OXFORD_XML.format(name=species, x1=x1, y1=y1, x2=x2, y2=y2))
+        label = 1 if species == "cat" else 2
+        lines["trainval" if i % 5 else "test"].append(f"{stem} {label} 1 1")
+    for split, ls in lines.items():
+        (base / "annotations" / f"{split}.txt").write_text("\n".join(ls) + "\n")
+    return base

@@ -91,8 +91,9 @@ def test_rot90_subset_draws_the_jax_sequence(datasets):
                 np.testing.assert_array_equal(t[k], j_t[k], err_msg=k)
             turned.add(not np.array_equal(img, ours[idx[i]][0]))
     assert turned == {True, False}      # some items turned, some not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CatLMDSubset(ours, idx, rotate=15)
+    # rotate and rotate90 exclude each other, as in JAX
+    with pytest.raises(AssertionError):
+        CatLMDSubset(ours, idx, rotate=15, rotate90=True)
 
 
 def test_concat_dataset_indexes_as_jax():

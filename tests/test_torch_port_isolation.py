@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
         "engine.checkpoint", "config_presets", "main", "main_keypoints", "eval_landmark",
         "losses.losses", "losses.large_margin", "engine.metrics", "engine.controller",
         "data_loading.pairs", "native.png", "utils.preprocs", "smoke_data", "eval_fe",
-        "transform_reproduce", "transform_dataset", "ops.masks", "prepare_tables")]
+        "transform_reproduce", "transform_dataset", "ops.masks", "prepare_tables",
+        "data_loading.oxford", "data_loading.transforms", "main_detection", "eval_detection")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -138,6 +139,15 @@ def test_mask_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                                  "--pipeline", "body"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_mask_training_modules_keep_pil_and_cv2_off():
+    """The Oxford data path, the rotation and the collate read and resize in
+    numpy and torch: no PIL or cv2 import at any depth of those modules."""
+    for rel in ("data_loading/oxford.py", "data_loading/transforms.py", "utils/collate.py",
+                "native/png.py", "main_detection.py", "eval_detection.py"):
+        text = (PORT / rel).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(cv2|PIL)\b", text, re.MULTILINE), rel
 
 
 def test_kernel_build_is_one_nvcc_call_over_the_port_sources():
