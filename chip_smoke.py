@@ -211,6 +211,32 @@ boxes; the same on the fit's initial weights, which must give detections
 in the card's boxes (random boxes are slivers a fraction of a pixel high,
 where the boxes' float32 rounding moves the paste's rows).
 
+Then int8 serving (everything under the git-ignored ``smoke_out/int8``,
+deleted after). int8_conv: every distinct ``QuantConv`` input shape of the
+full-width keypoint R-CNN (scope ``rpn`` and the keypoint head) at B = 32 x
+320 and of the embedder at B = 32 x 224, on a calibrated int8 forward's
+activations: the card's int32 accumulators of the first two images equal to
+the CPU's bit for bit, the dequantized outputs within 1e-6, and each shape's
+int8 ms (im2col, ``torch._int_mm``, epilogue, whole) beside the float32
+convolution's, reported. int8_serve: the detector calibrated on 4 seeded
+batches of 32 and the embedder on the crops it keeps (the calibrate passes
+within 1e-5 of the float models), then ``embed_batch`` int8 against float:
+K1-K3 launches equal, crops/s of both in 5 paired rounds, int8's peak
+memory, the drift max(1 - cos); the card against the CPU at B = 2 over the
+card's carried state (keypoints and embeddings within the card's own spread
+under 1e-7 to 1e-5 input rounding plus 1e-3 of the image side and 1e-4
+relative; the quantized activations that differ, counted) and the scales of
+both calibrated on the same two images within 1e-5. int8_chain:
+``generate_tsv`` in subprocesses: float with a scores dump, int8 without a
+state file (nonzero, with JAX's message), calibrate with ``--body`` (the
+state written at exit), int8 with a dump, int8 ``--body``, and float and
+int8 with the head embedders' ``fc`` bias centred; ``near_tie`` holds the
+seeded embedders' dumps to flips across float gaps below 5e-4 and a drift
+below 1e-2, the centred pair reported (ROADMAP note 24), with each pair's
+near-tie share. ``masked_transform`` also runs the port's
+``score_detection`` and ``score_landmark`` over ``prepare_tables``' card and
+CPU tables against one seeded annotation pickle: equal printed lines.
+
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
 R-CNN's shapes, ``_mask``, and K4 on Mask R-CNN's training gradient,
@@ -3211,6 +3237,60 @@ def recorded_preproc4():
         Preproc4.batch, preprocessor.paste_mask = batch, paste
 
 
+def score_tables(tables: dict, out: Path) -> dict:
+    """The port's offline scorers over ``prepare_tables``' card and CPU
+    tables: an annotation pickle in the Label-Studio schema is written for
+    the card tables' photos (320 x 320; alternate photos dog and cat; each
+    ground truth a seeded jitter of the card's detection or landmarks, or a
+    seeded box where there is none), then ``score_detection`` (``Head`` on
+    ``detected_head.tsv``, ``Animal`` on ``detected_body.tsv``) and
+    ``score_landmark`` print their lines for each side. Returns both sides'
+    lines and whether they are equal."""
+    import contextlib as _cl
+    import io
+    import pickle
+
+    import numpy as np
+    from pets_face_recognition_tpu_torch import score_detection, score_landmark
+
+    side = float(IMAGE)
+    rng = np.random.RandomState(17)
+    card = {p.name: score_detection.read_tsv(p)[1] for p in tables["card"]["paths"]}
+    names = sorted({r["query"] for rows in card.values() for r in rows})
+    by_name = {f: {r["query"]: r for r in rows} for f, rows in card.items()}
+    db = [{}, {}]
+    for i, name in enumerate(names):
+        entry = {"resolution": (IMAGE, IMAGE)}
+        for mode, table in (("Head", "detected_head.tsv"), ("Animal", "detected_body.tsv")):
+            row = by_name[table].get(name)
+            box = (np.asarray(json.loads(row["detections"])[0], float) + rng.randint(-6, 7, 4)
+                   if row else np.sort(rng.uniform(0, side, (2, 2)), 0).T.ravel()[[0, 2, 1, 3]])
+            x0, y0, x1, y1 = np.clip(box, 0, side)
+            entry[mode] = {"x": x0 / side * 100, "y": y0 / side * 100,
+                           "width": max(x1 - x0, 1) / side * 100,
+                           "height": max(y1 - y0, 1) / side * 100}
+        row = by_name["landmark.tsv"].get(name)
+        for k, label in enumerate(("Left eye", "Right eye", "Nose")):
+            pt = (np.asarray(json.loads(row[label]), float) + rng.randint(-4, 5, 2) if row
+                  else rng.uniform(0, side, 2) + k)
+            entry[label] = {"x": float(pt[0]) / side * 100, "y": float(pt[1]) / side * 100}
+        db[i % 2][name] = [entry]
+    anno = out / "data_25_anno.pickle"
+    anno.parent.mkdir(parents=True, exist_ok=True)
+    anno.write_bytes(pickle.dumps(db))
+    lines = {}
+    for label in ("card", "cpu"):
+        tables_by_name = {p.name: p for p in tables[label]["paths"]}
+        buf = io.StringIO()
+        with _cl.redirect_stdout(buf):
+            for mode, table in (("Head", "detected_head.tsv"), ("Animal", "detected_body.tsv")):
+                score_detection.main(str(tables_by_name[table]), "data_25", mode, str(anno))
+            score_landmark.main(str(tables_by_name["landmark.tsv"]), "data_25", str(anno))
+        lines[label] = buf.getvalue().splitlines()
+    return dict(equal=lines["card"] == lines["cpu"], card=lines["card"], cpu=lines["cpu"],
+                photos=len(names))
+
+
 def masked_transform_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     """Phase masked_transform, under the git-ignored ``smoke_out/mask``:
     seeded ``data_25`` and petfinder-extras layouts (``smoke_data``, 320 x
@@ -3336,6 +3416,7 @@ def masked_transform_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
         table_diff[p_gpu.name] = dict(rows=len(a) - 1, equal_but_scores=exact,
                                       bytes_equal=p_gpu.read_bytes() == p_cpu.read_bytes(),
                                       max_score_diff=scores)
+    scorers = score_tables(tables, MASK_OUT / "scorers")
     reproduced_rel = sorted(str(p.relative_to(root)) for p in reproduced)
     k, kt, kr = paths["masked_transform"], paths["prepare_tables"], paths["masked_reproduce"]
     emit("masked_transform", card=smi, photos=len(photos), batch=MASK_TRANSFORM_BATCH,
@@ -3347,6 +3428,7 @@ def masked_transform_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
          same_files=same_files, jpeg=jpeg, launches=k,
          tables=dict(diff=table_diff, launches=kt, seconds_card=tables["card"]["seconds"],
                      seconds_cpu=tables["cpu"]["seconds"]),
+         scorers=scorers,
          reproduce=dict(seconds=reproduce_s, files=len(reproduced), launches=kr,
                         photos=n_inputs, photos_per_s=n_inputs / reproduce_s,
                         outputs=sorted({p.split("/")[0] for p in reproduced_rel})),
@@ -3369,6 +3451,8 @@ def masked_transform_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
                and d["max_score_diff"] <= MASK_GATES["table_score_abs"]
                for d in table_diff.values()):
         raise AssertionError(f"prepare_tables: the card against the CPU: {table_diff}")
+    if not (scorers["equal"] and scorers["card"]):
+        raise AssertionError(f"scorers: the card's lines against the CPU's: {scorers}")
     outputs = {p.split("/")[0] for p in reproduced_rel}
     if len(reproduced_rel) < 4 or not outputs <= {f"{d}_transformed_v4_masked_{s}"
                                                    for d, s in (("data_25", "dogs"),
@@ -3875,6 +3959,455 @@ def mask_train_phases(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
     return paths, rows
 
 
+INT8_OUT = REPO / "smoke_out" / "int8"      # git-ignored; deleted after the phases
+# int8_conv: the card's int32 accumulators equal the CPU's; the dequantized
+# outputs within 1e-6 of their largest magnitude. int8_serve: calibrated
+# scales within 1e-5 relative of the CPU's; card against CPU over one carried
+# state within the card's own spread under input rounding (1e-7, 1e-6 and
+# 1e-5 relative, as the CPU tests against JAX) plus 1e-4 relative for the
+# embeddings and 1e-3 of the image side for the keypoints. int8_chain: rank
+# flips only across float gaps below 5e-4; the drift below 1e-2 (the chain
+# quantizes the detector too, so landmarks and crops move, not only the
+# embedder's arithmetic)
+INT8_GATES = dict(dequant_rel=1e-6, scale_rel=1e-5, emb_rel=1e-4, kp_rel_to_side=1e-3,
+                  flip_budget=5e-4, chain_drift=1e-2)
+INT8_ROUNDINGS = (1e-7, 1e-7, 1e-7, 1e-6, 1e-5)
+INT8_CALIB_BATCHES = 4
+
+
+def int8_models(dev):
+    """The serving detector (scope ``rpn`` and the keypoint head) and the
+    head embedder as int8 twins over the seeded weights of
+    ``build_serving_models(seed=0)``, each behind a ``PTQServing``."""
+    from pets_face_recognition_tpu_torch.models import ptq
+    from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
+    from pets_face_recognition_tpu_torch.serving import serving_detector
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    det = serving_detector(dev, 0, "resnet50", quant="calibrate", quant_kp="calibrate")
+    emb = init_random_(resnet50_embedder(512, quant="calibrate"), 1)
+    emb = emb.eval().requires_grad_(False).to(dev)
+    return (ptq.PTQServing("det_keypoint_prod", det), ptq.PTQServing("fe_dog_head", emb))
+
+
+@contextlib.contextmanager
+def quant_records(model, cls_name: str):
+    """Each ``cls_name`` module's inputs (``QuantConv``: the first call of
+    each input shape, by ``(name, shape)``) or last int8 output
+    (``ActQuant``, by name) of the forwards run in the block."""
+    from pets_face_recognition_tpu_torch.models import quant
+
+    cls = getattr(quant, cls_name)
+    rec, hooks = {}, []
+
+    def record(name):
+        def hook(mod, inp, out):          # returns None: the output is kept
+            if cls is quant.QuantConv:    # each input shape once (the RPN's levels)
+                rec.setdefault((name, tuple(inp[0].shape)), (mod, inp))
+            else:
+                rec[name] = out[0].clone()
+        return hook
+
+    for name, m in model.named_modules():
+        if isinstance(m, cls):
+            hooks.append(m.register_forward_hook(record(name)))
+    try:
+        yield rec
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def int8_conv_phase(dev, smi: str) -> None:
+    """Phase int8_conv: every distinct ``QuantConv`` shape of the full-width
+    keypoint R-CNN (scope ``rpn`` and the keypoint head) at B = 32 x 320 and
+    of the embedder at B = 32 x 224, on the activations of a calibrated int8
+    forward: the int32 accumulators of the first two images on the card
+    against the CPU's, bit for bit; the dequantized outputs within 1e-6;
+    the int8 route's ms (im2col, ``torch._int_mm``, the float32 epilogue,
+    and the whole ``QuantConv`` call) beside the float32 convolution's
+    (cuDNN, TF32 off) on the dequantized input, reported, not held."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+    from pets_face_recognition_tpu_torch.models.quant import (dequantize, im2col, int_mm,
+                                                              int8_conv2d_acc)
+
+    t0 = time.perf_counter()
+    det, emb = int8_models(dev)
+    g = torch.Generator().manual_seed(21)
+    imgs = torch.rand(B_TIMED, IMAGE, IMAGE, 3, generator=g).to(dev)
+    crops = torch.rand(B_TIMED, CROP, CROP, 3, generator=g).to(dev)
+    shapes = {}
+    for runner, x, model_name in ((det, imgs, "detector"), (emb, crops, "embedder")):
+        runner.calibrate(x)
+        with quant_records(runner.model, "QuantConv") as rec:
+            runner.serve(x)
+        for (name, _), (mod, (xq, s_x)) in rec.items():
+            key = (model_name, mod.in_channels, mod.out_channels, mod.kernel_size[0],
+                   mod.stride[0], tuple(xq.shape))
+            shapes.setdefault(key, (name, mod, xq, s_x))
+    rows, acc_bad, worst_rel = [], [], 0.0
+    with torch.inference_mode(), float32_matmuls():
+        for (model_name, cin, cout, k, stride, xshape), (name, mod, xq, s_x) in shapes.items():
+            acc = int8_conv2d_acc(xq, mod.weight_q, mod.stride, mod.padding)
+            cpu_mod = copy.deepcopy(mod).cpu()
+            acc_cpu = int8_conv2d_acc(xq[:2].cpu(), cpu_mod.weight_q, mod.stride, mod.padding)
+            equal = torch.equal(acc[:2].cpu(), acc_cpu)
+            y, y_cpu = mod(xq, s_x), cpu_mod(xq[:2].cpu(), s_x.cpu())
+            rel = max_err(y[:2].cpu(), y_cpu) / max(float(y_cpu.abs().max()), 1e-30)
+            worst_rel = max(worst_rel, rel)
+            if not equal:
+                acc_bad.append(name)
+            cols, _, _ = im2col(xq, mod.kernel_size, mod.stride, mod.padding)
+            wmat = mod.weight_q.reshape(cout, -1)
+            acc2 = int_mm(cols, wmat)
+            scale = (s_x * mod.w_scale) * (1.0 / (127.0 * 127.0))
+            bias = mod.bias if mod.bias is not None else torch.zeros_like(mod.w_scale)
+            x_f = dequantize(xq, s_x).contiguous()
+            M, K = cols.shape
+            rows.append(dict(
+                model=model_name, module=name, cin=cin, cout=cout, kernel=k, stride=stride,
+                input=list(xshape), M=M, K=K, N=cout, acc_equal=equal, dequant_rel_err=rel,
+                im2col_ms=cuda_ms(lambda: im2col(xq, mod.kernel_size, mod.stride,
+                                                 mod.padding)),
+                int_mm_ms=cuda_ms(lambda: int_mm(cols, wmat)),
+                epilogue_ms=cuda_ms(lambda: acc2.float() * scale + bias),
+                int8_ms=cuda_ms(lambda: mod(xq, s_x)),
+                float_ms=cuda_ms(lambda: F.conv2d(x_f, mod.weight, mod.bias, mod.stride,
+                                                  mod.padding))))
+    total_int8 = sum(r["int8_ms"] for r in rows)
+    total_float = sum(r["float_ms"] for r in rows)
+    emit("int8_conv", card=smi, shapes=len(rows), rows=rows, acc_not_equal=acc_bad,
+         worst_dequant_rel_err=worst_rel, sum_int8_ms=total_int8, sum_float_ms=total_float,
+         gates=dict(acc="bit-equal", dequant_rel=INT8_GATES["dequant_rel"]),
+         note="times are one call of each shape, not weighted by its calls a forward",
+         seconds=time.perf_counter() - t0)
+    if acc_bad:
+        raise AssertionError(f"int8_conv: int32 accumulators differ from the CPU's: {acc_bad}")
+    if not worst_rel <= INT8_GATES["dequant_rel"]:
+        raise AssertionError(f"int8_conv: dequantized outputs {worst_rel} apart")
+    del det, emb, shapes, imgs, crops
+    torch.cuda.empty_cache()
+
+
+def flip_counts(a: dict, b: dict) -> dict:
+    """Quantized activations that differ between two records of the same
+    forward, in all and by more than one step."""
+    total = flipped = beyond = 0
+    for name, x in a.items():
+        d = (x.cpu().int() - b[name].cpu().int()).abs()
+        total += d.numel()
+        flipped += int((d > 0).sum())
+        beyond += int((d > 1).sum())
+    return dict(values=total, differ=flipped, differ_by_more_than_1=beyond)
+
+
+def int8_serve_phase(dev, kernels_mod, smi: str) -> dict:
+    """Phase int8_serve: the keypoint R-CNN (scope ``rpn`` and the keypoint
+    head) -> K1 -> the int8 embedder through ``EmbeddingService.embed_batch``
+    at B = 32 x 320: calibrated on 4 seeded batches (the calibrate pass's
+    embeddings against the float models'), then served int8, with the launch
+    counts of K1-K3 read around one int8 call and one float call (equal);
+    crops/s of float and int8 in 5 paired rounds and int8's peak memory; the
+    int8 drift from float as max(1 - cos) over the rows both keep. Then the
+    card against the CPU at B = 2 over the card's carried state: the
+    detector's keypoints, and the embedder's output on crops aligned by
+    seeded similarity landmarks, within the card's own spread under input rounding plus
+    ``INT8_GATES``; the quantized activations that differ, counted; and
+    the scales of a calibration of both on the same two images within 1e-5
+    relative."""
+    import torch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.models import ptq
+    from pets_face_recognition_tpu_torch.ops.homography import align_crop
+    from pets_face_recognition_tpu_torch.serving import (MIN_LANDMARK_DISTANCE,
+                                                         EmbeddingService, build_serving_models)
+
+    MIN_LANDMARKS = MIN_LANDMARK_DISTANCE
+    t0 = time.perf_counter()
+    det, emb = int8_models(dev)
+    fn_det, fn_emb = ptq.PTQModelFn(det, "calibrate"), ptq.PTQModelFn(emb, "calibrate")
+    f_det, f_emb, base = build_serving_models(dev, 0)
+    # threshold 0: random detectors score about 0.5, and the drift needs rows
+    service_q = EmbeddingService(fn_det, fn_emb, base, device=dev, score_thr=0.0)
+    service_f = EmbeddingService(f_det, f_emb, base, device=dev, score_thr=0.0)
+    g = torch.Generator().manual_seed(31)
+    batches = [torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
+                             dtype=torch.uint8).to(dev) for _ in range(INT8_CALIB_BATCHES)]
+    ok = torch.ones(B_TIMED, dtype=torch.bool, device=dev)
+    # calibration as the chain runs it: the detector on the batch, the
+    # embedder on the crops it keeps (a rejected row's crop can be NaN, and
+    # NaN would poison a running max, in JAX as here)
+    calib_rel = 0.0
+    with torch.inference_mode(), float32_matmuls():
+        for imgs in batches:
+            x = imgs.float() / 255.0
+            d_c, d_f = det.calibrate(x), f_det(x)
+            calib_rel = max(calib_rel, max_err(d_c["scores"], d_f["scores"]),
+                            max_err(d_c["keypoints"], d_f["keypoints"]) / IMAGE)
+            kps = torch.round(d_c["keypoints"][:, 0, :, :2])
+            crops = align_crop(x, kps, base, (CROP, CROP))
+            keep = d_c["valid"][:, 0] & (torch.cdist(kps, kps) + torch.eye(3, device=dev)
+                                         * 1e9).amin((1, 2)).gt(MIN_LANDMARKS)
+            keep &= torch.isfinite(crops).flatten(1).all(1)
+            if bool(keep.any()):
+                e_c, e_f = emb.calibrate(crops[keep]), f_emb(crops[keep])
+                calib_rel = max(calib_rel, max_err(e_c, e_f) / float(e_f.abs().max()))
+    fn_det.mode = fn_emb.mode = "int8"
+    imgs = torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
+                         dtype=torch.uint8).to(dev)
+    launches = {}
+    for label, service in (("int8", service_q), ("float", service_f)):
+        service.embed_batch(imgs, ok)
+        torch.cuda.synchronize()
+        kernels_mod.reset_launch_counts()
+        emb_out, valid = service.embed_batch(imgs, ok)
+        torch.cuda.synchronize()
+        launches[label] = kernels_mod.launch_counts()
+        if label == "int8":
+            e8, v8 = emb_out, valid
+        else:
+            ef, vf = emb_out, valid
+    # rows both keep whose embeddings are finite in both (a kept row's crop
+    # can still be NaN where its rounded landmarks are collinear, and int8
+    # moves random landmarks)
+    finite8, finitef = torch.isfinite(e8).all(1), torch.isfinite(ef).all(1)
+    both = v8 & vf & finite8 & finitef
+    cos = torch.nn.functional.cosine_similarity(e8[both], ef[both]) if bool(both.any()) else None
+    drift = float((1 - cos).max()) if cos is not None else None
+    k13 = ("warp_perspective_batch", "nms_keep_sorted_batch", "multilevel_roi_align")
+    launches_ok = all(launches["int8"][k] == launches["float"][k] and launches["int8"][k]
+                      for k in k13)
+
+    def timed(service):
+        t = time.perf_counter()
+        service.embed_batch(imgs, ok)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    timed(service_q)
+    peak_int8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    f_ms, q_ms = [], []
+    for r in range(5):                # paired rounds, float first in even ones
+        for label in (("float", "int8") if r % 2 == 0 else ("int8", "float")):
+            if label == "float":
+                f_ms.append(timed(service_f) * 1e3)
+            else:
+                q_ms.append(timed(service_q) * 1e3)
+
+    # the card against the CPU at B = 2, over the card's carried state
+    cpu_det, cpu_emb = int8_models("cpu")
+    cpu_det.load_quant(det.quant_numpy())
+    cpu_emb.load_quant(emb.quant_numpy())
+    x2 = imgs[:2].float() / 255.0
+    with quant_records(det.model, "ActQuant") as rec_card:
+        d_card = det.serve(x2)
+    with quant_records(cpu_det.model, "ActQuant") as rec_cpu:
+        d_cpu = cpu_det.serve(x2.cpu())
+    # the embedder on well-formed crops (seeded similarity landmarks), as e2e
+    lms = similarity_landmarks(torch.Generator().manual_seed(2), 2, base.cpu(), IMAGE)
+    crops = align_crop(x2, lms.to(dev), base, (CROP, CROP))
+    with quant_records(emb.model, "ActQuant") as rec_card_e:
+        o_card = emb.serve(crops)
+    with quant_records(cpu_emb.model, "ActQuant") as rec_cpu_e:
+        o_cpu = cpu_emb.serve(crops.cpu())
+    spread_kp = spread_emb = 0.0
+    for s, eps in enumerate(INT8_ROUNDINGS):
+        noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(s)).to(dev)
+        spread_kp = max(spread_kp, max_err(det.serve(x2 * (1 + noise * eps))["keypoints"],
+                                           d_card["keypoints"]))
+        noise = torch.randn(crops.shape, generator=torch.Generator().manual_seed(s)).to(dev)
+        spread_emb = max(spread_emb, max_err(emb.serve(crops * (1 + noise * eps)), o_card))
+    kp_err = max_err(d_card["keypoints"].cpu(), d_cpu["keypoints"])
+    emb_err = max_err(o_card.cpu(), o_cpu)
+    emb_scale = float(o_cpu.abs().max())
+    # calibration of both on the same two images: the scales
+    cal_card, cal_cpu = int8_models(dev), int8_models("cpu")
+    for r_card, r_cpu, x in ((cal_card[0], cal_cpu[0], x2), (cal_card[1], cal_cpu[1], crops)):
+        r_card.calibrate(x)
+        r_cpu.calibrate(x.cpu())
+    scale_rel = 0.0
+    for r_card, r_cpu in zip(cal_card, cal_cpu):
+        a, b = r_card.quant_numpy(), r_cpu.quant_numpy()
+        scale_rel = max([scale_rel] + [abs(float(a[k]) - float(b[k])) / float(b[k])
+                                       for k in b if k.endswith(".scale")])
+    gates = dict(kp_abs_px=spread_kp + INT8_GATES["kp_rel_to_side"] * IMAGE,
+                 emb_abs=spread_emb + INT8_GATES["emb_rel"] * emb_scale,
+                 scale_rel=INT8_GATES["scale_rel"])
+    emit("int8_serve", card=smi, batch=B_TIMED, calibration_batches=INT8_CALIB_BATCHES,
+         calibrate_vs_float_rel_err=calib_rel, launches=launches,
+         float_ms=f_ms, int8_ms=q_ms, float_crops_per_s=B_TIMED / (statistics.median(f_ms) / 1e3),
+         int8_crops_per_s=B_TIMED / (statistics.median(q_ms) / 1e3),
+         int8_peak_mem_gib=peak_int8,
+         rows_kept=dict(int8=int(v8.sum()), float=int(vf.sum()), both_finite=int(both.sum()),
+                        int8_kept_not_finite=int((v8 & ~finite8).sum()),
+                        float_kept_not_finite=int((vf & ~finitef).sum())),
+         drift_max_1_minus_cos=drift,
+         vs_cpu=dict(batch=2, keypoint_abs_err_px=kp_err, card_keypoint_spread_px=spread_kp,
+                     embedding_abs_err=emb_err, card_embedding_spread=spread_emb,
+                     embedding_scale=emb_scale, detector_flips=flip_counts(rec_card, rec_cpu),
+                     embedder_flips=flip_counts(rec_card_e, rec_cpu_e),
+                     calibrated_scale_rel_err=scale_rel, roundings=list(INT8_ROUNDINGS)),
+         gates=gates, seconds=time.perf_counter() - t0)
+    if not launches_ok:
+        raise AssertionError(f"int8_serve: K1-K3 launches {launches}")
+    if drift is None:
+        raise AssertionError("int8_serve: no row kept by both int8 and float")
+    if not calib_rel <= 1e-5:
+        raise AssertionError(f"int8_serve: the calibrate pass is {calib_rel} from float")
+    if not all(math.isfinite(v) for v in (kp_err, emb_err, scale_rel)):
+        raise AssertionError("int8_serve: non-finite card against CPU differences")
+    if not (kp_err <= gates["kp_abs_px"] and emb_err <= gates["emb_abs"]
+            and scale_rel <= gates["scale_rel"]):
+        raise AssertionError(f"int8_serve: card against CPU: keypoints {kp_err}, embeddings "
+                             f"{emb_err}, scales {scale_rel} against {gates}")
+    del det, emb, f_det, f_emb, service_q, service_f, cal_card, batches
+    torch.cuda.empty_cache()
+    return launches["int8"]
+
+
+def centred_embedder_ckpts(dev, out: Path) -> dict[str, str]:
+    """FE checkpoints of the head embedders (``build_retrieval_models``' seeds
+    1 and 2) with the ``fc`` bias moved by minus their mean embedding of the
+    corpus' aligned crops (as ``fe_eval_vs_cpu`` centres it: pair cosines
+    spread around 0 instead of near 1), named by the variables that
+    ``pipelines.embedder`` reads."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import generate_tsv, native
+    from pets_face_recognition_tpu_torch.pipelines import FE_CKPTS, build_retrieval_models
+    from pets_face_recognition_tpu_torch.serving import EmbeddingService
+
+    det, dog, cat = build_retrieval_models(dev, 0)
+    service = EmbeddingService(det, dog, device=dev, score_thr=0.0)
+    paths = sorted(CORPUS.rglob("*.jpg"))
+    imgs, ok, _, _ = native.decode_batch([str(p) for p in paths], (IMAGE, IMAGE))
+    env = {}
+    for name, model in (("fe_dog_head", dog), ("fe_cat_head", cat)):
+        service.embedder = model
+        e, v = service.embed_batch(torch.from_numpy(imgs).to(dev), torch.from_numpy(ok).to(dev))
+        sd = {k: t.cpu() for k, t in model.state_dict().items()}
+        sd["fc.bias"] = sd["fc.bias"] - e[v].mean(0).cpu()
+        folder = out / name
+        folder.mkdir(parents=True, exist_ok=True)
+        torch.save({"model": sd}, folder / "epoch=0-step=0")
+        env[FE_CKPTS[name][0]] = str(folder)
+    del det, dog, cat, service
+    return env
+
+
+def near_tie_share(dump: Path, budget: float) -> tuple[float | None, int]:
+    """The share of a dump's scored pairs (two gallery cards of one query)
+    whose float scores lie closer than ``budget``, and the pair count."""
+    import numpy as np
+    from pets_face_recognition_tpu_torch import retrieval
+
+    near = pairs = 0
+    for d in retrieval.load_scores_dump(dump).values():
+        s = d["scores"][d["include"]].astype(np.float64)
+        iu = np.triu_indices(len(s), 1)
+        pairs += len(iu[0])
+        near += int((np.abs(s[iu[0]] - s[iu[1]]) < budget).sum())
+    return (near / pairs if pairs else None), pairs
+
+
+def int8_chain_phase(dev, smi: str) -> None:
+    """Phase int8_chain: ``generate_tsv`` in subprocesses over the committed
+    corpus (``PFR_RETRIEVAL_THR=0``): float with ``PFR_SCORES_DUMP``;
+    ``PFR_QUANT_MODE=int8`` without a state file, which must exit nonzero
+    with JAX's message; ``calibrate`` with ``--body`` (the state of all six
+    models, written at exit); ``int8`` with a dump; ``int8 --body``; then
+    float and int8 again with the head embedders' ``fc`` bias centred
+    (``centred_embedder_ckpts``; the trunks, and so the quant state, are the
+    same). Every run but the one without state exits 0 and every tsv query
+    has its dump row. ``near_tie`` holds the float and int8 dumps of the
+    seeded embedders to the flip budget 5e-4 and the drift to
+    ``INT8_GATES``: with random weights every pair cosine is near 1, so the
+    contract here is JAX's random-init one. The centred pair is reported,
+    not held: its pair cosines spread around 0, but what is left after the
+    mean is removed is as small as int8's error, and the int8 detector
+    moves the random landmarks; the share of near-tie pairs is reported for
+    both."""
+    from pets_face_recognition_tpu_torch import near_tie, retrieval
+
+    t0 = time.perf_counter()
+    INT8_OUT.mkdir(parents=True, exist_ok=True)
+    state = INT8_OUT / "quant_state.pkl"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PFR_")}
+    env.update(PFR_RETRIEVAL_THR="0.0", PFR_QUANT_STATE=str(state),
+               PYTHONPATH=os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]))
+    centred = centred_embedder_ckpts(dev, INT8_OUT / "fe")
+    runs = {}
+
+    def run(label, mode, body=False, dump=False, extra=None):
+        e = dict(env, PFR_QUANT_MODE=mode, **(extra or {}))
+        if dump:
+            e["PFR_SCORES_DUMP"] = str(INT8_OUT / f"{label}.npz")
+        cmd = [sys.executable, "-m", "pets_face_recognition_tpu_torch.generate_tsv", "--data",
+               str(CORPUS), "--device", str(dev), "--output", str(INT8_OUT / f"{label}.tsv")]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd + (["--body"] if body else []), cwd=INT8_OUT, env=e,
+                              capture_output=True, text=True, timeout=300)
+        runs[label] = dict(rc=proc.returncode, seconds=time.perf_counter() - t,
+                           ptq=[ln for ln in proc.stdout.splitlines() if ln.startswith("PTQ:")],
+                           stderr_tail=proc.stderr[-300:] if proc.returncode else "")
+        return proc
+
+    run("float", "", dump=True)
+    missing = run("int8_no_state", "int8")
+    run("calibrate_body", "calibrate", body=True)
+    run("int8", "int8", dump=True)
+    run("int8_body", "int8", body=True)
+    run("float_centred", "", dump=True, extra=centred)
+    run("int8_centred", "int8", dump=True, extra=centred)
+    expected_rc = {k: (v["rc"] != 0 if k == "int8_no_state" else v["rc"] == 0)
+                   for k, v in runs.items()}
+    message = "PFR_QUANT_MODE=int8 requires a calibrated quant state at" in missing.stderr
+    if not (all(expected_rc.values()) and message):
+        emit("int8_chain", card=smi, runs=runs, missing_state_message=message)
+        raise AssertionError(f"int8_chain: runs {runs}")
+    labels = ("float", "int8", "float_centred", "int8_centred")
+    rows = {k: len((INT8_OUT / f"{k}.tsv").read_text().splitlines()) - 1 for k in labels}
+    dumps = {k: len(retrieval.load_scores_dump(INT8_OUT / f"{k}.npz")) for k in labels}
+    budget = INT8_GATES["flip_budget"]
+    report = near_tie.check(INT8_OUT / "float.npz", INT8_OUT / "int8.npz",
+                            INT8_GATES["chain_drift"], budget)
+    report_c = near_tie.check(INT8_OUT / "float_centred.npz", INT8_OUT / "int8_centred.npz",
+                              INT8_GATES["chain_drift"], budget)
+    share, pairs = near_tie_share(INT8_OUT / "float.npz", budget)
+    share_c, _ = near_tie_share(INT8_OUT / "float_centred.npz", budget)
+    emit("int8_chain", card=smi, runs=runs, missing_state_message=message,
+         tsv_rows=rows, dump_queries=dumps, near_tie=report, near_tie_centred=report_c,
+         near_tie_pair_share=share, near_tie_pair_share_centred=share_c, float_pairs=pairs,
+         gates=dict(flip_budget=budget, drift=INT8_GATES["chain_drift"],
+                    held="the seeded embedders' pair; the centred pair is reported"),
+         seconds=time.perf_counter() - t0)
+    if rows != dumps or not rows["float"]:
+        raise AssertionError(f"int8_chain: tsv rows {rows} against dumped queries {dumps}")
+    if report["contract"] != "NEAR-TIE-SAFE":
+        raise AssertionError(f"int8_chain: near-tie contract violated: {report}")
+
+
+def int8_phases(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """int8_conv, int8_serve and int8_chain; everything written under the
+    git-ignored ``smoke_out/int8`` is deleted after them."""
+    import shutil
+
+    shutil.rmtree(INT8_OUT, ignore_errors=True)
+    try:
+        int8_conv_phase(dev, smi)
+        paths = {"int8_serve": int8_serve_phase(dev, kernels_mod, smi)}
+        int8_chain_phase(dev, smi)
+    finally:
+        shutil.rmtree(INT8_OUT, ignore_errors=True)
+    return paths
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -3975,6 +4508,7 @@ def main() -> int:
     mask_paths, mask_rows = mask_train_phases(dev, kernels, smi)
     paths.update(mask_paths)
     rows.update(mask_rows)
+    paths.update(int8_phases(dev, kernels, smi))   # int8_conv, int8_serve, int8_chain
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
         table.append(dict(rows[name], name=name, route="cuda",

@@ -30,8 +30,12 @@ class EmbeddingModel(ResNet):
 
 
 def resnet50_embedder(embedding_dim: int = 512,
-                      stage_sizes: tuple[int, ...] = (3, 4, 6, 3)) -> EmbeddingModel:
+                      stage_sizes: tuple[int, ...] = (3, 4, 6, 3),
+                      quant: str | None = None) -> EmbeddingModel:
     """The production FE: ResNet-50 (live BatchNorm, momentum 0.9) + ``fc`` to
-    ``embedding_dim``. ``stage_sizes`` cuts depth for tests."""
+    ``embedding_dim``. ``stage_sizes`` cuts depth for tests; ``quant``
+    (``"calibrate"`` or ``"int8"``) quantizes the trunk's bottlenecks, while
+    the stem and ``fc`` stay float32 (JAX ``resnet50_embedder(quant=...)``)."""
     return EmbeddingModel(stage_sizes=stage_sizes, num_classes=embedding_dim,
-                          norm_layer=partial(LiveBatchNorm2d, momentum=BN_MOMENTUM))
+                          norm_layer=partial(LiveBatchNorm2d, momentum=BN_MOMENTUM),
+                          quant=quant)

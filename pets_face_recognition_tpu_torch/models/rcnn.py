@@ -82,7 +82,7 @@ class RCNNConfig:
 class RoIHeads(nn.Module):
     """Box, mask and keypoint heads under torchvision's ``roi_heads.*`` names."""
 
-    def __init__(self, cfg: RCNNConfig, channels: int):
+    def __init__(self, cfg: RCNNConfig, channels: int, quant_kp: str | None = None):
         super().__init__()
         self.box_head = rh.TwoMLPHead(channels * 7 * 7)
         self.box_predictor = rh.FastRCNNPredictor(1024, cfg.num_classes)
@@ -90,7 +90,7 @@ class RoIHeads(nn.Module):
             self.mask_head = rh.MaskHead(channels)
             self.mask_predictor = rh.MaskPredictor(256, cfg.num_classes)
         if cfg.num_keypoints:
-            self.keypoint_head = rh.KeypointHead(channels)
+            self.keypoint_head = rh.KeypointHead(channels, quant=quant_kp)
             self.keypoint_predictor = rh.KeypointPredictor(512, cfg.num_keypoints)
 
 
@@ -101,15 +101,23 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class GeneralizedRCNN(nn.Module):
-    """Backbone + FPN, RPN and RoI heads; see the module docstring."""
+    """Backbone + FPN, RPN and RoI heads; see the module docstring.
 
-    def __init__(self, backbone: BackboneWithFPN, cfg: RCNNConfig):
+    ``quant`` (``None``, ``"calibrate"`` or ``"int8"``) quantizes the RPN's
+    shared conv, ``quant_kp`` the keypoint head's eight convolutions; the
+    backbone carries its own flags (JAX ``GeneralizedRCNN(quant, quant_kp)``).
+    """
+
+    def __init__(self, backbone: BackboneWithFPN, cfg: RCNNConfig, quant: str | None = None,
+                 quant_kp: str | None = None):
         super().__init__()
         self.cfg = cfg
         self.backbone = backbone
         self.num_anchors = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
-        self.rpn = RPN(backbone.out_channels, self.num_anchors)
-        self.roi_heads = RoIHeads(cfg, backbone.out_channels)
+        # the RPN sees every pyramid level: the FPN's and the max-pool one
+        self.rpn = RPN(backbone.out_channels, self.num_anchors, quant,
+                       num_levels=len(backbone.fpn.in_levels) + 1)
+        self.roi_heads = RoIHeads(cfg, backbone.out_channels, quant_kp)
 
     def _roi_align(self, pool, strides, boxes_flat, batch_idx, output_size):
         """RoIAlign over the pooled levels ``pool = (names, NHWC maps)``; the
@@ -261,32 +269,49 @@ class GeneralizedRCNN(nn.Module):
         return out
 
 
+QUANT_SCOPES = ("trunk", "fpn", "rpn", "full")
+
+
+def _quant_trunk(stage_sizes, quant: str | None, quant_scope: str):
+    """The ResNet-50-FPN backbone with int8 twins per ``quant_scope`` (JAX
+    ``rcnn.py``): the trunk always, the FPN for ``fpn`` and ``full``; returns
+    ``(backbone, the RPN's quant)``, the RPN quantized for ``rpn`` and
+    ``full``."""
+    if quant_scope not in QUANT_SCOPES:
+        raise ValueError(f"quant_scope {quant_scope!r}: expected one of {QUANT_SCOPES}")
+    body = ResNet(stage_sizes=stage_sizes, features_only=True, quant=quant)
+    backbone = BackboneWithFPN(body, quant=quant if quant_scope in ("fpn", "full") else None)
+    return backbone, quant if quant_scope in ("rpn", "full") else None
+
+
 def maskrcnn_resnet50_fpn(num_classes: int = 2, box_detections_per_img: int = 3,
                           stage_sizes: tuple[int, ...] = (3, 4, 6, 3), quant=None,
-                          **overrides) -> GeneralizedRCNN:
+                          quant_scope: str = "rpn", **overrides) -> GeneralizedRCNN:
     """The production body detector and segmenter: ResNet-50-FPN Mask R-CNN
     with a frozen-BN trunk, 2 classes, 3 detections an image (JAX
     ``maskrcnn_resnet50_fpn``). ``stage_sizes`` cuts depth for tests;
-    ``overrides`` set :class:`RCNNConfig` fields. ``quant`` (int8) is not
-    ported and raises when given."""
-    if quant is not None:
-        raise NotImplementedError("quant (int8 serving) is not ported")
+    ``overrides`` set :class:`RCNNConfig` fields. ``quant`` (``"calibrate"``
+    or ``"int8"``) with ``quant_scope`` (``trunk``, ``fpn``, ``rpn`` (the
+    default, the shipping scope) or ``full``) builds the int8 serving twin."""
     cfg = RCNNConfig(num_classes=num_classes, with_mask=True,
                      box_detections_per_img=box_detections_per_img, **overrides)
-    body = ResNet(stage_sizes=stage_sizes, features_only=True)
-    return GeneralizedRCNN(BackboneWithFPN(body), cfg)
+    backbone, rpn_quant = _quant_trunk(stage_sizes, quant, quant_scope)
+    return GeneralizedRCNN(backbone, cfg, quant=rpn_quant)
 
 
 def keypointrcnn_resnet50_fpn(num_classes: int = 2, num_keypoints: int = 3,
-                              stage_sizes: tuple[int, ...] = (3, 4, 6, 3),
+                              stage_sizes: tuple[int, ...] = (3, 4, 6, 3), quant=None,
+                              quant_scope: str = "rpn", quant_kp=None,
                               **overrides) -> GeneralizedRCNN:
     """The production head+landmark detector: ResNet-50-FPN keypoint R-CNN with
     a frozen-BN trunk, 3 keypoints, 1 detection per image. ``stage_sizes`` cuts
-    depth for tests; ``overrides`` set :class:`RCNNConfig` fields."""
+    depth for tests; ``overrides`` set :class:`RCNNConfig` fields. ``quant``
+    and ``quant_scope`` as for :func:`maskrcnn_resnet50_fpn`; ``quant_kp``
+    quantizes the keypoint head's convolutions (an independent knob)."""
     cfg = RCNNConfig(num_classes=num_classes, num_keypoints=num_keypoints,
                      box_detections_per_img=1, **overrides)
-    body = ResNet(stage_sizes=stage_sizes, features_only=True)
-    return GeneralizedRCNN(BackboneWithFPN(body), cfg)
+    backbone, rpn_quant = _quant_trunk(stage_sizes, quant, quant_scope)
+    return GeneralizedRCNN(backbone, cfg, quant=rpn_quant, quant_kp=quant_kp)
 
 
 def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: float = 0.99,
@@ -298,10 +323,9 @@ def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: fl
     trunk's norm: frozen statistics (serving), or live BatchNorm with flax
     momentum ``bn_momentum`` (the keypoint config trains with
     ``frozen_stats=False, bn_momentum=0.9``). ``overrides`` set
-    :class:`RCNNConfig` fields. ``quant_kp`` (int8 for the keypoint head) is
-    not ported and raises when given."""
-    if quant_kp is not None:
-        raise NotImplementedError("quant_kp (int8 keypoint head) is not ported")
+    :class:`RCNNConfig` fields. ``quant_kp`` (``"calibrate"`` or ``"int8"``)
+    quantizes the keypoint head's convolutions; the MobileNetV3 trunk has no
+    int8 path, as in JAX."""
     kw = dict(num_classes=2, num_keypoints=3, box_detections_per_img=1,
               anchor_sizes=((32, 64, 128, 256, 512),) * 3, aspect_ratios=(0.5, 1.0, 2.0))
     kw.update(overrides)
@@ -309,7 +333,7 @@ def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: fl
                             bn_momentum=bn_momentum)
     backbone = BackboneWithFPN(body, (body.out_channels["c4"], body.out_channels["c5"]),
                                ("c4", "c5"))
-    return GeneralizedRCNN(backbone, RCNNConfig(**kw))
+    return GeneralizedRCNN(backbone, RCNNConfig(**kw), quant_kp=quant_kp)
 
 
 def frozen_twin(model: GeneralizedRCNN) -> GeneralizedRCNN:

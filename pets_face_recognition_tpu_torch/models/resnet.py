@@ -6,14 +6,24 @@ epsilon 1e-5, eval-mode statistics (the detection trunk's affine trains, see
 ``FrozenBatchNorm2d``). The JAX package's space-to-depth stem is an
 exact rewrite of the 7x7/s2 conv and stores 7x7 weights, so the port runs the
 plain ``Conv2d(3, 64, 7, 2, 3)``.
+
+``quant`` (``None``, ``"calibrate"`` or ``"int8"``) builds the serving int8
+twin (``models/quant.py``): every bottleneck's convolutions become
+:class:`~.quant.QuantConv` behind :class:`~.quant.ActQuant` points, under the
+same parameter names; the stem, the norms and the ReLUs stay float. A float
+``state_dict`` loads into the twin with ``quant.load_float_state_dict`` (a
+non-strict load whose only missing keys are the quant buffers).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Sequence
 
 import torch
 from torch import nn
+
+from .quant import ActQuant, QuantConv, dequantize
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -82,31 +92,57 @@ class LiveBatchNorm2d(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3(stride) -> 1x1 bottleneck, projection shortcut when needed."""
+    """1x1 -> 3x3(stride) -> 1x1 bottleneck, projection shortcut when needed.
+
+    With ``quant`` (JAX ``Bottleneck(quant=...)``) the block input is
+    quantized once (``in_q``) and read by ``conv1``, by the projection
+    shortcut and, dequantized as ``xq * (s_x / 127)``, by the identity
+    residual (in calibrate mode the identity residual is the float input);
+    ``q1`` and ``q2`` sit between the convolutions.
+    """
 
     expansion = 4
 
     def __init__(self, in_ch: int, width: int, stride: int,
-                 norm_layer: Callable[[int], nn.Module]):
+                 norm_layer: Callable[[int], nn.Module], quant: str | None = None):
         super().__init__()
         out_ch = width * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        self.conv1 = conv(in_ch, width, 1, bias=False)
         self.bn1 = norm_layer(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.conv2 = conv(width, width, 3, stride, 1, bias=False)
         self.bn2 = norm_layer(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = conv(width, out_ch, 1, bias=False)
         self.bn3 = norm_layer(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), norm_layer(out_ch))
+                conv(in_ch, out_ch, 1, stride, bias=False), norm_layer(out_ch))
+        self.quant = quant is not None
+        if self.quant:
+            self.in_q, self.q1, self.q2 = (ActQuant(quant) for _ in range(3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self._forward_quant(x)
         y = self.relu(self.bn1(self.conv1(x)))
         y = self.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(y + residual)
+
+    def _forward_quant(self, x: torch.Tensor) -> torch.Tensor:
+        xq, s_x = self.in_q(x)
+        y = self.relu(self.bn1(self.conv1(xq, s_x)))
+        y = self.relu(self.bn2(self.conv2(*self.q1(y))))
+        y = self.bn3(self.conv3(*self.q2(y)))
+        if self.downsample is not None:
+            residual = self.downsample[1](self.downsample[0](xq, s_x))
+        elif self.in_q.mode == "int8":
+            residual = dequantize(xq, s_x)
+        else:
+            residual = x
         return self.relu(y + residual)
 
 
@@ -114,12 +150,14 @@ class ResNet(nn.Module):
     """torchvision-compatible bottleneck ResNet; ``forward`` takes NCHW.
 
     ``features_only`` returns ``{'c2'..'c5'}`` NCHW maps; otherwise the global
-    average pool, then ``fc`` when ``num_classes`` > 0.
+    average pool, then ``fc`` when ``num_classes`` > 0. ``quant`` builds every
+    bottleneck's int8 twin (the stem and ``fc`` stay float).
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 0, features_only: bool = False,
-                 norm_layer: Callable[[int], nn.Module] = FrozenBatchNorm2d):
+                 norm_layer: Callable[[int], nn.Module] = FrozenBatchNorm2d,
+                 quant: str | None = None):
         super().__init__()
         self.features_only = features_only
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -131,7 +169,7 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if (i == 0 and stage > 0) else 1
-                blocks.append(Bottleneck(in_ch, width, stride, norm_layer))
+                blocks.append(Bottleneck(in_ch, width, stride, norm_layer, quant))
                 in_ch = width * Bottleneck.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.out_channels = in_ch

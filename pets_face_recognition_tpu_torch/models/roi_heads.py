@@ -14,6 +14,8 @@ so weights carried over from the JAX package give the same numbers.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -22,6 +24,7 @@ from torch import nn
 from ..losses import cross_entropy, optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from ..ops.nms import nms_keep_sorted_batch_cuda
+from .quant import ActQuant, QuantConv
 from .rpn import _top_k, batched_iou, sample_balanced
 
 BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -82,16 +85,33 @@ class MaskPredictor(nn.Module):
         return self.mask_fcn_logits(torch.relu(self.conv5_mask(x))).permute(0, 2, 3, 1)
 
 
-class KeypointHead(nn.Sequential):
-    """8 x (conv3x3 + relu) at 512 channels (torchvision ``KeypointRCNNHeads``);
-    NCHW in and out."""
+class KeypointHead(nn.Module):
+    """8 x (conv3x3 + relu) at 512 channels (torchvision ``KeypointRCNNHeads``:
+    the convolutions at ``0, 2, .., 14``, the ReLUs between); NCHW in and out.
 
-    def __init__(self, in_channels: int, channels: int = 512, n_convs: int = 8):
-        layers = []
+    With ``quant`` each convolution is a :class:`~.quant.QuantConv` with its
+    bias behind its own :class:`~.quant.ActQuant` (``kps_q.{i}``, the JAX
+    ``kps_q{i+1}`` -> ``kps_fcn{i+1}`` pairs); the ReLUs stay float.
+    """
+
+    def __init__(self, in_channels: int, channels: int = 512, n_convs: int = 8,
+                 quant: str | None = None):
+        super().__init__()
+        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        self.n_convs = n_convs
         for i in range(n_convs):
-            layers += [nn.Conv2d(in_channels if i == 0 else channels, channels, 3,
-                                 padding=1), nn.ReLU(inplace=True)]
-        super().__init__(*layers)
+            self.add_module(str(2 * i), conv(in_channels if i == 0 else channels, channels,
+                                             3, padding=1))
+            self.add_module(str(2 * i + 1), nn.ReLU(inplace=True))
+        self.quant = quant is not None
+        if self.quant:
+            self.kps_q = nn.ModuleList(ActQuant(quant) for _ in range(n_convs))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_convs):
+            conv, relu = getattr(self, str(2 * i)), getattr(self, str(2 * i + 1))
+            x = relu(conv(*self.kps_q[i](x)) if self.quant else conv(x))
+        return x
 
 
 class KeypointPredictor(nn.Module):

@@ -13,6 +13,7 @@ argument, so that a caller can hand both frameworks the same numbers.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence
 
 import torch
@@ -21,25 +22,35 @@ from torch import nn
 from ..losses import optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ..ops.nms import nms_keep_sorted_batch_cuda
+from .quant import ActQuant, QuantConv
 
 
 class RPNHead(nn.Module):
     """Shared 3x3 conv + 1x1 objectness / box-delta heads (torchvision names).
 
     ``forward`` takes the NCHW levels in order and returns ``(B, N)`` logits and
-    ``(B, N, 4)`` deltas, anchors ordered ``(level, y, x, anchor)``.
+    ``(B, N, 4)`` deltas, anchors ordered ``(level, y, x, anchor)``. With
+    ``quant`` the shared conv is one :class:`~.quant.QuantConv` (with its
+    bias) behind one :class:`~.quant.ActQuant` a level (``conv_q.{l}``, the
+    JAX ``conv_q_{lvl}`` in level order); ``cls_logits`` and ``bbox_pred``
+    stay float.
     """
 
-    def __init__(self, in_channels: int, num_anchors: int):
+    def __init__(self, in_channels: int, num_anchors: int, quant: str | None = None,
+                 num_levels: int = 5):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
+        self.quant = quant is not None
+        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        self.conv = conv(in_channels, in_channels, 3, padding=1)
         self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
         self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
+        if self.quant:
+            self.conv_q = nn.ModuleList(ActQuant(quant) for _ in range(num_levels))
 
     def forward(self, feats: Sequence[torch.Tensor]):
         logits, deltas = [], []
-        for x in feats:
-            t = torch.relu(self.conv(x))
+        for lvl, x in enumerate(feats):
+            t = torch.relu(self.conv(*self.conv_q[lvl](x)) if self.quant else self.conv(x))
             B = t.shape[0]
             logits.append(self.cls_logits(t).permute(0, 2, 3, 1).reshape(B, -1))
             deltas.append(self.bbox_pred(t).permute(0, 2, 3, 1).reshape(B, -1, 4))
@@ -49,9 +60,10 @@ class RPNHead(nn.Module):
 class RPN(nn.Module):
     """Holds the head under torchvision's ``rpn.head`` name."""
 
-    def __init__(self, in_channels: int, num_anchors: int):
+    def __init__(self, in_channels: int, num_anchors: int, quant: str | None = None,
+                 num_levels: int = 5):
         super().__init__()
-        self.head = RPNHead(in_channels, num_anchors)
+        self.head = RPNHead(in_channels, num_anchors, quant, num_levels)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         return self.head(feats)

@@ -8,8 +8,21 @@ embedder -> a 512-d vector.
 The models come in as arguments: a keypoint detector and two head embedders,
 for dogs (animal type 1) and cats (type 2), and for the body a Mask R-CNN and
 two body embedders. :func:`build_retrieval_models` makes them at full width
-with seeded random weights (no trained torch weights exist);
-``weights.retrieval_state_dicts`` carries the JAX package's over.
+with seeded random weights, or an embedder from the port FE checkpoint that
+``PFR_{DOG,CAT}_{HEAD,BODY}_FE_CKPT`` names (the JAX
+``configs/retrieval_config.py`` variables); ``weights.retrieval_state_dicts``
+carries the JAX package's over.
+
+Every factory obeys the process quant mode (``models/ptq.py``:
+``PFR_QUANT_MODE``, ``PFR_QUANT_STATE``, ``PFR_QUANT_COMPONENTS``), as the
+JAX ``configs/pipelines.py::_detector_fn`` and
+``configs/retrieval_common.py::_embedder_fn`` do: under ``calibrate`` or
+``int8`` the model is built as its quant twin over the same weights and
+wrapped in a ``PTQModelFn``. Mask R-CNN supports only the ``detector``
+component and the MobileNetV3 detector only ``kp_head``; a requested
+component that a factory does not support falls back to float with JAX's
+message. :func:`keypoint_detector` binds the dataset-version checkpoints of
+``KEYPOINT_VARIANTS`` (``Preproc7``-``13``).
 """
 
 from __future__ import annotations
@@ -23,19 +36,87 @@ import torch
 from torch import nn
 
 from .device import float32_matmuls, resolve_device
+from .models import ptq
 from .models.embedder import resnet50_embedder
+from .models.quant import load_float_state_dict, quant_state
 from .models.rcnn import KEYPOINT_ARCHS, maskrcnn_resnet50_fpn
 from .preprocessor import Preproc3, Preproc4
-from .serving import build_serving_models, serving_detector
+from .serving import serving_detector
 from .utils.preprocs import resize_with_padding
 from .weights import init_random_
 
 DOG, CAT = 1, 2
 BODY_SIZE = (256, 256)
+# the embedders' checkpoint variables and defaults (JAX ``retrieval_config.py``)
+FE_CKPTS = {"fe_cat_head": ("PFR_CAT_HEAD_FE_CKPT", "results/cat_fe/checkpoints"),
+            "fe_dog_head": ("PFR_DOG_HEAD_FE_CKPT", "results/dog_fe/checkpoints"),
+            "fe_cat_body": ("PFR_CAT_BODY_FE_CKPT", "results/cat_body_fe/checkpoints"),
+            "fe_dog_body": ("PFR_DOG_BODY_FE_CKPT", "results/dog_body_fe/checkpoints")}
+# dataset-version keypoint checkpoints (JAX ``configs/pipelines.py``): prod
+# for Preproc3/6/13, v2 for Preproc7/8, v3 for Preproc9/10, v4 for Preproc11/12
+KEYPOINT_VARIANTS = {
+    "prod": ("PFR_KEYPOINT_CKPT", "results/keypoint/checkpoints"),
+    "v2": ("PFR_KEYPOINT_CKPT_V2", "results/keypoint_v2/checkpoints"),
+    "v3": ("PFR_KEYPOINT_CKPT_V3", "results/keypoint_v3/checkpoints"),
+    "v4": ("PFR_KEYPOINT_CKPT_V4", "results/keypoint_v4/checkpoints"),
+}
 
 
-def _embedder(seed: int, dev: torch.device) -> nn.Module:
-    return init_random_(resnet50_embedder(512), seed).eval().requires_grad_(False).to(dev)
+def detector_quant(name: str, supports: tuple[str, ...] = ("detector", "kp_head")
+                   ) -> tuple[str, str | None, str | None]:
+    """``(mode, quant, quant_kp)`` for a detector factory under the process
+    quant mode, as the JAX ``_detector_fn`` decides them: ``supports`` lists
+    the components the factory's model has; a requested one it lacks falls
+    back to float, and is named."""
+    mode = ptq.quant_mode()
+    comps = ptq.quant_components() & set(supports)
+    if mode:
+        dropped = (ptq.quant_components() & {"detector", "kp_head"}) - comps
+        if dropped:
+            print(f"PTQ: {name}: requested quant component(s) "
+                  f"{sorted(dropped)} unsupported by this factory — "
+                  f"falling back to float for those stages")
+    det_q = mode if (mode and "detector" in comps) else None
+    kp_q = mode if (mode and "kp_head" in comps) else None
+    if mode and det_q is None and kp_q is None:
+        print(f"PTQ: {name}: no supported quant components selected "
+              f"under PFR_QUANT_MODE={mode!r} — serving FLOAT")
+    return mode, det_q, kp_q
+
+
+def _served(name: str, model: nn.Module, mode: str, dev: torch.device) -> nn.Module:
+    """``model`` in eval mode on ``dev``; a quant twin behind a
+    ``PTQModelFn`` for the process quant ``mode``."""
+    model = model.eval().requires_grad_(False).to(dev)
+    if mode and quant_state(model):
+        return ptq.PTQModelFn(ptq.PTQServing(name, model), mode)
+    return model
+
+
+def embedder(name: str, seed: int, device: str | torch.device = "cuda") -> nn.Module:
+    """One retrieval embedder (``name`` in :data:`FE_CKPTS`, e.g.
+    ``fe_dog_head``): the port FE checkpoint that its variable names (a
+    folder gives its newest ``epoch=*-step=*``; the margin head is dropped),
+    else seeded random weights from ``seed``; a variable that names no
+    checkpoint raises. Under ``PFR_QUANT_MODE`` with the ``embedder``
+    component, its int8 twin (the trunk quantized, ``fc`` float), calibrated
+    on what it embeds (224 x 224 head crops, 256 x 256 body crops). Eval mode
+    on ``device``."""
+    from .engine.checkpoint import load_params
+
+    dev = resolve_device(device)
+    mode = ptq.quant_mode()
+    quant = mode if (mode and "embedder" in ptq.quant_components()) else None
+    model = resnet50_embedder(512, quant=quant)
+    ckpt = _checkpoint(*FE_CKPTS[name])
+    if ckpt is None:
+        init_random_(model, seed)
+    else:
+        sd = load_params(ckpt)
+        if any(k.startswith("model.") for k in sd):
+            sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+        load_float_state_dict(model, sd)
+    return _served(name, model, mode, dev)
 
 
 def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
@@ -50,12 +131,30 @@ def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
     of :func:`mask_detector` (random weights from ``seed + 3`` when no
     checkpoint is found) and two embedders from ``seed + 4`` and ``seed + 5``."""
     dev = resolve_device(device)
-    detector, dog, _ = build_serving_models(dev, seed, detector_kind=arch)
-    models = (detector, dog, _embedder(seed + 2, dev))
+    models = (serving_keypoint_detector(dev, seed, arch), embedder("fe_dog_head", seed + 1, dev),
+              embedder("fe_cat_head", seed + 2, dev))
     if body:
-        models += (mask_detector(dev, seed + 3), _embedder(seed + 4, dev),
-                   _embedder(seed + 5, dev))
+        models += (mask_detector(dev, seed + 3), embedder("fe_dog_body", seed + 4, dev),
+                   embedder("fe_cat_body", seed + 5, dev))
     return models
+
+
+def serving_keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
+                              arch: str = "resnet50") -> nn.Module:
+    """``serving.serving_detector`` (the serving budgets, weights from
+    ``seed``) under the process quant mode, named as the JAX ``prod``
+    keypoint pipeline."""
+    dev = resolve_device(device)
+    name, supports = _keypoint_name(arch, "prod")
+    mode, det_q, kp_q = detector_quant(name, supports)
+    model = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q)
+    return _served(name, model, mode, dev)
+
+
+def _keypoint_name(arch: str, variant: str) -> tuple[str, tuple[str, ...]]:
+    if arch == "mobile":
+        return f"det_keypoint_mobile_{variant}", ("kp_head",)
+    return f"det_keypoint_{variant}", ("detector", "kp_head")
 
 
 def _checkpoint(env: str, default: str) -> Path | None:
@@ -88,44 +187,57 @@ def mask_detector(device: str | torch.device = "cuda", seed: int = 0) -> nn.Modu
     from .engine.checkpoint import load_params
 
     dev = resolve_device(device)
-    detector = maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3)
+    mode, det_q, _ = detector_quant("det_mask", ("detector",))
+    detector = maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3, quant=det_q)
     ckpt = _checkpoint("PFR_MASK_CKPT", "results/mask/checkpoints")
     if ckpt is None:
         print(f"no mask checkpoint at results/mask/checkpoints: seeded random weights "
               f"(seed {seed})", flush=True)
         init_random_(detector, seed)
     else:
-        detector.load_state_dict(load_params(ckpt), strict=True)
-    return detector.eval().requires_grad_(False).to(dev)
+        load_float_state_dict(detector, load_params(ckpt))
+    return _served("det_mask", detector, mode, dev)
 
 
-def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0) -> nn.Module:
+def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
+                      variant: str = "prod") -> nn.Module:
     """The head detector of the offline transforms, as the JAX
-    ``configs/pipelines.py::keypoint_pipeline`` resolves it: the port
-    checkpoint named by ``PFR_KEYPOINT_CKPT`` (default
-    ``results/keypoint/checkpoints``; a folder gives its newest
+    ``configs/pipelines.py::keypoint_pipeline(variant)`` resolves it: the
+    port checkpoint that ``variant``'s variable in :data:`KEYPOINT_VARIANTS`
+    names (``prod``: ``PFR_KEYPOINT_CKPT``, default
+    ``results/keypoint/checkpoints``; ``v2``/``v3``/``v4``:
+    ``PFR_KEYPOINT_CKPT_V2``/``_V3``/``_V4``; a folder gives its newest
     ``epoch=*-step=*``), loaded into the ``PFR_KEYPOINT_ARCH`` detector with
     frozen norms at ``RCNNConfig``'s test budgets (the RPN's top 1000 a
     level into NMS, 1000 an image out), as the JAX factory builds it. Without the
     variable and without a checkpoint at the default, the serving detector
     of :func:`build_retrieval_models` with weights from ``seed``
     (``serving.serving_detector``, at the serving budgets of 128 and 16); a
-    ``PFR_KEYPOINT_CKPT`` that names no checkpoint raises. In eval mode on
-    ``device``."""
+    variable that names no checkpoint raises. Under ``PFR_QUANT_MODE``, the
+    int8 twin (``det_keypoint_{variant}``, or ``det_keypoint_mobile_{variant}``
+    with the ``kp_head`` component alone). In eval mode on ``device``."""
     from .engine.checkpoint import load_params
     from .models.rcnn import keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn
 
+    if variant not in KEYPOINT_VARIANTS:
+        raise ValueError(f"keypoint variant {variant!r}: expected one of "
+                         f"{sorted(KEYPOINT_VARIANTS)}")
     dev = resolve_device(device)
     arch = keypoint_arch()
-    ckpt = _checkpoint("PFR_KEYPOINT_CKPT", "results/keypoint/checkpoints")
+    env, default = KEYPOINT_VARIANTS[variant]
+    ckpt = _checkpoint(env, default)
+    name, supports = _keypoint_name(arch, variant)
+    mode, det_q, kp_q = detector_quant(name, supports)
     if ckpt is None:
-        print(f"no keypoint checkpoint at results/keypoint/checkpoints: "
+        print(f"no keypoint checkpoint at {default}: "
               f"seeded random weights (seed {seed})", flush=True)
-        return serving_detector(dev, seed, arch)
-    detector = (keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3) if arch == "resnet50"
-                else mobile_net_v3_large_keypoint_rcnn(frozen_stats=True))
-    detector.load_state_dict(load_params(ckpt), strict=True)
-    return detector.eval().requires_grad_(False).to(dev)
+        detector = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q)
+    else:
+        detector = (keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, quant=det_q,
+                                              quant_kp=kp_q) if arch == "resnet50"
+                    else mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, quant_kp=kp_q))
+        load_float_state_dict(detector, load_params(ckpt))
+    return _served(name, detector, mode, dev)
 
 
 def keypoint_arch() -> str:

@@ -25,6 +25,13 @@ extents alone cross to the host); an empty mask or crop drops the image.
 ``Preproc5`` weighs the photo by a soft mask (squared below ``mask_thr``)
 without tightening, and ``PreprocCombined`` aligns the head of the masked
 body crop. Everything runs in float32 with TF32 off.
+
+The dataset-version pipelines ``Preproc7``-``13`` are ``Preproc3`` (aligned)
+or ``Preproc6`` (head box crop) bound to a keypoint checkpoint variant
+(``pipelines.KEYPOINT_VARIANTS``): built without a model, they load
+``pipelines.keypoint_detector(variant=...)`` on first use, as the JAX
+package's deferred loader does; an explicit model wins. ``IdentityPreproc``
+passes photos through.
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ from ..ops.masks import paste_mask
 from ..utils.collate import letterbox_image
 from .align import align, align_batch
 
-__all__ = ["DEFAULT_BASE_PTS", "Preproc3", "Preproc4", "Preproc5", "Preproc6",
-           "PreprocCombined", "align", "align_batch"]
+__all__ = ["DEFAULT_BASE_PTS", "IdentityPreproc", "Preproc3", "Preproc4", "Preproc5",
+           "Preproc6", "Preproc7", "Preproc8", "Preproc9", "Preproc10", "Preproc11",
+           "Preproc12", "Preproc13", "PreprocCombined", "align", "align_batch"]
 
 # Canonical head landmarks in the 224 x 224 crop.
 DEFAULT_BASE_PTS = np.array([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]], np.float32)
@@ -66,15 +74,30 @@ def _photos(images, device: torch.device) -> list[torch.Tensor]:
 
 class _ModelPipeline:
     """A detector (an ``nn.Module`` taking ``(B, H, W, 3)`` float images in
-    [0, 1]) and the letterboxing in front of it."""
+    [0, 1]) and the letterboxing in front of it. ``model`` may be ``None``
+    when ``_loader(device)`` is set: the detector is then loaded on first use."""
 
-    def __init__(self, model: nn.Module, input_size: tuple[int, int] = (320, 320),
+    _loader = None
+
+    def __init__(self, model: nn.Module | None, input_size: tuple[int, int] = (320, 320),
                  serve_batch: int | None = None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.model = model
         self.input_size = tuple(input_size)
         # when set, every detector call is zero-padded to this many images
         self.serve_batch = serve_batch
+
+    @property
+    def model(self) -> nn.Module:
+        if self._model is None:
+            if self._loader is None:
+                raise ValueError(f"{type(self).__name__}: no model and no loader")
+            self._model = self._loader(self.device)
+        return self._model
+
+    @model.setter
+    def model(self, model: nn.Module | None) -> None:
+        self._model = model
 
     def _prepare(self, images: Sequence[torch.Tensor]):
         """Letterbox ``(H, W, 3)`` device images to the input size. Returns
@@ -341,3 +364,78 @@ class PreprocCombined:
         usable = [c if v and c is not None else p for c, v, p in zip(crops, valid, photos)]
         aligned, valid2, raw = self.keypoint_pipeline.batch(usable)
         return aligned, np.asarray(valid) & np.asarray(valid2), raw
+
+
+def _variant_loader(variant: str):
+    """Deferred loader of ``variant``'s keypoint detector (``load(device)``)."""
+    def load(device):
+        from ..pipelines import keypoint_detector
+
+        return keypoint_detector(device, variant=variant)
+
+    load.variant = variant
+    return load
+
+
+class _VariantBinding:
+    """Mixin: built without a model, bind the class's checkpoint variant."""
+
+    CKPT_VARIANT = "prod"
+
+    def __init__(self, model: nn.Module | None = None, *args, **kwargs):
+        super().__init__(model, *args, **kwargs)
+        if model is None:
+            self._loader = _variant_loader(self.CKPT_VARIANT)
+
+
+class Preproc7(_VariantBinding, Preproc3):
+    """Aligned head crop, dataset-v2 keypoint checkpoint."""
+
+    CKPT_VARIANT = "v2"
+
+
+class Preproc8(_VariantBinding, Preproc6):
+    """Head box crop, dataset-v2 keypoint checkpoint."""
+
+    CKPT_VARIANT = "v2"
+
+
+class Preproc9(_VariantBinding, Preproc3):
+    """Aligned head crop, dataset-v3 keypoint checkpoint."""
+
+    CKPT_VARIANT = "v3"
+
+
+class Preproc10(_VariantBinding, Preproc6):
+    """Head box crop, dataset-v3 keypoint checkpoint."""
+
+    CKPT_VARIANT = "v3"
+
+
+class Preproc11(_VariantBinding, Preproc3):
+    """Aligned head crop, dataset-v4 keypoint checkpoint."""
+
+    CKPT_VARIANT = "v4"
+
+
+class Preproc12(_VariantBinding, Preproc6):
+    """Head box crop, dataset-v4 keypoint checkpoint."""
+
+    CKPT_VARIANT = "v4"
+
+
+class Preproc13(_VariantBinding, Preproc6):
+    """Head box crop on the production keypoint checkpoint (as ``Preproc6``)."""
+
+    CKPT_VARIANT = "prod"
+
+
+class IdentityPreproc:
+    """Passthrough."""
+
+    def __call__(self, img):
+        return img
+
+    def batch(self, images):
+        arr = [np.asarray(i) for i in images]
+        return arr, np.ones(len(arr), bool), {}

@@ -62,16 +62,23 @@ def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
 
 
 def serving_detector(device: str | torch.device = "cuda", seed: int = 0,
-                     detector_kind: str = "resnet50") -> nn.Module:
+                     detector_kind: str = "resnet50", quant: str | None = None,
+                     quant_kp: str | None = None) -> nn.Module:
     """:func:`build_serving_models`' detector alone, the same weights from
-    ``seed``."""
+    ``seed``; ``quant`` (the ResNet-50 trunk and RPN, scope ``rpn``) and
+    ``quant_kp`` (the keypoint head) build its int8 twin over those weights
+    (the MobileNetV3 trunk has no int8 path: ``quant`` is refused there)."""
     dev = resolve_device(device)
     budgets = dict(rpn_pre_nms_top_n_test=RPN_PRE_NMS_TOP_N,
                    rpn_post_nms_top_n_test=RPN_POST_NMS_TOP_N)
     if detector_kind == "resnet50":
-        detector = keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, **budgets)
+        detector = keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, quant=quant,
+                                             quant_kp=quant_kp, **budgets)
     elif detector_kind == "mobile":
-        detector = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, **budgets)
+        if quant is not None:
+            raise ValueError("the MobileNetV3 trunk has no int8 path: pass quant_kp alone")
+        detector = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, quant_kp=quant_kp,
+                                                     **budgets)
     else:
         raise ValueError(f"detector kind {detector_kind!r}: expected one of {KEYPOINT_ARCHS}")
     init_random_(detector, seed)

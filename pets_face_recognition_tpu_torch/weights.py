@@ -284,6 +284,68 @@ def torchvision_keypoint_state_dict(sd: Mapping[str, np.ndarray]) -> dict[str, n
 torchvision_maskrcnn_state_dict = torchvision_keypoint_state_dict
 
 
+def _quant_leaves(tree: Mapping, path: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _quant_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _quant_module_name(path: tuple[str, ...], rpn_levels: list[str]) -> str:
+    """A JAX module path of the ``quant`` collection -> the port's module name."""
+    out = []
+    for part in path:
+        if m := re.fullmatch(r"layer(\d+)_(\d+)", part):        # a trunk bottleneck
+            out.append(f"layer{m.group(1)}.{m.group(2)}")
+        elif part == "downsample_conv":
+            out.append("downsample.0")
+        elif m := re.fullmatch(r"(inner|layer)_q(\d+)", part):  # FPN quant points
+            out.append(f"{m.group(1)}_q.{m.group(2)}")
+        elif m := re.fullmatch(r"(inner|layer)_(\d+)", part):   # FPN convs
+            out.append(f"{m.group(1)}_blocks.{m.group(2)}")
+        elif m := re.fullmatch(r"conv_q_(\w+)", part):         # RPN, one a level
+            out.append(f"conv_q.{rpn_levels.index(m.group(1))}")
+        elif m := re.fullmatch(r"kps_q(\d+)", part):
+            out.append(f"kps_q.{int(m.group(1)) - 1}")
+        elif m := re.fullmatch(r"kps_fcn(\d+)", part):
+            out.append(str(2 * (int(m.group(1)) - 1)))
+        else:
+            out.append(part)
+    return ".".join(out)
+
+
+def quant_state_dict(quant: Mapping, kind: str = "detection") -> dict[str, np.ndarray]:
+    """A JAX ``quant`` collection (numpy leaves: ``scale`` and ``seen`` of each
+    ``ActQuant``, ``kernel_q`` HWIO int8 and ``w_scale`` of each
+    ``QuantConv``) -> the port's quant buffers (``scale``, ``seen``,
+    ``weight_q`` OIHW, ``w_scale``) by ``state_dict`` name, for ``kind``:
+
+    - ``"detection"``: a ``GeneralizedRCNN`` (``backbone/backbone`` ->
+      ``backbone.body``, ``backbone/fpn`` -> ``backbone.fpn``, ``rpn`` ->
+      ``rpn.head`` with ``conv_q_{lvl}`` in level order, ``keypoint_head``
+      -> ``roi_heads.keypoint_head``);
+    - ``"embedder"``: an ``EmbeddingModel`` (``backbone`` -> the port's
+      ``EmbeddingModel``, a ResNet itself);
+    - ``"resnet"``: a bare ``ResNet``.
+    """
+    roots = {"detection": {"backbone": {"backbone": "backbone.body", "fpn": "backbone.fpn"},
+                           "rpn": "rpn.head", "keypoint_head": "roi_heads.keypoint_head"},
+             "embedder": {"backbone": ""}, "resnet": None}[kind]
+    rpn_levels = sorted(k[len("conv_q_"):] for k in quant.get("rpn", {})
+                        if k.startswith("conv_q_"))
+    sd: dict[str, np.ndarray] = {}
+    for path, leaf in _quant_leaves(quant):
+        root, rest = roots, list(path)
+        while isinstance(root, Mapping):
+            root = root[rest.pop(0)]
+        name = ".".join(p for p in (root, _quant_module_name(tuple(rest[:-1]), rpn_levels)) if p)
+        buf = {"kernel_q": "weight_q"}.get(rest[-1], rest[-1])
+        value = _conv(leaf) if buf == "weight_q" else np.asarray(leaf)
+        sd[f"{name}.{buf}"] = value
+    return sd
+
+
 def to_tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 

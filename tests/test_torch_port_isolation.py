@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
         "losses.losses", "losses.large_margin", "engine.metrics", "engine.controller",
         "data_loading.pairs", "native.png", "utils.preprocs", "smoke_data", "eval_fe",
         "transform_reproduce", "transform_dataset", "ops.masks", "prepare_tables",
-        "data_loading.oxford", "data_loading.transforms", "main_detection", "eval_detection")]
+        "data_loading.oxford", "data_loading.transforms", "main_detection", "eval_detection",
+        "models.quant", "models.ptq", "near_tie", "score_detection", "score_landmark")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -163,3 +164,57 @@ def test_kernel_build_is_one_nvcc_call_over_the_port_sources():
     code = "\n".join(line for line in Path(_build.__file__).read_text().splitlines()
                      if re.match(r"\s*(import|from)\s", line))
     assert "cpp_extension" not in code and "ninja" not in code
+
+
+def test_int8_path_and_scorers_load_no_pil_cv2_pandas_or_sklearn(tmp_path):
+    """An int8 calibrate-and-serve of a small detector and embedder, the PTQ
+    workflow with its state file, ``near_tie`` and both scorers over a small
+    table run in a process that never loads PIL, cv2, pandas or
+    scikit-learn."""
+    code = f"""
+import pickle, sys
+import numpy as np, torch
+from pets_face_recognition_tpu_torch import near_tie, score_detection, score_landmark
+from pets_face_recognition_tpu_torch.models import ptq, quant, rcnn
+from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
+det = rcnn.keypointrcnn_resnet50_fpn(stage_sizes=(1, 1, 1, 1), quant="calibrate",
+                                     quant_kp="calibrate", rpn_pre_nms_top_n_test=16,
+                                     rpn_post_nms_top_n_test=4).eval()
+emb = resnet50_embedder(8, stage_sizes=(1, 1, 1, 1), quant="calibrate").eval()
+x = torch.rand(1, 64, 64, 3)
+for name, m in (("det", det), ("emb", emb)):
+    r = ptq.register(ptq.PTQServing(name, m))
+    r.calibrate(x)
+    r.serve(x)
+ptq.save_quant_state(r"{tmp_path / 'qs.pkl'}")
+anno = r"{tmp_path / 'anno.pickle'}"
+entry = {{"Head": {{"x": 10, "y": 10, "width": 50, "height": 50}},
+         "Left eye": {{"x": 20, "y": 30}}, "Right eye": {{"x": 40, "y": 30}},
+         "Nose": {{"x": 30, "y": 50}}, "resolution": (100, 100)}}
+pickle.dump([{{"a.jpg": [entry]}}, {{}}], open(anno, "wb"))
+score_detection.compute_scores_data_25([{{"query": "a.jpg", "detections": "[[10, 10, 60, 60]]",
+                                        "scores": "[0.9]"}}], "Head", anno)
+score_landmark.compute_scores_data_25([{{"query": "a.jpg", "Left eye": "[20, 30]",
+                                       "Right eye": "[40, 30]", "Nose": "[30, 50]"}}], anno)
+bad = [m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "pandas", "sklearn")]
+assert not bad, bad
+print("clean")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+    assert "Dog Head AP at 0.5 = 1.0" in out.stdout and "Dog NME = 0.0" in out.stdout
+
+
+def test_variant_factories_default_to_cuda_and_raise_without_it(monkeypatch):
+    """``keypoint_detector(variant=...)`` and the ``Preproc7``-``13`` pipelines,
+    as the entry points above."""
+    from pets_face_recognition_tpu_torch import pipelines
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc7, Preproc13
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: pipelines.keypoint_detector(variant="v3"), Preproc7, Preproc13,
+                 lambda: pipelines.embedder("fe_dog_head", 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

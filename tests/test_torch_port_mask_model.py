@@ -182,8 +182,10 @@ def test_keypoint_factories_keep_one_detection():
     assert mobile.cfg.box_detections_per_img == 1
     assert rcnn.frozen_twin(mobile).cfg.box_detections_per_img == 1
     assert rcnn.maskrcnn_resnet50_fpn(stage_sizes=STAGES).cfg.box_detections_per_img == 3
-    with pytest.raises(NotImplementedError):
-        rcnn.maskrcnn_resnet50_fpn(quant="int8")
+    assert rcnn.maskrcnn_resnet50_fpn(stage_sizes=STAGES,
+                                      quant="int8").cfg.box_detections_per_img == 3
+    with pytest.raises(ValueError, match="quant_scope"):
+        rcnn.maskrcnn_resnet50_fpn(stage_sizes=STAGES, quant="int8", quant_scope="head")
 
 
 @pytest.mark.parametrize("seed,thr", [(0, 0.5), (1, 0.7)])

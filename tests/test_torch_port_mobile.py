@@ -232,8 +232,14 @@ def test_mobile_roi_align_reads_levels_from_the_pyramid(monkeypatch):
 
 
 def test_mobile_factory_refuses_int8_keypoint_head():
-    with pytest.raises(NotImplementedError, match="quant_kp"):
-        rcnn.mobile_net_v3_large_keypoint_rcnn(quant_kp="int8")
+    """``quant_kp`` builds the int8 keypoint head (the MobileNetV3 trunk has
+    no int8 path, as in JAX); a mode other than calibrate or int8 is refused."""
+    from pets_face_recognition_tpu_torch.models import quant
+
+    det = rcnn.mobile_net_v3_large_keypoint_rcnn(quant_kp="int8")
+    assert {k.split(".")[1] for k in quant.quant_state(det)} == {"keypoint_head"}
+    with pytest.raises(ValueError, match="quant mode"):
+        rcnn.mobile_net_v3_large_keypoint_rcnn(quant_kp="int4")
 
 
 def test_mobile_serving_models_stay_in_eval_and_embed():
