@@ -35,7 +35,7 @@ from ..device import float32_matmuls
 
 QUANT_MODES = ("calibrate", "int8")
 # ``torch._int_mm`` on a CUDA device takes more than 16 rows and K and N that
-# are multiples of 8; the int8 route pads with zeros to these (exact)
+# are multiples of 8; the int8 route always pads with zeros to these (exact)
 _CUDA_MIN_ROWS, _CUDA_ALIGN = 17, 8
 
 
@@ -96,24 +96,20 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros(shape)], dim)
 
 
-def int_mm(a: torch.Tensor, b_t: torch.Tensor, pad: bool | None = None) -> torch.Tensor:
+def int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """``a (M, K) int8 @ b_t.T`` for ``b_t (N, K) int8`` -> ``(M, N)`` int32,
-    summed exactly in int32 (``torch._int_mm``). With ``pad`` (by default, on
-    a CUDA device) rows are zero-padded to more than 16 and K and N to
-    multiples of 8, the shapes cuBLASLt's int8 GEMM takes; zeros add nothing,
-    so the product is the same. Raises where ``torch._int_mm`` does: there is
-    no float fallback."""
+    summed exactly in int32 (``torch._int_mm``). Rows are zero-padded to more
+    than 16 and K and N to multiples of 8, the shapes cuBLASLt's int8 GEMM
+    takes, on every device; zeros add nothing, so the product is the same,
+    and an aligned operand is used as it is. Raises where ``torch._int_mm``
+    does: there is no float fallback."""
     M, K = a.shape
     N = b_t.shape[0]
-    if pad is None:
-        pad = a.is_cuda
-    if pad:
-        k8 = -(-K // _CUDA_ALIGN) * _CUDA_ALIGN
-        n8 = -(-N // _CUDA_ALIGN) * _CUDA_ALIGN
-        a = _pad_to(_pad_to(a, 1, k8), 0, max(M, _CUDA_MIN_ROWS))
-        b_t = _pad_to(_pad_to(b_t, 1, k8), 0, n8)
-    out = torch._int_mm(a.contiguous(), b_t.contiguous().t())
-    return out[:M, :N] if pad else out
+    k8 = -(-K // _CUDA_ALIGN) * _CUDA_ALIGN
+    n8 = -(-N // _CUDA_ALIGN) * _CUDA_ALIGN
+    a = _pad_to(_pad_to(a, 1, k8), 0, max(M, _CUDA_MIN_ROWS))
+    b_t = _pad_to(_pad_to(b_t, 1, k8), 0, n8)
+    return torch._int_mm(a.contiguous(), b_t.contiguous().t())[:M, :N]
 
 
 def im2col(x: torch.Tensor, kernel_size: tuple[int, int], stride: tuple[int, int],
@@ -138,12 +134,11 @@ def im2col(x: torch.Tensor, kernel_size: tuple[int, int], stride: tuple[int, int
     return cols.reshape(B * Ho * Wo, C * kh * kw), Ho, Wo
 
 
-def int8_conv2d_acc(xq: torch.Tensor, weight_q: torch.Tensor, stride, padding,
-                    pad: bool | None = None) -> torch.Tensor:
+def int8_conv2d_acc(xq: torch.Tensor, weight_q: torch.Tensor, stride, padding) -> torch.Tensor:
     """The int32 accumulators of an int8 convolution: ``(B, Ho, Wo, O)``."""
     O = weight_q.shape[0]
     cols, Ho, Wo = im2col(xq, tuple(weight_q.shape[2:]), stride, padding)
-    acc = int_mm(cols, weight_q.reshape(O, -1), pad)
+    acc = int_mm(cols, weight_q.reshape(O, -1))
     return acc.reshape(xq.shape[0], Ho, Wo, O)
 
 

@@ -130,8 +130,6 @@ def test_quant_conv_calibrate_and_int8_match_jax(cin, cout, k, stride, pad, bias
     acc = tq.int8_conv2d_acc(xt, port.weight_q, port.stride, port.padding)
     assert acc.dtype == torch.int32
     np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_want))
-    acc_padded = tq.int8_conv2d_acc(xt, port.weight_q, port.stride, port.padding, pad=True)
-    np.testing.assert_array_equal(acc_padded.numpy(), np.asarray(acc_want))
     with torch.no_grad():
         got = port(xt, torch.tensor(s_x)).numpy().transpose(0, 2, 3, 1)
     want = np.asarray(want)
@@ -142,19 +140,19 @@ def test_quant_conv_calibrate_and_int8_match_jax(cin, cout, k, stride, pad, bias
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 8), (16, 45, 24), (5, 7, 3), (40, 2304, 512)])
 def test_padded_int_mm_equals_int64_product(M, K, N):
-    """The route the card takes: rows padded past 16, K and N to multiples
-    of 8, with zeros; the int32 product equals an int64 one exactly."""
+    """The one route, on every device: rows padded past 16, K and N to
+    multiples of 8, with zeros; the int32 product equals an int64 one
+    exactly, at shapes that need each padding and at an aligned one."""
     g = torch.Generator().manual_seed(M + K + N)
     a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
     b = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
     want = a.long() @ b.long().t()
-    for pad in (True, False):
-        got = tq.int_mm(a, b, pad=pad)
-        assert got.dtype == torch.int32 and got.shape == (M, N)
-        assert torch.equal(got.long(), want)
+    got = tq.int_mm(a, b)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.long(), want)
     # worst case of the widest contraction: every product 127 * 127
     full = torch.full((17, 4608), 127, dtype=torch.int8)
-    assert int(tq.int_mm(full, full[:8], pad=True)[0, 0]) == 4608 * 127 * 127
+    assert int(tq.int_mm(full, full[:8])[0, 0]) == 4608 * 127 * 127
 
 
 def test_im2col_one_by_one_is_a_view_of_channels_last():
