@@ -11,8 +11,11 @@ the positive budget (the mask targets in ``targets["masks"] (B, G, H, W)``). Ins
 (4 pooled levels, p2..p5) and the MobileNetV3-Large one (2 pooled levels,
 p4 and p5, 15 anchors a location), the JAX package's default serving
 detector; and the ResNet-50-FPN Mask R-CNN (body detector, 3 detections an
-image). The RPN's NMS is kernel K2, as is the box NMS when more than one
-detection is kept; the RoIAligns (box 7x7, keypoint and mask 14x14) run
+image). The alternate families of the JAX package have their factories too:
+the Swin-T and ConvNeXt-T keypoint R-CNNs (4 pooled levels), the box-only
+ResNet-50-FPN Faster R-CNN (100 detections), and the box-only MobileNetV3-Large
+and ConvNeXt-T ones over p4 and p5. The RPN's NMS is kernel K2, as is the box
+NMS when more than one detection is kept; the RoIAligns (box 7x7, keypoint and mask 14x14) run
 forward through kernel K3 and, in training, backward through kernel K4
 (``MultilevelRoIAlign``); their wrappers take the plain versions only for CPU
 tensors.
@@ -34,9 +37,11 @@ from ..ops.anchors import multilevel_anchors
 from ..ops.roi_align import multilevel_roi_align_diff
 from . import roi_heads as rh
 from .fpn import BackboneWithFPN
+from .convnext import ConvNeXt
 from .mobilenet_v3 import MobileNetV3Large
 from .resnet import ResNet
 from .rpn import RPN, generate_proposals, level_sizes, rpn_loss
+from .swin import SwinTransformer
 
 
 # the two keypoint detectors (JAX ``PFR_KEYPOINT_ARCH`` values)
@@ -331,9 +336,75 @@ def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: fl
     kw.update(overrides)
     body = MobileNetV3Large(features_only=True, frozen_stats=frozen_stats,
                             bn_momentum=bn_momentum)
-    backbone = BackboneWithFPN(body, (body.out_channels["c4"], body.out_channels["c5"]),
-                               ("c4", "c5"))
-    return GeneralizedRCNN(backbone, RCNNConfig(**kw), quant_kp=quant_kp)
+    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5")), RCNNConfig(**kw), quant_kp=quant_kp)
+
+
+def _fpn_over(body: nn.Module, in_levels: tuple[str, ...] = ("c2", "c3", "c4", "c5")
+              ) -> BackboneWithFPN:
+    """``BackboneWithFPN`` over a trunk's ``out_channels`` at ``in_levels``."""
+    return BackboneWithFPN(body, tuple(body.out_channels[lvl] for lvl in in_levels), in_levels)
+
+
+# the 2-level box-only factories' anchors and budgets (JAX rcnn.py:525-568)
+_P4_P5 = dict(num_classes=2, anchor_sizes=((32, 64, 128, 256, 512),) * 3,
+              rpn_pre_nms_top_n_test=150, rpn_post_nms_top_n_test=150,
+              box_detections_per_img=1)
+
+
+def swin_tiny_keypoint_rcnn(num_classes: int = 2, num_keypoints: int = 3, window_size: int = 7,
+                            **overrides) -> GeneralizedRCNN:
+    """Swin-T keypoint R-CNN (JAX ``swin_tiny_keypoint_rcnn``): a 4-level FPN
+    over the Swin stages (widths 96, 192, 384, 768), 1 detection. Its input's
+    sides must be multiples of ``window_size x 32`` (224 at window 7).
+    ``overrides`` set :class:`RCNNConfig` fields."""
+    cfg = RCNNConfig(num_classes=num_classes, num_keypoints=num_keypoints,
+                     box_detections_per_img=1, **overrides)
+    body = SwinTransformer(hidden_dim=96, layers=(2, 2, 6, 2), heads=(3, 6, 12, 24),
+                           window_size=window_size, features_only=True)
+    return GeneralizedRCNN(_fpn_over(body), cfg)
+
+
+def fasterrcnn_resnet50_fpn(num_classes: int = 2, **overrides) -> GeneralizedRCNN:
+    """Box-only ResNet-50-FPN Faster R-CNN with a frozen-BN trunk at the JAX
+    config's defaults (JAX ``fasterrcnn_resnet50_fpn``): 100 detections an
+    image, so its box NMS runs through K2. Like JAX's ``top_k``, the box
+    post-process raises unless the test proposals (times the foreground
+    classes) number at least 100.
+    ``overrides`` set :class:`RCNNConfig` fields."""
+    body = ResNet(features_only=True)
+    return GeneralizedRCNN(BackboneWithFPN(body), RCNNConfig(num_classes=num_classes,
+                                                             **overrides))
+
+
+def mobile_net_v3_large_rcnn(**overrides) -> GeneralizedRCNN:
+    """Box-only MobileNetV3-Large Faster R-CNN (JAX ``mobile_net_v3_large_rcnn``):
+    frozen statistics, a 2-level FPN over ``c4``/``c5`` and a max-pool p6,
+    anchor sizes ``(32, 64, 128, 256, 512)`` on every level with ratios
+    ``(0.5, 1, 2)``, 150/150 test proposals, 1 detection."""
+    kw = dict(_P4_P5, aspect_ratios=(0.5, 1.0, 2.0))
+    kw.update(overrides)
+    body = MobileNetV3Large(features_only=True, frozen_stats=True)
+    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5")), RCNNConfig(**kw))
+
+
+def convnetx_tiny_rcnn(**overrides) -> GeneralizedRCNN:
+    """Box-only ConvNeXt-T Faster R-CNN (JAX ``convnetx_tiny_rcnn``, the
+    reference's typo kept): a 2-level FPN over ``c4``/``c5`` (384, 768), the
+    anchors of :func:`mobile_net_v3_large_rcnn` with ratios ``(10/14, 1,
+    14/10)``, 150/150 test proposals, 1 detection."""
+    kw = dict(_P4_P5, aspect_ratios=(10 / 14, 1.0, 14 / 10))
+    kw.update(overrides)
+    body = ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), features_only=True)
+    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5")), RCNNConfig(**kw))
+
+
+def convnext_tiny_keypoint_rcnn(**overrides) -> GeneralizedRCNN:
+    """ConvNeXt-T keypoint R-CNN over the 4-level pyramid (JAX
+    ``convnext_tiny_keypoint_rcnn``): 3 keypoints, 1 detection."""
+    kw = dict(num_classes=2, num_keypoints=3, box_detections_per_img=1)
+    kw.update(overrides)
+    body = ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), features_only=True)
+    return GeneralizedRCNN(_fpn_over(body), RCNNConfig(**kw))
 
 
 def frozen_twin(model: GeneralizedRCNN) -> GeneralizedRCNN:

@@ -128,6 +128,28 @@ class KeypointPredictor(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def detection_candidates(class_logits: torch.Tensor, box_deltas: torch.Tensor,
+                         proposals: torch.Tensor, prop_valid: torch.Tensor,
+                         image_size: tuple[int, int], score_thresh: float = 0.05):
+    """The foreground candidates that :func:`postprocess_detections_batch`
+    picks from, ``K = N * (C - 1)`` an image in ``(proposal, class)`` order:
+    ``(boxes (B, K, 4), labels (K,), scores (B, K), valid (B, K))``, valid
+    where the proposal is, the decoded box is at least 0.01 wide and high and
+    the softmax score is above ``score_thresh``."""
+    B, N, C = class_logits.shape
+    scores = torch.softmax(class_logits, dim=-1)
+    boxes = clip_boxes(decode_boxes(box_deltas, proposals[:, :, None, :],
+                                    BOX_CODER_WEIGHTS), image_size)
+    fg_scores = scores[:, :, 1:].reshape(B, N * (C - 1))
+    fg_boxes = boxes[:, :, 1:, :].reshape(B, N * (C - 1), 4)
+    fg_labels = torch.arange(1, C, device=class_logits.device).repeat(N)
+    fg_valid = prop_valid.repeat_interleave(C - 1, dim=1)
+    w = fg_boxes[..., 2] - fg_boxes[..., 0]
+    h = fg_boxes[..., 3] - fg_boxes[..., 1]
+    fg_valid = fg_valid & (w >= 0.01) & (h >= 0.01) & (fg_scores > score_thresh)
+    return fg_boxes, fg_labels, fg_scores, fg_valid
+
+
 def postprocess_detections_batch(class_logits: torch.Tensor, box_deltas: torch.Tensor,
                                   proposals: torch.Tensor, prop_valid: torch.Tensor,
                                   image_size: tuple[int, int],
@@ -148,16 +170,8 @@ def postprocess_detections_batch(class_logits: torch.Tensor, box_deltas: torch.T
     slots past the kept ones are invalid with score 0.
     """
     B, N, C = class_logits.shape
-    scores = torch.softmax(class_logits, dim=-1)
-    boxes = clip_boxes(decode_boxes(box_deltas, proposals[:, :, None, :],
-                                    BOX_CODER_WEIGHTS), image_size)
-    fg_scores = scores[:, :, 1:].reshape(B, N * (C - 1))
-    fg_boxes = boxes[:, :, 1:, :].reshape(B, N * (C - 1), 4)
-    fg_labels = torch.arange(1, C, device=class_logits.device).repeat(N)
-    fg_valid = prop_valid.repeat_interleave(C - 1, dim=1)
-    w = fg_boxes[..., 2] - fg_boxes[..., 0]
-    h = fg_boxes[..., 3] - fg_boxes[..., 1]
-    fg_valid = fg_valid & (w >= 0.01) & (h >= 0.01) & (fg_scores > score_thresh)
+    fg_boxes, fg_labels, fg_scores, fg_valid = detection_candidates(
+        class_logits, box_deltas, proposals, prop_valid, image_size, score_thresh)
     masked = torch.where(fg_valid, fg_scores, torch.full_like(fg_scores, float("-inf")))
 
     if detections_per_img == 1:

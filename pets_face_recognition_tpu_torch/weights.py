@@ -13,7 +13,10 @@ dict as numpy arrays, output uses torchvision key names. Layouts:
 - batch norm: ``scale``/``bias`` params and ``mean``/``var`` stats ->
   ``weight``/``bias``/``running_mean``/``running_var``.
 
-The MobileNetV3 trunk keeps the JAX module names (``stem``, ``blocks.{i}.dwconv``,
+The Swin trunk takes the reference's (berniwal) keys, the layout the JAX
+package's ``convert_swin`` reads (:func:`swin_state_dict` is its inverse);
+the ConvNeXt trunk keeps the JAX module names, its LayerNorms' ``scale`` as
+``weight``. The MobileNetV3 trunk keeps the JAX module names (``stem``, ``blocks.{i}.dwconv``,
 ``blocks.{i}.se.fc1`` ...); its depthwise kernels ``(k, k, 1, C)`` become
 ``(C, 1, k, k)`` by the same conv permutation.
 
@@ -34,7 +37,9 @@ import torch
 from torch import nn
 
 from .losses.large_margin import MarginHead
+from .models.convnext import ConvNeXtBlock
 from .models.resnet import FrozenBatchNorm2d, LiveBatchNorm2d
+from .models.swin import WindowAttention
 
 
 def _conv(k) -> np.ndarray:
@@ -122,6 +127,60 @@ def mobilenet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = "
             if fc in params:
                 _dense_pair(sd, fc, params[fc])
     return {prefix + k: v for k, v in sd.items()}
+
+
+def swin_state_dict(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """flax ``models.swin.SwinTransformer`` params -> the reference's (berniwal)
+    keys, which the port's ``SwinTransformer`` takes: the exact inverse of the
+    JAX package's ``utils/torch_convert.py::convert_swin``. LayerNorm
+    ``scale`` -> ``weight``; ``block{i}_regular``/``_shifted`` ->
+    ``layers.{i}.0``/``.1``; the head, when present, -> ``mlp_head.{0,1}``."""
+    sd: dict[str, np.ndarray] = {}
+    for sp in sorted(k for k in params if re.fullmatch(r"stage\d", k)):
+        stage = params[sp]
+        _dense_pair(sd, f"{sp}.patch_partition.linear", stage["patch_partition"]["linear"])
+        for name, blk in stage.items():
+            m = re.fullmatch(r"block(\d+)_(regular|shifted)", name)
+            if not m:
+                continue
+            dst = f"{sp}.layers.{m.group(1)}.{int(m.group(2) == 'shifted')}"
+            _bn(sd, f"{dst}.attention_block.fn.norm", blk["attn_norm"], None)
+            attn = f"{dst}.attention_block.fn.fn"
+            sd[f"{attn}.to_qkv.weight"] = _dense(blk["attn"]["to_qkv"]["kernel"])
+            sd[f"{attn}.pos_embedding"] = np.asarray(blk["attn"]["pos_embedding"])
+            _dense_pair(sd, f"{attn}.to_out", blk["attn"]["to_out"])
+            _bn(sd, f"{dst}.mlp_block.fn.norm", blk["mlp_norm"], None)
+            _dense_pair(sd, f"{dst}.mlp_block.fn.fn.net.0", blk["mlp_fc1"])
+            _dense_pair(sd, f"{dst}.mlp_block.fn.fn.net.2", blk["mlp_fc2"])
+    if "head_norm" in params:
+        _bn(sd, "mlp_head.0", params["head_norm"], None)
+        if "head_fc" in params:
+            _dense_pair(sd, "mlp_head.1", params["head_fc"])
+    return _prefixed(prefix, sd)
+
+
+def convnext_state_dict(params: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """flax ``models.convnext.ConvNeXt`` params -> the port's ``ConvNeXt`` keys
+    (the JAX module names; convolutions ``(O, I, kh, kw)``, the depthwise
+    ``(7, 7, 1, C)`` as ``(C, 1, 7, 7)``; ``pwconv1``/``pwconv2`` and the head
+    dense; LayerNorm ``scale`` -> ``weight``; ``gamma`` as is)."""
+    sd: dict[str, np.ndarray] = {}
+    for name, mod in params.items():
+        if name in ("stem_norm", "head_norm") or name.startswith("downsample_norm"):
+            _bn(sd, name, mod, None)
+        elif name == "stem_conv" or name.startswith("downsample_conv"):
+            _conv_pair(sd, name, mod)
+        elif name == "head_fc":
+            _dense_pair(sd, name, mod)
+        elif re.fullmatch(r"stage\d+_block\d+", name):
+            _conv_pair(sd, f"{name}.dwconv", mod["dwconv"])
+            _bn(sd, f"{name}.norm", mod["norm"], None)
+            _dense_pair(sd, f"{name}.pwconv1", mod["pwconv1"])
+            _dense_pair(sd, f"{name}.pwconv2", mod["pwconv2"])
+            sd[f"{name}.gamma"] = np.asarray(mod["gamma"])
+        else:
+            raise KeyError(f"convnext_state_dict: unknown module {name!r}")
+    return _prefixed(prefix, sd)
 
 
 def embedder_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
@@ -222,15 +281,22 @@ def mask_heads_state_dict(params: Mapping) -> dict[str, np.ndarray]:
 
 def detection_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
     """flax ``GeneralizedRCNN`` variables -> torchvision keypoint or Mask R-CNN
-    keys in the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``);
-    a MobileNetV3 trunk (the tree has ``stem``) takes the port's MobileNetV3
-    keys. Without ``batch_stats`` the result holds the trainable parameters
-    only; with them, live-BN and frozen MobileNetV3 detectors load it alike."""
+    keys in the flat (torchvision 0.12) layout (the inverse of ``convert_detection_model``).
+    The trunk is read from the tree: ``stem`` is MobileNetV3 (the port's
+    MobileNetV3 keys), ``stem_conv`` ConvNeXt (:func:`convnext_state_dict`),
+    ``stage1`` with a ``patch_partition`` Swin (:func:`swin_state_dict`),
+    anything else ResNet. Without ``batch_stats`` the result holds the
+    trainable parameters only; with them, live-BN and frozen MobileNetV3
+    detectors load it alike."""
     p, st = variables["params"], variables.get("batch_stats")
-    body = p["backbone"]["backbone"]
-    trunk = mobilenet_state_dict if "stem" in body else resnet_state_dict
-    sd = trunk(body, None if st is None else st["backbone"]["backbone"],
-               prefix="backbone.body.")
+    body, prefix = p["backbone"]["backbone"], "backbone.body."
+    if "stem_conv" in body:
+        sd = convnext_state_dict(body, prefix)
+    elif "patch_partition" in body.get("stage1", {}):
+        sd = swin_state_dict(body, prefix)
+    else:
+        trunk = mobilenet_state_dict if "stem" in body else resnet_state_dict
+        sd = trunk(body, None if st is None else st["backbone"]["backbone"], prefix=prefix)
     sd.update(_prefixed("backbone.fpn.", fpn_state_dict(p["backbone"]["fpn"])))
     sd.update(_prefixed("rpn.head.", rpn_head_state_dict(p["rpn"])))
     sd.update(_prefixed("roi_heads.", box_heads_state_dict(p["box_head"],
@@ -356,8 +422,11 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
 
     Weights are ``N(0, 1) / sqrt(fan_in)`` (keeps a random 50-layer forward
     finite), biases zero, norms near identity: ``weight ~ U(0.5, 1.5)``,
-    ``bias ~ 0.1 N``, ``running_mean ~ 0.1 N``, ``running_var ~ U(0.5, 1.5)``;
-    a margin head's ``(C, D)`` weight xavier-uniform, as flax initialises it.
+    ``bias ~ 0.1 N``, ``running_mean ~ 0.1 N``, ``running_var ~ U(0.5, 1.5)``
+    (LayerNorms the same affine); a margin head's ``(C, D)`` weight
+    xavier-uniform, as flax initialises it; Swin's ``pos_embedding`` N(0, 1),
+    as flax initialises it; ConvNeXt's layer scale ``gamma`` U(0.5, 1.5), not
+    flax's 1e-6, at which every block is the identity to float32 precision.
     """
     g = torch.Generator().manual_seed(seed)
 
@@ -377,6 +446,13 @@ def init_random_(module: nn.Module, seed: int) -> nn.Module:
             draw(m.bias, lambda s: torch.randn(s, generator=g) * 0.1)
             draw(m.running_mean, lambda s: torch.randn(s, generator=g) * 0.1)
             draw(m.running_var, lambda s: torch.rand(s, generator=g) + 0.5)
+        elif isinstance(m, nn.LayerNorm):
+            draw(m.weight, lambda s: torch.rand(s, generator=g) + 0.5)
+            draw(m.bias, lambda s: torch.randn(s, generator=g) * 0.1)
+        elif isinstance(m, WindowAttention):
+            draw(m.pos_embedding, lambda s: torch.randn(s, generator=g))
+        elif isinstance(m, ConvNeXtBlock):
+            draw(m.gamma, lambda s: torch.rand(s, generator=g) + 0.5)
         elif isinstance(m, MarginHead):
             bound = math.sqrt(6.0 / sum(m.weight.shape))
             draw(m.weight, lambda s: (torch.rand(s, generator=g) * 2 - 1) * bound)

@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
         "data_loading.pairs", "native.png", "utils.preprocs", "smoke_data", "eval_fe",
         "transform_reproduce", "transform_dataset", "ops.masks", "prepare_tables",
         "data_loading.oxford", "data_loading.transforms", "main_detection", "eval_detection",
-        "models.quant", "models.ptq", "near_tie", "score_detection", "score_landmark")]
+        "models.quant", "models.ptq", "near_tie", "score_detection", "score_landmark",
+        "models.swin", "models.convnext", "drive_alt_factories")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -216,5 +217,17 @@ def test_variant_factories_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: pipelines.keypoint_detector(variant="v3"), Preproc7, Preproc13,
                  lambda: pipelines.embedder("fe_dog_head", 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_alt_factories_drive_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``drive_alt_factories`` (and its ``drive()``), as the entry points
+    above: the card unless ``--device cpu``."""
+    from pets_face_recognition_tpu_torch import drive_alt_factories
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: drive_alt_factories.main(["--only", "mobile_net_v3_large_rcnn"]),
+                 lambda: drive_alt_factories.drive("x", torch.nn.Identity, 64, False)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

@@ -245,3 +245,25 @@ def test_heatmaps_to_keypoints_matches_jax():
     # same argmax cells; positions are (cell + 0.5) * w / 224 + x1 in float32
     np.testing.assert_allclose(got_k.numpy(), np.asarray(want_k), atol=1e-4)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5, atol=1e-5)
+
+
+def jax_sampler_noise(model_loss, variables, key, B, n_anchors, n_box):
+    """The sampler noise of ``GeneralizedRCNN._forward_train`` for ``rngs={'sampler':
+    key}``: ``(B, n_anchors)`` for the RPN and ``(B, n_box)`` for the box head."""
+    rng = model_loss.apply(variables, rngs={"sampler": key},
+                           method=lambda m: m.model.make_rng("sampler"))
+    rpn_rng, box_rng = jax.random.split(rng)
+
+    def draw(k, n):
+        return np.stack([np.asarray(jax.random.uniform(kb, (n,)))
+                         for kb in jax.random.split(k, B)])
+
+    return {"rpn": draw(rpn_rng, n_anchors), "box": draw(box_rng, n_box)}
+
+
+# Exactly zero in exact arithmetic: the bias of the heatmap predictor shifts
+# all 56 x 56 logits of a heatmap alike, the 2x bilinear upsample gives every
+# output the weight 1 in all, and the softmax cross entropy's gradient over
+# the positions of a heatmap sums to 0. Both frameworks leave ~1e-8 of float32
+# rounding, so the tensor is held to 1e-6 absolute on both sides instead.
+ZERO_BY_CONSTRUCTION = ("roi_heads.keypoint_predictor.kps_score_lowres.bias",)

@@ -36,7 +36,7 @@ from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPoints
 from pets_face_recognition_tpu_torch.models.rcnn import keypointrcnn_resnet50_fpn
 from pets_face_recognition_tpu_torch.utils.optim import detection_sgd_optimizer
 
-from test_torch_port_models import randomize
+from test_torch_port_models import ZERO_BY_CONSTRUCTION, jax_sampler_noise, randomize
 
 torch.set_num_threads(1)
 
@@ -47,20 +47,6 @@ BUDGETS = dict(rpn_pre_nms_top_n_train=64, rpn_post_nms_top_n_train=32,
 LR = 5e-3
 LOSS_TERMS = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg",
               "loss_keypoint")
-
-
-def jax_sampler_noise(model_loss, variables, key, B, n_anchors, n_box):
-    """The sampler noise of ``GeneralizedRCNN._forward_train`` for ``rngs={'sampler':
-    key}``: ``(B, n_anchors)`` for the RPN and ``(B, n_box)`` for the box head."""
-    rng = model_loss.apply(variables, rngs={"sampler": key},
-                           method=lambda m: m.model.make_rng("sampler"))
-    rpn_rng, box_rng = jax.random.split(rng)
-
-    def draw(k, n):
-        return np.stack([np.asarray(jax.random.uniform(kb, (n,)))
-                         for kb in jax.random.split(k, B)])
-
-    return {"rpn": draw(rpn_rng, n_anchors), "box": draw(box_rng, n_box)}
 
 
 @pytest.fixture(scope="module")
@@ -125,14 +111,6 @@ def test_train_step_losses_match_jax(step, term):
     got = step["t_out"][term]
     for want in (float(step["j_out"][term]), float(step["j_metrics"][term])):
         assert abs(got - want) <= 1e-4 * abs(want), (term, got, want)
-
-
-# Exactly zero in exact arithmetic: the bias of the heatmap predictor shifts
-# all 56 x 56 logits of a heatmap alike, the 2x bilinear upsample gives every
-# output the weight 1 in all, and the softmax cross entropy's gradient over
-# the positions of a heatmap sums to 0. Both frameworks leave ~1e-8 of float32
-# rounding, so the tensor is held to 1e-6 absolute on both sides instead.
-ZERO_BY_CONSTRUCTION = ("roi_heads.keypoint_predictor.kps_score_lowres.bias",)
 
 
 def test_train_step_gradients_match_jax(step):
