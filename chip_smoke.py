@@ -265,6 +265,28 @@ step makes in them under 1e-6 rounding, six draws on the card and three on
 the CPU); and K3 and K4 at the Swin detector's 448 x 448 training shapes
 against their plain versions (rows ``_alt``).
 
+Then data parallelism (ddp): ``parallel.init_distributed`` over NCCL from
+the env names (``COORDINATOR_ADDRESS=localhost:<free port>``,
+``NUM_PROCESSES=1``, ``PROCESS_ID=0``), a world of one with ``device_info``;
+through the mesh path at full width, each from the same state as the plain
+path and both under deterministic algorithms: an FE step (B = 64 x 224,
+1000 classes), a keypoint R-CNN step (B = 16 x 640) and a Mask R-CNN step (B
+= 8 x 640), each expected equal bit for bit (otherwise the gap is printed
+and held to twice the card's own move under 1e-7 input rounding, at least
+1e-6); ``EmbeddingService(mesh=...)`` at B = 32 against the plain service,
+both at threshold 0 (validity equal, NaN rows where the plain service's
+are, finite embeddings within 1e-5); ``sharded_topk_scores`` over a
+65536 x 512 gallery against ``topk_rows`` (indices equal, scores 1e-6);
+each mesh path's K1-K4 launches, counted from 0 around it (paths
+``ddp_*``). tuners: ``find_max_batch_size`` on the full-width FE step from
+16 (the largest batch that fits, the peak memory, the memory left
+allocated, held under 256 MiB above where it started) and a 20-step
+``find_optimal_init_lr`` at B = 16. dog_fixture: the keypoint config with
+seeded dog pickles over ``smoke_data.make_data25`` photos beside the CAT
+miniature, B = 16 x 640 without loader threads: its first batch equal to a
+second read, one step on it and one on a batch of dog items alone, finite
+losses, K2-K4 launched.
+
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
 R-CNN's shapes, ``_mask``, and K4 on Mask R-CNN's training gradient,
@@ -4953,6 +4975,433 @@ KERNEL_ROWS = (
 )
 
 
+B_FE = 64                                   # FE config: train_batch_size
+FE_CLASSES = 1000                           # the margin head's default width
+# a world of one through the mesh path against the plain step from the same
+# state, both under deterministic algorithms: equal bit for bit is expected
+# (every collective of one rank is the identity); where a tensor is not, the
+# gap is printed and held to twice the card's own move under 1e-7 input
+# rounding (ROADMAP fault 2, note 9), at least 1e-6
+DDP_ROUNDING = 1e-7
+DDP_TOPK = dict(gallery=65536, dim=512, queries=128, k=100)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rel_gaps(a: dict, b: dict) -> dict[str, float]:
+    """Each tensor's relative difference in norm, where it is not bit-equal."""
+    import torch
+
+    return {n: float((a[n].double() - b[n].double()).norm() / b[n].double().norm().clamp(
+        min=1e-30)) for n in b if not torch.equal(a[n], b[n])}
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def step_pair(name: str, make_ctl, make_state, batch, rounded_batch, kernels_mod, mesh,
+              expect: tuple[str, ...]) -> dict:
+    """One step through ``make_ctl(mesh)`` and one through ``make_ctl(None)``
+    from the same initial state, after a plain warm-up step, all under
+    deterministic algorithms; the mesh step's launches (counts set to 0 just
+    before it), its ms and the plain step's, and the gaps (see
+    ``DDP_ROUNDING``)."""
+    import torch
+
+    out = {}
+    with deterministic_algorithms():
+        for label, m in (("warm-up", None), ("plain", None), ("mesh", mesh)):
+            ctl = make_ctl(m)
+            state = make_state(ctl)
+            torch.cuda.synchronize()
+            if label == "mesh":
+                kernels_mod.reset_launch_counts()
+            t = time.perf_counter()
+            with tf32_watch(state.model) as flags:
+                metrics = ctl.train_step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if label == "warm-up":
+                out[label] = dict(ms=ms)
+                del state
+                continue
+            launches = kernels_mod.launch_counts() if label == "mesh" else None
+            out[label] = dict(metrics=metrics, ms=ms, flags=flags, launches=launches,
+                              grads=grads_of(state.model),
+                              buffers={n: b.detach().clone()
+                                       for n, b in state.model.named_buffers()})
+            del state
+        grad_gap = rel_gaps(out["mesh"]["grads"], out["plain"]["grads"])
+        buf_gap = rel_gaps(out["mesh"]["buffers"], out["plain"]["buffers"])
+        move = None
+        if grad_gap or buf_gap or out["mesh"]["metrics"] != out["plain"]["metrics"]:
+            ctl = make_ctl(None)
+            state = make_state(ctl)
+            ctl.train_step(state, rounded_batch)
+            move = max(rel_gaps(grads_of(state.model), out["plain"]["grads"]).values(),
+                       default=0.0)
+            del state
+    torch.cuda.empty_cache()
+    launches = out["mesh"]["launches"]
+    res = dict(loss_mesh=out["mesh"]["metrics"]["loss"], loss_plain=out["plain"]["metrics"]["loss"],
+               bitwise_equal=not grad_gap and not buf_gap
+               and out["mesh"]["metrics"] == out["plain"]["metrics"],
+               grads=len(out["plain"]["grads"]), grads_differ=len(grad_gap),
+               grad_gap_max=max(grad_gap.values(), default=0.0),
+               buffers_differ=len(buf_gap), buffer_gap_max=max(buf_gap.values(), default=0.0),
+               card_rounding_move=move, step_ms_warm_up=out["warm-up"]["ms"],
+               step_ms_mesh=out["mesh"]["ms"], step_ms_plain=out["plain"]["ms"],
+               launches=launches)
+    if not all(math.isfinite(v) for v in out["mesh"]["metrics"].values()):
+        raise AssertionError(f"{name}: non-finite loss {out['mesh']['metrics']}")
+    if not res["bitwise_equal"]:
+        bound = max(1e-6, 2 * move)
+        loss_rel = abs(res["loss_mesh"] - res["loss_plain"]) / abs(res["loss_plain"])
+        if max(res["grad_gap_max"], res["buffer_gap_max"], loss_rel) > bound:
+            raise AssertionError(f"{name}: the mesh step differs from the plain one: {res}")
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched on the mesh path: {missing}")
+    return res
+
+
+def ddp_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase ddp: ``init_distributed`` over NCCL from the env names
+    (``COORDINATOR_ADDRESS=localhost:<free port>``, ``NUM_PROCESSES=1``,
+    ``PROCESS_ID=0``), a world of one; then at full width through the mesh
+    path, each against the plain path from the same state: an FE step (B =
+    64 x 224), a keypoint R-CNN step (B = 16 x 640), a Mask R-CNN step (B =
+    8 x 640), ``EmbeddingService(mesh=...)`` at B = 32, and
+    ``sharded_topk_scores`` over a 65536 x 512 gallery against ``topk_rows``.
+    Returns each path's launch counts."""
+    import copy
+    import shutil
+    from functools import partial
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pets_face_recognition_tpu_torch import parallel, retrieval
+    from pets_face_recognition_tpu_torch.data import synthetic_keypoint_batch
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+    from pets_face_recognition_tpu_torch.engine.detector_controller import (DetectionController,
+                                                                            KeyPointsController)
+    from pets_face_recognition_tpu_torch.losses import SoftmaxBasedMetricLearning
+    from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
+    from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
+    from pets_face_recognition_tpu_torch.utils import DictWrapper
+    from pets_face_recognition_tpu_torch.utils.optim import fe_sgd_optimizer
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    env = dict(COORDINATOR_ADDRESS=f"localhost:{free_port()}", NUM_PROCESSES="1", PROCESS_ID="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t = time.perf_counter()
+    try:
+        grouped = parallel.init_distributed(device=dev)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    init_s = time.perf_counter() - t
+    info = parallel.device_info()
+    if not grouped or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"init_distributed: group {grouped}, backend "
+                             f"{dist.get_backend() if grouped else None}")
+    if (info["process_count"], info["global_device_count"], info["platform"]) != (1, 1, "gpu"):
+        raise AssertionError(f"device_info {info}")
+    mesh = parallel.create_mesh(device=dev)
+    paths, res = {}, {}
+    try:
+        def rounded(batch, key):
+            x = batch[key]
+            return dict(batch, **{key: (x * (1 + np.random.RandomState(1).randn(*x.shape)
+                                             * DDP_ROUNDING)).astype(np.float32)})
+
+        # the FE step
+        rng = np.random.RandomState(5)
+        fe = {"x": rng.rand(B_FE, CROP, CROP, 3).astype(np.float32),
+              "label": rng.randint(0, FE_CLASSES, B_FE), "index": np.arange(B_FE)}
+        fe_model = init_random_(SoftmaxBasedMetricLearning(resnet50_embedder(512), 512,
+                                                           FE_CLASSES), 3)
+        fe_cfg = DictWrapper({"optimizer": lambda c: partial(fe_sgd_optimizer, lr=1e-2)})
+        res["fe"] = step_pair(
+            "ddp fe", lambda m: Controller(fe_cfg, mesh=m),
+            lambda ctl: ctl.init_state(0, dev, model=copy.deepcopy(fe_model)), fe,
+            rounded(fe, "x"), kernels_mod, mesh, ())
+        paths["ddp_fe"] = res["fe"].pop("launches")
+        del fe_model
+
+        # the keypoint and Mask R-CNN steps: noise from each step's generator
+        kp = synthetic_keypoint_batch(B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, MAX_BOXES, seed=0)
+        det_kernels = ("nms_keep_sorted_batch", "multilevel_roi_align", "roi_footprints",
+                       "multilevel_roi_align_backward")
+        res["keypoint"] = step_pair(
+            "ddp keypoint", lambda m: KeyPointsController(arch="resnet50", mesh=m),
+            lambda ctl: ctl.init_state(seed=0, device=dev), kp, rounded(kp, "images"),
+            kernels_mod, mesh, det_kernels)
+        paths["ddp_keypoint"] = res["keypoint"].pop("launches")
+        mask = mask_batch(B_MASK, IMAGE_TRAIN)
+        res["mask"] = step_pair(
+            "ddp mask", lambda m: DetectionController(mesh=m),
+            lambda ctl: ctl.init_state(seed=0, device=dev), mask, rounded(mask, "images"),
+            kernels_mod, mesh, det_kernels)
+        paths["ddp_mask"] = res["mask"].pop("launches")
+
+        # batch-sharded serving
+        detector, embedder, base = build_serving_models(device=dev, seed=0)
+        g = torch.Generator().manual_seed(6)
+        imgs = torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
+                             dtype=torch.uint8).to(dev)
+        ok = torch.ones(B_TIMED, dtype=torch.bool, device=dev)
+        # threshold 0 as in the chain's checks: random weights score below 0.9
+        plain = EmbeddingService(detector, embedder, base, score_thr=0.0, device=dev,
+                                 batch_size=B_TIMED)
+        served = EmbeddingService(detector, embedder, base, score_thr=0.0, device=dev,
+                                  batch_size=B_TIMED, mesh=mesh)
+        want_emb, want_valid = plain.embed_batch(imgs, ok)
+        kernels_mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        emb, valid = served.embed_batch(imgs, ok)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t) * 1e3
+        paths["ddp_serve"] = kernels_mod.launch_counts()
+        # random landmarks can be collinear yet 5 px apart, which the
+        # reference's rule lets through: their crop, and so their row, is NaN
+        # on both paths, valid or not; NaN must meet NaN, and the finite
+        # values are compared
+        nan = want_emb.isnan()
+        finite = ~nan
+        gap = float((emb[finite] - want_emb[finite]).abs().max()) if finite.any() else 0.0
+        res["serve"] = dict(batch=B_TIMED, score_thr=0.0,
+                            bitwise_equal=bool(torch.equal(nan, emb.isnan()) and gap == 0.0),
+                            emb_gap_max=gap, nan_rows=int(nan.any(1).sum()),
+                            nan_valid_rows=int((nan.any(1) & want_valid).sum()),
+                            valid_equal=bool(torch.equal(valid, want_valid)),
+                            valid=int(valid.sum()), ms=serve_ms)
+        scale = float(want_emb[finite].abs().max()) if finite.any() else 1.0
+        if (not res["serve"]["valid_equal"] or not torch.equal(nan, emb.isnan())
+                or not gap <= 1e-5 * scale):
+            raise AssertionError(f"ddp serve: the mesh service differs: {res['serve']}")
+        missing = [k for k in ("warp_perspective_batch", "nms_keep_sorted_batch",
+                               "multilevel_roi_align") if paths["ddp_serve"][k] == 0]
+        if missing:
+            raise AssertionError(f"ddp serve: kernels not launched: {missing}")
+        del detector, embedder, plain, served
+
+        # the sharded top-k against topk_rows
+        c = DDP_TOPK
+        rng = np.random.RandomState(8)
+        gal = rng.randn(c["gallery"], c["dim"]).astype(np.float32)
+        gal /= np.linalg.norm(gal, axis=1, keepdims=True)
+        q = gal[rng.choice(c["gallery"], c["queries"], replace=False)] + rng.randn(
+            c["queries"], c["dim"]).astype(np.float32) * 0.05
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        retrieval.sharded_topk_scores(q, gal, c["k"], mesh)          # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        top_s, top_i = retrieval.sharded_topk_scores(q, gal, c["k"], mesh)
+        topk_ms = (time.perf_counter() - t) * 1e3
+        scores = retrieval.pairwise_card_scores(q, gal, dev)
+        names = [str(i) for i in range(c["gallery"])]
+        rows = retrieval.topk_rows(scores, np.ones_like(scores, bool), names, c["k"])
+        want_i = np.array([[int(x) for x in r[3].split(",")] for r in rows])
+        want_s = np.take_along_axis(scores, want_i, 1)
+        res["topk"] = dict(c, ms=topk_ms, indices_equal=bool((top_i == want_i).all()),
+                           score_gap_max=float(np.abs(top_s - want_s).max()))
+        if not res["topk"]["indices_equal"] or res["topk"]["score_gap_max"] > 1e-6:
+            raise AssertionError(f"ddp topk: {res['topk']}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(MASK_TRAIN_OUT, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit("ddp", card=smi, backend="nccl", world=1, init_s=init_s, device_info=info,
+         deterministic_algorithms=True, **res, launches=paths,
+         precision="float32: TF32 off inside the entry points")
+    return paths
+
+
+def tuners_phase(dev, smi: str) -> None:
+    """Phase tuners: ``find_max_batch_size`` on the full-width FE step (224 x
+    224, from 16 doubling, 8 trials: the largest batch that fits, the peak
+    memory, what is allocated after) and a 20-step ``find_optimal_init_lr`` at
+    B = 16; the card's memory freed after both."""
+    import gc
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+    from pets_face_recognition_tpu_torch.losses import SoftmaxBasedMetricLearning
+    from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
+    from pets_face_recognition_tpu_torch.utils import DictWrapper, tuners
+    from pets_face_recognition_tpu_torch.utils.optim import fe_sgd_optimizer
+
+    cfg = DictWrapper({"model": lambda: resnet50_embedder(512),
+                       "loss": lambda c, m: SoftmaxBasedMetricLearning(m, 512, FE_CLASSES),
+                       "optimizer": lambda c: partial(fe_sgd_optimizer, lr=1e-2)})
+    ctl = Controller(cfg)
+    rng = np.random.RandomState(9)
+    sample = {"x": rng.rand(1, CROP, CROP, 3).astype(np.float32), "label": np.array([3]),
+              "index": np.array([0])}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    best = tuners.find_max_batch_size(ctl, sample, device=dev)
+    search_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    after_search = torch.cuda.memory_allocated()
+    batches = [{"x": rng.rand(16, CROP, CROP, 3).astype(np.float32),
+                "label": rng.randint(0, FE_CLASSES, 16), "index": np.arange(16)}
+               for _ in range(4)]
+    history = []
+
+    class Recording(Controller):
+        """Each sweep step's rate and loss."""
+
+        def train_step(self, state, batch):
+            metrics = super().train_step(state, batch)
+            history.append((state.optimizer.param_groups[0]["lr"], metrics["loss"]))
+            return metrics
+
+    t = time.perf_counter()
+    lr = tuners.find_optimal_init_lr(Recording(cfg), batches, num_steps=20, device=dev)
+    lr_s = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    emit("tuners", card=smi, image=CROP, classes=FE_CLASSES, start=16, max_trials=8,
+         max_batch=best, search_s=search_s, peak_mem_gib=peak / 2 ** 30,
+         allocated_before_gib=base / 2 ** 30, allocated_after_search_gib=after_search / 2 ** 30,
+         lr=lr, lr_steps=len(history), lr_history=history, lr_search_s=lr_s,
+         allocated_after_gib=after / 2 ** 30)
+    if best < B_FE or len(history) < 5 or not any(
+            abs(lr - rate / 10) <= 1e-12 * rate for rate, _ in history):
+        raise AssertionError(f"tuners: max batch {best}, lr {lr}, {len(history)} steps")
+    if after_search > base + 2 ** 28 or after > base + 2 ** 28:
+        raise AssertionError(f"tuners: {after_search - base} / {after - base} bytes left "
+                             "allocated after the searches")
+
+
+DOG_OUT = REPO / "smoke_out" / "dog_fixture"    # git-ignored; deleted after the phase
+
+
+def dog_tables(root: Path, seed: int) -> tuple[list, list]:
+    """Seeded ``paths`` / ``others`` tables over the photos of ``root/data_25``
+    (Windows separators in half the paths, one or two boxes a photo)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    photos = sorted(p.relative_to(root / "data_25") for p in (root / "data_25").rglob("*.jpg"))
+    paths, others = [], []
+    for i, rel in enumerate(photos):
+        paths.append(str(rel).replace("/", "\\") if i % 2 else str(rel))
+        n = 1 + i % 2
+        x1, y1 = rng.uniform(0, 200, (2, n))
+        w, h = rng.uniform(40, 110, (2, n))
+        boxes = np.stack([x1, y1, x1 + w, y1 + h], 1).round().astype(int)
+        kps = np.stack([x1[:, None] + rng.uniform(0.1, 0.9, (n, 3)) * w[:, None],
+                        y1[:, None] + rng.uniform(0.1, 0.9, (n, 3)) * h[:, None],
+                        np.ones((n, 3))], -1)
+        others.append({"boxes": boxes.tolist(), "labels": [0] * n, "keypoints": kps.tolist()})
+    return paths, others
+
+
+def dog_fixture_phase(dev, kernels_mod, smi: str) -> dict:
+    """Phase dog_fixture: the keypoint config with seeded dog pickles over
+    ``smoke_data.make_data25`` photos beside the committed CAT miniature, at
+    the recipe's B = 16 x 640: the loader's first batch (no worker threads)
+    equal to a second read of a config built alike on the CPU, and one step
+    on it on the card; then one step on a batch of the dog items alone. Both
+    losses finite. Returns the path's launch counts."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.config_presets import build_keypoint_config
+    from pets_face_recognition_tpu_torch.data_loading import ConcatDataset, SimpleDataset
+    from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
+    from pets_face_recognition_tpu_torch.smoke_data import make_data25
+    from pets_face_recognition_tpu_torch.utils import DictWrapper
+    from pets_face_recognition_tpu_torch.utils.collate import DetectionCollate
+
+    shutil.rmtree(DOG_OUT, ignore_errors=True)
+    DOG_OUT.mkdir(parents=True)
+    try:
+        (DOG_OUT / "CAT_DATASET").symlink_to(
+            REPO / "pets_face_recognition_tpu_torch" / "testdata" / "CAT_DATASET",
+            target_is_directory=True)
+        make_data25(DOG_OUT, n_cards=8, n_imgs=4)
+        for suffix, seed in (("", 1), ("2", 2)):
+            paths, others = dog_tables(DOG_OUT, seed)
+            (DOG_OUT / f"paths{suffix}.pickle").write_bytes(pickle.dumps(paths))
+            (DOG_OUT / f"others{suffix}.pickle").write_bytes(pickle.dumps(others))
+
+        def config(name):
+            return DictWrapper(build_keypoint_config(data_root=str(DOG_OUT), fixtures_dir=str(DOG_OUT),
+                                         train_batch_size=B_TRAIN,
+                                         image_size=(IMAGE_TRAIN, IMAGE_TRAIN),
+                                         max_boxes=MAX_BOXES, num_workers=0,
+                                         output=str(DOG_OUT / name)))
+
+        cfg = config("card")
+        train = cfg["train_dataloader"]()
+        ds = train.dataset
+        if not (isinstance(ds, ConcatDataset) and len(ds.datasets) == 3
+                and all(isinstance(d, SimpleDataset) for d in ds.datasets[1:])):
+            raise AssertionError(f"dog fixtures not concatenated: {type(ds)}")
+        t = time.perf_counter()
+        batch = next(iter(train))
+        read_s = time.perf_counter() - t
+        again = next(iter(config("cpu")["train_dataloader"]()))
+        same = sorted(batch) == sorted(again) and all(
+            np.array_equal(np.asarray(batch[k]), np.asarray(again[k])) for k in batch)
+        dog_items = [ds.datasets[1][i] for i in range(B_TRAIN)]
+        dog_batch = DetectionCollate((IMAGE_TRAIN, IMAGE_TRAIN), max_boxes=MAX_BOXES,
+                                     num_keypoints=3)(dog_items)
+        ctl = KeyPointsController(config=cfg)
+        state = ctl.init_state(seed=0, device=dev)
+        kernels_mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = ctl.train_step(state, batch)
+        dog_losses = ctl.train_step(state, dog_batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        launches = kernels_mod.launch_counts()
+        del state
+    finally:
+        shutil.rmtree(DOG_OUT, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit("dog_fixture", card=smi, parts=[len(d) for d in ds.datasets], batch=B_TRAIN,
+         image=IMAGE_TRAIN, images_shape=list(np.asarray(batch["images"]).shape),
+         batch_equal_cpu_read=same, read_s=read_s, losses=losses, dog_losses=dog_losses,
+         dog_valid_boxes=int(np.asarray(dog_batch["valid"]).sum()), steps_s=step_s,
+         launches=launches)
+    if not same:
+        raise AssertionError("dog_fixture: the loader's batch differs from the CPU's read")
+    if not all(math.isfinite(v) for v in (*losses.values(), *dog_losses.values())):
+        raise AssertionError(f"dog_fixture: non-finite losses {losses} {dog_losses}")
+    missing = [k for k in ("nms_keep_sorted_batch", "multilevel_roi_align",
+                           "multilevel_roi_align_backward") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"dog_fixture: kernels not launched: {missing}")
+    return launches
+
+
 def row_paths(name: str, paths: dict) -> list[str]:
     """The paths whose launches a kernel row sums: the mobile paths for a
     ``_mobile`` row, the Mask R-CNN paths for a ``_mask`` row, mask_train for
@@ -5023,6 +5472,9 @@ def main() -> int:
     alt_paths, alt_rows = alt_rcnn_phase(dev, kernels, smi)   # the five alternate factories
     paths.update(alt_paths)
     rows.update(alt_rows)
+    paths.update(ddp_phase(dev, kernels, smi))    # ddp_fe, ddp_keypoint, ddp_mask, ddp_serve
+    tuners_phase(dev, smi)
+    paths["dog_fixture"] = dog_fixture_phase(dev, kernels, smi)
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
         table.append(dict(rows[name], name=name, route="cuda",

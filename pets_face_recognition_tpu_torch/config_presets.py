@@ -10,7 +10,8 @@ from pathlib import Path
 import numpy as np
 
 from .data_loading import (CatLMDDataset, CatLMDSubset, ConcatDataset, DataLoader,
-                           PairGenerator, RecDataset, RecSubset, simple_init_dataset)
+                           PairGenerator, RecDataset, RecSubset, SimpleDataset,
+                           simple_init_dataset)
 from .utils.collate import DetectionCollate
 from .utils.optim import detection_sgd_optimizer, fe_adamw_optimizer, fe_sgd_optimizer
 from .utils.preprocs import FETrainAug, FEValAug
@@ -206,21 +207,20 @@ def build_keypoint_config(
     ``cats/``) landmark files under ``data_root`` with an 80/20 split of a
     ``RandomState(seed)`` permutation, rot90 augmentation on the training
     part, 3 keypoints, 1 detection an image; SGD lr 5e-3, momentum 0.9,
-    weight decay 1e-4, the rate x 0.1 at epochs 18 and 23.
+    weight decay 1e-4, the rate x 0.1 at epochs 18 and 23. Each pair of
+    dog-annotation pickles (``paths.pickle`` / ``others.pickle``,
+    ``paths2.pickle`` / ``others2.pickle``) found in ``fixtures_dir`` adds a
+    ``SimpleDataset`` over ``data_root/data_25`` (rot90 drawn from its own
+    ``RandomState(seed)``) after the CAT training part.
 
     ``optimizer(config)`` returns the optimiser factory the controller calls
     with the model's parameters (``params -> (SGD, schedule)``). ``arch``:
     ``"resnet50"`` (ResNet-50-FPN, frozen trunk statistics) or ``"mobile"``
-    (MobileNetV3-Large with live BatchNorm at momentum 0.9). The JAX config
-    also concatenates two dog-annotation fixtures when their pickles are in
-    ``fixtures_dir``; that dataset is not ported, and finding them raises."""
+    (MobileNetV3-Large with live BatchNorm at momentum 0.9)."""
+    import pickle
+
     from .engine.detector_controller import keypoint_model
 
-    for names in DOG_FIXTURES:
-        if all((Path(fixtures_dir) / n).exists() for n in names):
-            raise NotImplementedError(
-                f"{names} found in {fixtures_dir}: the dog-annotation SimpleDataset "
-                "is not ported (ROADMAP §1)")
     cat_dir = Path(data_root) / "CAT_DATASET"
     if not cat_dir.exists():
         cat_dir = Path(data_root) / "cats"
@@ -230,6 +230,18 @@ def build_keypoint_config(
     split = int(n * 0.8)
     train_ds = CatLMDSubset(base, perm[:split].tolist(), rotate90=True, seed=seed)
     val_ds = CatLMDSubset(base, perm[split:].tolist())
+    extra_parts = []
+    for pa, ot in DOG_FIXTURES:
+        pa_p, ot_p = Path(fixtures_dir) / pa, Path(fixtures_dir) / ot
+        if pa_p.exists() and ot_p.exists():
+            with open(pa_p, "rb") as f:
+                paths = pickle.load(f)
+            with open(ot_p, "rb") as f:
+                others = pickle.load(f)
+            extra_parts.append(SimpleDataset(Path(data_root) / "data_25", paths, others,
+                                             rotate90=True, rng=np.random.RandomState(seed)))
+    if extra_parts:
+        train_ds = ConcatDataset([train_ds, *extra_parts])
     collate = DetectionCollate(image_size, max_boxes=max_boxes, num_keypoints=3)
 
     def model():

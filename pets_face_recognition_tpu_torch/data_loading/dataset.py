@@ -10,9 +10,10 @@ datasets of the feature extractor and the dataset helpers, copied exactly.
   RGB with ``native.read_rgb`` (libjpeg or nvJPEG, and numpy PNG; no PIL)
   and ``.npy`` with numpy;
 - ``RecSubset``: an index view with its own transform;
-- ``ConcatDataset`` and the rot90 of xyxy boxes and (x, y) keypoints.
-
-The pickled-table ``SimpleDataset`` (the dog fixtures) is not ported.
+- ``ConcatDataset`` and the rot90 of xyxy boxes and (x, y) keypoints;
+- ``SimpleDataset``: the detection dataset over pickled ``paths`` / ``others``
+  tables (the dog-annotation fixtures over ``data_25`` photos), with the
+  same rot90 augmentation.
 """
 
 from __future__ import annotations
@@ -25,6 +26,25 @@ from typing import Callable
 import numpy as np
 
 from .. import native
+
+
+def read_jpeg(path: str | Path) -> np.ndarray:
+    """``(H, W, 3)`` uint8, or ``(H, W)`` for a one-component JPEG; raises
+    ``OSError`` when the file does not decode."""
+    image = native.decode_single(path)
+    if image is None:
+        raise OSError(f"cannot decode {path}")
+    # both native routes copy a gray image's Y plane to the three channels
+    return image[..., 0].copy() if native.jpeg_components(path) == 1 else image
+
+
+def read_photo(path: str | Path) -> np.ndarray:
+    """A photo as ``np.array(PIL.Image.open(path))`` gives an RGB or gray
+    one: a JPEG through :func:`read_jpeg` (2-D when gray), a PNG as
+    ``(H, W, 3)`` RGB (``native.read_rgb``)."""
+    with open(path, "rb") as f:
+        jpeg = f.read(2) == b"\xff\xd8"
+    return read_jpeg(path) if jpeg else native.read_rgb(path)
 
 
 def read_image(path: Path) -> np.ndarray:
@@ -201,6 +221,46 @@ class ConcatDataset:
             if item >= off:
                 return ds[item - off]
         raise IndexError(item)
+
+
+class SimpleDataset:
+    """``(image, targets)`` over pickled annotation tables: ``paths[i]`` is a
+    photo under ``root`` (a Windows ``\\`` separator read as ``/``),
+    ``others[i]`` its targets (``boxes (N, 4)`` xyxy, ``labels (N,)``,
+    ``keypoints (N, K, 3)``), each as a numpy array. The photo decodes with
+    :func:`read_photo` (the native routes, as PIL gives it). ``rotate90`` turns the photo, its boxes (rounded to
+    int64) and its keypoints by ``k`` quarter turns, ``k`` drawn from
+    ``rng`` for every item, 0 included."""
+
+    def __init__(self, root, paths, others, transform=None, rotate90: bool = False,
+                 rng: np.random.RandomState | None = None):
+        self.root = Path(root)
+        self.paths = paths
+        self.others = others
+        self.transform = transform
+        self.rotate90 = rotate90
+        self.rng = rng or np.random.RandomState()
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, item):
+        image = read_photo(self.root / str(self.paths[item]).replace("\\", "/"))
+        others = {k: np.array(v) for k, v in self.others[item].items()}
+        h, w = image.shape[:2]
+        if self.rotate90:
+            angle = int(self.rng.randint(0, 4))
+            if angle:
+                image = np.ascontiguousarray(np.rot90(image, angle))
+                others["boxes"] = rot90_boxes(others["boxes"].astype(float), angle,
+                                              (h, w)).round().astype(np.int64)
+                if "keypoints" in others:
+                    kps = others["keypoints"].astype(float)
+                    kps[..., :2] = rot90_keypoints(kps[..., :2], angle, (h, w))
+                    others["keypoints"] = kps
+        if self.transform:
+            image, others = self.transform(image, others)
+        return image, others
 
 
 def rot90_boxes(boxes: np.ndarray, k: int, hw: tuple[int, int]) -> np.ndarray:

@@ -11,8 +11,9 @@ numpy, ``transforms``) or by a multiple of 90 degrees (``rotate90``).
 
 Photos decode with the port's ``native/`` route (libjpeg, or nvJPEG on hosts
 with the CUDA toolkit only), never PIL; a grayscale JPEG comes back 2-D, as
-``np.array(PIL.Image.open(path))`` gives it. ``LMDDataset`` (CelebA
-mixing) is not ported (ROADMAP §1).
+``np.array(PIL.Image.open(path))`` gives it. ``LMDDataset`` pairs CelebA
+faces with random animal crops (unused by the production configs, kept for
+parity with JAX).
 """
 
 from __future__ import annotations
@@ -22,19 +23,56 @@ from typing import Sequence
 
 import numpy as np
 
-from .. import native
-from .dataset import rot90_boxes, rot90_keypoints
+from .dataset import read_jpeg, rot90_boxes, rot90_keypoints
 from .transforms import rotate_bbox, rotate_image, rotate_points
 
 
-def read_jpeg(path: str | Path) -> np.ndarray:
-    """``(H, W, 3)`` uint8, or ``(H, W)`` for a one-component JPEG; raises
-    ``OSError`` when the file does not decode."""
-    image = native.decode_single(path)
-    if image is None:
-        raise OSError(f"cannot decode {path}")
-    # both native routes copy a gray image's Y plane to the three channels
-    return image[..., 0].copy() if native.jpeg_components(path) == 1 else image
+class LMDDataset:
+    """CelebA + Oxford mixing: item ``i`` is the ``i``-th face of ``celeba``
+    (``(image, (bbox, landmarks))``) with a crop of an ``oxford`` item's first
+    box (an ``OxfordSubset`` with box targets), drawn by a ``RandomState(seed)``
+    permutation of the Oxford indices repeated to cover CelebA. The crop is
+    PIL's ``crop``: the box's pixels, zeros where it leaves the image.
+    Landmark coordinate ``i`` is divided by ``shape[i % 2]`` of the face image
+    (the JAX package's rule: x by the height, y by the width), and the first 6
+    returned."""
+
+    def __init__(self, celeba, oxford, oxford_transform=None, seed: int | None = None):
+        self.celeba = celeba
+        self.oxford_dataset = oxford
+        self.oxford_transform = oxford_transform
+        rng = np.random.RandomState(seed)
+        reps = 1 + len(celeba) // len(oxford)
+        self.support_indexing = rng.permutation(list(range(len(oxford))) * reps)[: len(celeba)]
+
+    def __len__(self):
+        return len(self.celeba)
+
+    def __getitem__(self, item: int):
+        celeba_img, (celeba_bbox, celeba_lmd) = self.celeba[item]
+        oxford_img, oxford_t = self.oxford_dataset[self.support_indexing[item]]
+        crop = pil_crop(np.asarray(oxford_img), np.asarray(oxford_t["boxes"][0], int))
+        if self.oxford_transform:
+            crop = self.oxford_transform(crop)
+        lmd = np.asarray(celeba_lmd, np.float32).copy()
+        for i in range(len(lmd)):
+            lmd[i] = lmd[i] / celeba_img.shape[i % 2]
+        return {"human": celeba_img, "animal": crop, "lmd": lmd[:6]}
+
+
+def pil_crop(image: np.ndarray, box) -> np.ndarray:
+    """``PIL.Image.crop((x1, y1, x2, y2))`` on an array: rows ``y1:y2`` and
+    columns ``x1:x2``, zero where the box leaves the image; ``ValueError``
+    when ``x2 < x1`` or ``y2 < y1``, as PIL raises."""
+    x1, y1, x2, y2 = (int(v) for v in box)
+    if x2 < x1 or y2 < y1:
+        raise ValueError(f"crop box {(x1, y1, x2, y2)}: right/lower below left/upper")
+    h, w = image.shape[:2]
+    out = np.zeros((y2 - y1, x2 - x1, *image.shape[2:]), image.dtype)
+    sy1, sy2, sx1, sx2 = max(y1, 0), min(y2, h), max(x1, 0), min(x2, w)
+    if sy2 > sy1 and sx2 > sx1:
+        out[sy1 - y1: sy2 - y1, sx1 - x1: sx2 - x1] = image[sy1:sy2, sx1:sx2]
+    return out
 
 
 class CatLMDDataset:

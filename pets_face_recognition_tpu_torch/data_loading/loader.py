@@ -36,7 +36,7 @@ def default_collate(samples: list) -> dict:
 class DataLoader:
     """Map-style dataset -> iterator of collated batches; ``drop_last``
     defaults to ``shuffle``. ``num_workers <= 0`` reads in the caller's
-    thread."""
+    thread. After :meth:`shard` it reads one rank's rows of each batch."""
 
     def __init__(
         self,
@@ -57,7 +57,20 @@ class DataLoader:
         self.collate_fn = collate_fn
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.rank, self.shards = 0, 1
         self._epoch = 0
+
+    def shard(self, rank: int, shards: int) -> "DataLoader":
+        """From now on read only rank ``rank``'s contiguous rows ``[r B / n,
+        (r + 1) B / n)`` of each batch of the order every rank shares (the
+        same ``seed``), so each of the ``n = shards`` ranks reads and decodes
+        ``B / n`` samples; returns the loader. A batch that does not split
+        over the ranks raises, as ``parallel.shard_batch`` does."""
+        if self.batch_size % shards:
+            raise ValueError(f"batch of {self.batch_size} rows does not split over a data "
+                             f"axis of {shards}")
+        self.rank, self.shards = rank, shards
+        return self
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -75,7 +88,11 @@ class DataLoader:
             idx = order[start : start + self.batch_size]
             if len(idx) < self.batch_size and self.drop_last:
                 continue
-            batches.append(idx)
+            if len(idx) % self.shards:
+                raise ValueError(f"batch of {len(idx)} rows does not split over a data "
+                                 f"axis of {self.shards}")
+            rows = len(idx) // self.shards
+            batches.append(idx[self.rank * rows:(self.rank + 1) * rows])
         return batches
 
     def __iter__(self) -> Iterator[dict]:

@@ -21,6 +21,14 @@ embedder, ``loss(config, model)`` wraps it in ``SoftmaxBasedMetricLearning``
   pairs' similarities over the generator's ``corrected_indices``,
   ``verification_metrics`` and ``recall_at_k``.
 
+With a ``mesh`` (``parallel.create_mesh``) the task is data-parallel:
+``init_state`` broadcasts rank 0's weights, ``train_step`` takes this rank's
+rows of the global batch (the ``Trainer`` shards it), normalises the live
+BatchNorm over the whole batch, averages the gradients over the ranks before
+``finish_step`` clips and steps, and returns the whole batch's metrics;
+``run_eval_batch`` takes the global batch, embeds this rank's rows and
+gathers the embeddings in rank order.
+
 Every step runs in float32 (TF32 off inside). Where the JAX ``evaluate``
 draws a confusion-matrix PNG and a ROC PNG into the config's ``img_dir``
 with matplotlib, which the card does not have, the port writes the same
@@ -37,6 +45,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import parallel
 from ..device import float32_matmuls, resolve_device
 from ..losses import SoftmaxBasedMetricLearning
 from ..weights import init_random_
@@ -51,10 +60,11 @@ class Controller:
     ``init_state``."""
 
     def __init__(self, config, gradient_clip_val: float | None = None,
-                 accumulate_grad_batches: int = 1):
+                 accumulate_grad_batches: int = 1, mesh: parallel.Mesh | None = None):
         self.config = config
         self.gradient_clip_val = gradient_clip_val
         self.accumulate_grad_batches = accumulate_grad_batches
+        self.mesh = mesh
 
     def build_model(self) -> SoftmaxBasedMetricLearning:
         return self.config.loss(self.config, self.config.model())
@@ -67,6 +77,7 @@ class Controller:
         if model is None:
             model = init_random_(self.build_model(), seed)
         model = model.to(dev).train()
+        parallel.broadcast_module(model, self.mesh)
         optimizer, schedule = self.config.optimizer(self.config)(model)
         return TrainState(model, optimizer, schedule, seed)
 
@@ -80,12 +91,14 @@ class Controller:
         x = torch.as_tensor(np.asarray(batch["x"]), dtype=torch.float32).to(dev)
         labels = torch.as_tensor(np.asarray(batch["label"]), dtype=torch.int64).to(dev)
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(x, labels)
-        out["loss"].backward()
+        with parallel.data_parallel(self.mesh):
+            out = model(x, labels)
+            out["loss"].backward()
         acc = (out["logits"].argmax(-1) == labels).float().mean()
         metrics = {"loss": float(out["loss"].detach()), "train_acc": float(acc)}
+        parallel.all_reduce_gradients(model.parameters(), self.mesh)
         finish_step(state, self.accumulate_grad_batches, self.gradient_clip_val)
-        return metrics
+        return parallel.all_reduce_mean(metrics, self.mesh, dev)
 
     def make_eval_step(self) -> Callable:
         """``eval_step(state, x) -> embeddings``: the wrapper in ``eval()``
@@ -103,9 +116,13 @@ class Controller:
         return eval_step
 
     def run_eval_batch(self, eval_step: Callable, state: TrainState, batch: dict) -> dict:
+        """The global batch's embeddings (this rank's rows embedded, the rows
+        of every rank gathered in order under a mesh), labels and indices."""
         dev = next(state.model.parameters()).device
-        x = torch.as_tensor(np.asarray(batch["x"]), dtype=torch.float32).to(dev)
-        return {"emb": eval_step(state, x).cpu().numpy(),
+        x = parallel.shard_batch(np.asarray(batch["x"]), self.mesh)
+        x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        emb = parallel.all_gather_rows(eval_step(state, x), self.mesh)
+        return {"emb": emb.cpu().numpy(),
                 "label": np.asarray(batch["label"]), "index": np.asarray(batch["index"])}
 
     def evaluate(self, outputs: list[list[dict]], logger=None, epoch: int = 0,

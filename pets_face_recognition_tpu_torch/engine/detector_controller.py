@@ -26,6 +26,15 @@ controller's IoU thresholds (0.5, 0.7, 0.9 for masks; 0.5, 0.7 for
 keypoints), the top detection's IoU, and the mask IoU or the keypoint
 errors. With ``config=`` the model, the optimiser and the loaders come from a
 config (``config_presets.build_mask_config``, ``build_keypoint_config``).
+
+With a ``mesh`` (``parallel.create_mesh``) the task is data-parallel:
+``init_state`` broadcasts rank 0's weights; ``train_step`` takes this rank's
+rows of the global batch (the ``Trainer`` shards it) and this rank's rows of
+the global sampler draw, divides the box, mask and keypoint losses by the
+whole batch's counts, normalises a live-BN trunk over the whole batch,
+averages the gradients over the ranks before ``finish_step``, and returns the
+whole batch's losses; ``run_eval_batch`` takes the global batch, runs this
+rank's images and gathers the detections in rank order.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import parallel
 from ..device import float32_matmuls, resolve_device
 from ..losses import sum_detection_loss
 from ..models.rcnn import (KEYPOINT_ARCHS, GeneralizedRCNN, frozen_twin,
@@ -80,12 +90,14 @@ class DetectionController:
     def __init__(self, model_fn: Callable[[], GeneralizedRCNN] | None = None,
                  optimizer_fn: Callable = detection_sgd_optimizer,
                  gradient_clip_val: float | None = None, *,
-                 config=None, accumulate_grad_batches: int = 1):
+                 config=None, accumulate_grad_batches: int = 1,
+                 mesh: parallel.Mesh | None = None):
         if config is not None:
             model_fn, optimizer_fn = config.model, config.optimizer(config)
         if model_fn is None:
             model_fn = mask_model
         self.config = config
+        self.mesh = mesh
         self.model_fn = model_fn
         self.optimizer_fn = optimizer_fn
         self.gradient_clip_val = gradient_clip_val
@@ -115,6 +127,7 @@ class DetectionController:
         if model is None:
             model = init_random_(self.model_fn(), seed)
         model = model.to(dev).train()
+        parallel.broadcast_module(model, self.mesh)
         optimizer, schedule = self.optimizer_fn(
             [p for p in model.parameters() if p.requires_grad])
         return TrainState(model, optimizer, schedule, seed)
@@ -129,7 +142,9 @@ class DetectionController:
         normalises with batch statistics and moves its running statistics in
         every mini-step, as the JAX step's ``mutable=["batch_stats"]``.
         Afterwards each parameter's ``.grad`` holds this mini-step's gradient,
-        or on an update the clipped mean that was stepped."""
+        or on an update the clipped mean that was stepped. Under a mesh,
+        ``batch`` and ``sampler_noise`` are this rank's rows, and the
+        gradients and the returned losses are the whole batch's."""
         model = state.model.train()
         dev = next(model.parameters()).device
         images = torch.as_tensor(batch["images"], dtype=torch.float32).to(dev)
@@ -137,12 +152,14 @@ class DetectionController:
         state.optimizer.zero_grad(set_to_none=True)
         generator = None if sampler_noise is not None else step_generator(state.seed,
                                                                           state.step)
-        out = sum_detection_loss(model(images, targets, sampler_noise=sampler_noise,
-                                       generator=generator))
-        out["loss"].backward()
+        with parallel.data_parallel(self.mesh):
+            out = sum_detection_loss(model(images, targets, sampler_noise=sampler_noise,
+                                           generator=generator))
+            out["loss"].backward()
         metrics = {k: float(v.detach()) for k, v in out.items()}
+        parallel.all_reduce_gradients(model.parameters(), self.mesh)
         finish_step(state, self.accumulate_grad_batches, self.gradient_clip_val)
-        return metrics
+        return parallel.all_reduce_mean(metrics, self.mesh, dev)
 
     # -- evaluation ----------------------------------------------------------
     def make_eval_step(self) -> Callable:
@@ -168,10 +185,13 @@ class DetectionController:
 
     def run_eval_batch(self, eval_step: Callable, state: TrainState, batch: dict) -> dict:
         """One eval batch -> ``{'pred', 'true', 'batch_size'}`` on the host;
-        the targets get the training +1 label shift."""
+        the targets get the training +1 label shift. Under a mesh this rank
+        runs its rows and the detections of every rank are gathered in order."""
         dev = next(state.model.parameters()).device
-        images = torch.as_tensor(np.asarray(batch["images"]), dtype=torch.float32).to(dev)
-        dets = eval_step(state, images)
+        images = np.asarray(batch["images"])
+        local = parallel.shard_batch(images, self.mesh)
+        dets = eval_step(state, torch.as_tensor(local, dtype=torch.float32).to(dev))
+        dets = {k: parallel.all_gather_rows(v, self.mesh) for k, v in dets.items()}
         true = {
             "boxes": np.asarray(batch["boxes"]),
             "labels": np.asarray(batch["labels"]) + 1,
@@ -230,13 +250,14 @@ class KeyPointsController(DetectionController):
     def __init__(self, model_fn: Callable[[], GeneralizedRCNN] | None = None,
                  optimizer_fn: Callable = detection_sgd_optimizer,
                  gradient_clip_val: float | None = None, arch: str = "resnet50", *,
-                 config=None, accumulate_grad_batches: int = 1):
+                 config=None, accumulate_grad_batches: int = 1,
+                 mesh: parallel.Mesh | None = None):
         if config is None and model_fn is None:
             if arch not in KEYPOINT_ARCHS:
                 raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
             model_fn = lambda: keypoint_model(arch)  # noqa: E731
         super().__init__(model_fn, optimizer_fn, gradient_clip_val, config=config,
-                         accumulate_grad_batches=accumulate_grad_batches)
+                         accumulate_grad_batches=accumulate_grad_batches, mesh=mesh)
 
     @staticmethod
     def serving_model(state: TrainState) -> GeneralizedRCNN:

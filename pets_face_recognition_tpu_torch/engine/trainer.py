@@ -20,6 +20,15 @@ epoch loop of the reference's Lightning-style trainer.
 - ``profiler=<dir>``: a ``torch.profiler`` trace of the first epoch run,
   written to ``<dir>/trace.json``.
 
+``mesh`` (``parallel.create_mesh``, or the controller's own) makes the fit
+data-parallel: the controller gets the mesh, the train loader (a
+``DataLoader``) reads only this rank's rows of each global batch
+(``DataLoader.shard``: every rank shuffles alike and decodes ``B / n``
+samples; a dataset's augmentation then draws each rank's own numbers), eval
+batches go whole to the controller,
+which runs this rank's rows and gathers the outputs, and only rank 0 writes
+checkpoints (the others wait for it).
+
 ``fit`` runs in float32 (TF32 off inside, the caller's flags back after).
 """
 
@@ -33,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import parallel
 from ..device import float32_matmuls
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .logging import MetricsLogger
@@ -63,8 +73,10 @@ class Trainer:
         profiler: str | Path | None = None,
         terminate_on_nan: bool = True,
         device: str | torch.device = "cuda",
+        mesh: parallel.Mesh | None = None,
     ):
         self.config = config
+        self.mesh = mesh
         self.logger = logger
         self.max_epochs = max_epochs or (config.n_epochs if config else 1)
         self.enable_checkpointing = enable_checkpointing
@@ -129,10 +141,13 @@ class Trainer:
 
     def _fit_inner(self, controller, state):
         config = self.config or controller.config
+        mesh = self._bind_mesh(controller)
         controller.gradient_clip_val = self.gradient_clip_val
         controller.accumulate_grad_batches = self.accumulate_grad_batches
 
         train_loader = controller.train_dataloader()
+        if mesh is not None and mesh.group is not None:
+            train_loader = train_loader.shard(mesh.rank, mesh.size)
         if self.overfit_batches:
             n = self.overfit_batches
             if isinstance(n, float) and 0 < n < 1:
@@ -219,13 +234,21 @@ class Trainer:
             if not self.overfit_batches:
                 self.validate(controller, state, epoch)
             if self.enable_checkpointing:
-                path = save_checkpoint(ckpt_dir, state, epoch)
-                print(f"[trainer] checkpoint: {path}", flush=True)
+                if mesh is None or mesh.rank == 0:
+                    path = save_checkpoint(ckpt_dir, state, epoch)
+                    print(f"[trainer] checkpoint: {path}", flush=True)
+                parallel.barrier(mesh)
             if self._stop_requested:
                 print("[trainer] graceful stop", flush=True)
                 break
         self.state = state
         return state
+
+    def _bind_mesh(self, controller) -> parallel.Mesh | None:
+        """The trainer's mesh, else the controller's; the controller gets it."""
+        mesh = self.mesh if self.mesh is not None else getattr(controller, "mesh", None)
+        controller.mesh = mesh
+        return mesh
 
     def _val_interval_steps(self, n_batches: int | None):
         v = self.val_check_interval
@@ -254,6 +277,7 @@ class Trainer:
     def predict(self, controller, state: TrainState | None = None) -> list[dict]:
         """Each test batch's ``run_eval_batch`` output, on the host."""
         state = state if state is not None else self.state
+        self._bind_mesh(controller)
         eval_step = controller.make_eval_step()
         outputs = []
         for loader in _as_list(controller.test_dataloader()):
@@ -264,6 +288,7 @@ class Trainer:
         return outputs
 
     def _run_eval(self, controller, state, loaders, epoch, prefix):
+        self._bind_mesh(controller)
         eval_step = controller.make_eval_step()
         outputs = []
         for loader in loaders:

@@ -21,6 +21,7 @@ from .engine.checkpoint import load_params, merge_params
 from .engine.controller import Controller
 from .engine.trainer import Trainer
 from .eval_landmark import resolve_checkpoint
+from .parallel import create_mesh, init_distributed
 from .utils import get_config
 
 CONFIGS = Path(__file__).resolve().parent / "configs"
@@ -34,9 +35,11 @@ def predict(config_path: str | Path, ckpt_path: str | Path, device: str = "cuda"
     from the checkpoint's weights on ``device``."""
     dev = resolve_device(device)
     config = get_config(config_path)
-    controller = Controller(config)
+    init_distributed(device=dev)
+    mesh = create_mesh(device=dev)
+    controller = Controller(config, mesh=mesh)
     trainer = Trainer(config=config, enable_checkpointing=False,
-                      default_root_dir=config.get("output", "."), device=device)
+                      default_root_dir=config.get("output", "."), device=device, mesh=mesh)
     state = controller.init_state(0, dev)
     merge_params(state.model, load_params(ckpt_path, dev))
     return controller, trainer.predict(controller, state)

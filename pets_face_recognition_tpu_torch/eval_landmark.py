@@ -3,7 +3,9 @@ the JAX ``eval_landmark.py`` and ``eval_detection.py::evaluate``): build the
 config's model, merge a port checkpoint into it (non-strict; the newest
 ``epoch=*-step=*`` when ``--ckpt`` is a folder) and run ``Trainer.test``
 over the config's test (else validation) loader: AP 50 / 70, the top
-detection's IoU and the keypoint errors.
+detection's IoU and the keypoint errors. Under ``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES`` and ``PROCESS_ID`` each process runs its rows of every batch
+(``main.py``).
 
     python -m pets_face_recognition_tpu_torch.eval_landmark --config <config> \\
         --ckpt <run>/checkpoints [--device cpu]
@@ -21,6 +23,7 @@ from .device import resolve_device
 from .engine.checkpoint import latest_checkpoint, load_params, merge_params
 from .engine.detector_controller import KeyPointsController
 from .engine.trainer import Trainer
+from .parallel import create_mesh, init_distributed
 from .utils import get_config
 
 DEFAULT_CONFIG = Path(__file__).resolve().parent / "configs" / "keypoints_config.py"
@@ -31,9 +34,11 @@ def evaluate(config_path: str | Path, ckpt_path: str | Path,
              ) -> dict[str, dict[str, float]]:
     dev = resolve_device(device)
     config = get_config(config_path)
-    controller = controller_cls(config=config)
+    init_distributed(device=dev)
+    mesh = create_mesh(device=dev)
+    controller = controller_cls(config=config, mesh=mesh)
     trainer = Trainer(config=config, enable_checkpointing=False,
-                      default_root_dir=config.get("output", "."), device=device)
+                      default_root_dir=config.get("output", "."), device=device, mesh=mesh)
     state = controller.init_state(0, dev)
     merge_params(state.model, load_params(ckpt_path, dev))
     return trainer.test(controller, state)

@@ -10,11 +10,12 @@ import torch
 from torch import nn
 
 from .large_margin import AddMarginProduct, ArcMarginProduct, cosine_logits
-from .losses import cross_entropy, focal_loss, optax_sigmoid_ce, smooth_l1, sum_detection_loss
+from .losses import (FocalLoss, binary_focal_sigmoid, cross_entropy, focal_loss,
+                     optax_sigmoid_ce, smooth_l1, sum_detection_loss)
 
-__all__ = ["AddMarginProduct", "ArcMarginProduct", "SoftmaxBasedMetricLearning",
-           "cosine_logits", "cross_entropy", "focal_loss", "optax_sigmoid_ce", "smooth_l1",
-           "sum_detection_loss"]
+__all__ = ["AddMarginProduct", "ArcMarginProduct", "DummyWrapper", "FocalLoss",
+           "SoftmaxBasedMetricLearning", "binary_focal_sigmoid", "cosine_logits",
+           "cross_entropy", "focal_loss", "optax_sigmoid_ce", "smooth_l1", "sum_detection_loss"]
 
 
 class SoftmaxBasedMetricLearning(nn.Module):
@@ -54,3 +55,14 @@ class SoftmaxBasedMetricLearning(nn.Module):
         else:
             loss = cross_entropy(logits, labels, weights=weights)
         return {"loss": loss, "emb": emb, "logits": logits}
+
+
+class DummyWrapper(nn.Module):
+    """Pass-through wrapper: ``forward(x, labels=None, ...)`` is ``model(x)``."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor, labels=None, **_):
+        return self.model(x)

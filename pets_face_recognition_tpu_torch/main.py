@@ -9,7 +9,10 @@ the JAX ``main.py`` does:
         --config pets_face_recognition_tpu_torch/configs/fe_smoke.py [--device cpu]
 
 ``main_keypoints`` and ``main_detection`` pass the keypoint and Mask R-CNN
-controllers."""
+controllers. Data-parallel over several processes, one a card: set
+``COORDINATOR_ADDRESS=host:port``, ``NUM_PROCESSES`` and ``PROCESS_ID`` in each
+(NCCL on the card, ``gloo`` with ``--device cpu``); the config's batch is the
+global one, and each process trains on its rows."""
 
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from pathlib import Path
 from .device import resolve_device
 from .engine.logging import MetricsLogger
 from .engine.trainer import Trainer, configure_trainer
+from .parallel import create_mesh, init_distributed
 from .utils import get_config, is_main_process
 
 
@@ -65,11 +69,13 @@ def main(controller_cls=None, argv=None) -> Trainer:
         from .engine.controller import Controller as controller_cls
     args = parse_args(argv)
     resolve_device(args.device)
+    init_distributed(device=args.device)
     config = get_config(args.config)
     logger = setup_run(config, args.config)
-    controller = controller_cls(config=config)
+    mesh = create_mesh(device=args.device)
+    controller = controller_cls(config=config, mesh=mesh)
     trainer = configure_trainer(config, logger, default_root_dir=config.get("output", "."),
-                                device=args.device)
+                                device=args.device, mesh=mesh)
     trainer.fit(controller)
     print("Completed!")
     return trainer

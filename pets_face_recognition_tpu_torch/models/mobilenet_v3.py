@@ -153,3 +153,6 @@ class MobileNetV3Large(nn.Module):
         x = hard_swish(self.head_fc1(x))
         return self.head_fc2(x) if self.head_fc2 is not None else x
 
+
+def mobilenet_v3_large(**kw) -> MobileNetV3Large:
+    return MobileNetV3Large(**kw)

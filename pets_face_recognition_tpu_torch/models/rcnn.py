@@ -23,7 +23,10 @@ tensors.
 The two samplers take uniform noise, ``sampler_noise = {"rpn": (B, N_anchors),
 "box": (B, rpn_post_nms_top_n_train + G)}``, or draw it from ``generator``
 (on the generator's device, then moved to the images'), so that runs on two
-devices, or against the JAX package, can share the same samples.
+devices, or against the JAX package, can share the same samples. Inside a
+data-parallel step (``parallel.data_parallel``) the generator's draw is that
+of the whole global batch, and each rank takes its own rows of it, so that the
+ranks sample what one rank on the whole batch samples.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops.anchors import multilevel_anchors
 from ..ops.roi_align import multilevel_roi_align_diff
 from . import roi_heads as rh
@@ -173,8 +177,12 @@ class GeneralizedRCNN(nn.Module):
         if sampler_noise is None:
             if generator is None:
                 raise ValueError("training needs sampler_noise or a torch.Generator")
-            sampler_noise = self.draw_sampler_noise(B, anchors.shape[0],
-                                               targets["boxes"].shape[1], generator)
+            mesh = parallel.active_mesh()
+            n = 1 if mesh is None else mesh.size
+            sampler_noise = self.draw_sampler_noise(B * n, anchors.shape[0],
+                                                    targets["boxes"].shape[1], generator)
+            if mesh is not None:
+                sampler_noise = {k: v[mesh.rows(B * n)] for k, v in sampler_noise.items()}
         noise = {k: v.to(dev) for k, v in sampler_noise.items()}
         losses = rpn_loss(objectness, deltas, anchors, targets["boxes"], targets["valid"],
                           noise["rpn"], c.rpn_batch_size_per_image,

@@ -1,14 +1,15 @@
-"""ResNet backbones (counterpart of the JAX ``models/resnet.py``), NCHW inside.
+"""ResNet backbones (counterpart of the JAX ``models/resnet.py``), NCHW inside:
+ResNet-50 of bottlenecks, ResNet-18 and -34 of basic blocks.
 
 torchvision module and ``state_dict`` names (``conv1``, ``layer1.0.conv2``,
-``layer2.0.downsample.0`` ...), stride on each bottleneck's 3x3 conv, BN
+``layer2.0.downsample.0`` ...), stride on each block's first 3x3 conv, BN
 epsilon 1e-5, eval-mode statistics (the detection trunk's affine trains, see
 ``FrozenBatchNorm2d``). The JAX package's space-to-depth stem is an
 exact rewrite of the 7x7/s2 conv and stores 7x7 weights, so the port runs the
 plain ``Conv2d(3, 64, 7, 2, 3)``.
 
 ``quant`` (``None``, ``"calibrate"`` or ``"int8"``) builds the serving int8
-twin (``models/quant.py``): every bottleneck's convolutions become
+twin (``models/quant.py``): every block's convolutions become
 :class:`~.quant.QuantConv` behind :class:`~.quant.ActQuant` points, under the
 same parameter names; the stem, the norms and the ReLUs stay float. A float
 ``state_dict`` loads into the twin with ``quant.load_float_state_dict`` (a
@@ -23,6 +24,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from .. import parallel
 from .quant import ActQuant, QuantConv, dequantize
 
 
@@ -66,6 +68,12 @@ class LiveBatchNorm2d(nn.Module):
     ``num_batches_tracked``: flax keeps no counter, and the keys are those of
     :class:`FrozenBatchNorm2d`, so a serving twin loads this norm's
     ``state_dict`` strictly.
+
+    Inside a data-parallel step over more than one rank
+    (``parallel.data_parallel``) the moments are those of the whole global
+    batch, as JAX's sharded jit takes them: the sums of ``x`` and ``x^2``
+    go through a differentiable all-reduce, so the backward is the
+    whole-batch backward and the running statistics stay equal on every rank.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99):
@@ -79,8 +87,11 @@ class LiveBatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            if parallel.shards() > 1:
+                mean, mean_sq = parallel.global_moments(x, (0, 2, 3))
+            else:
+                mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
@@ -146,18 +157,67 @@ class Bottleneck(nn.Module):
         return self.relu(y + residual)
 
 
-class ResNet(nn.Module):
-    """torchvision-compatible bottleneck ResNet; ``forward`` takes NCHW.
+class BasicBlock(nn.Module):
+    """3x3(stride) -> 3x3 block of ResNet-18/34, projection shortcut when
+    needed. With ``quant`` the block input is quantized once (``in_q``) and
+    read by ``conv1``, by the projection shortcut and, dequantized, by the
+    identity residual (the float input in calibrate mode); ``q1`` sits between
+    the convolutions (JAX ``BasicBlock(quant=...)``)."""
 
-    ``features_only`` returns ``{'c2'..'c5'}`` NCHW maps; otherwise the global
-    average pool, then ``fc`` when ``num_classes`` > 0. ``quant`` builds every
-    bottleneck's int8 twin (the stem and ``fc`` stay float).
+    expansion = 1
+
+    def __init__(self, in_ch: int, width: int, stride: int,
+                 norm_layer: Callable[[int], nn.Module], quant: str | None = None):
+        super().__init__()
+        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        self.conv1 = conv(in_ch, width, 3, stride, 1, bias=False)
+        self.bn1 = norm_layer(width)
+        self.conv2 = conv(width, width, 3, 1, 1, bias=False)
+        self.bn2 = norm_layer(width)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or in_ch != width:
+            self.downsample = nn.Sequential(
+                conv(in_ch, width, 1, stride, bias=False), norm_layer(width))
+        self.quant = quant is not None
+        if self.quant:
+            self.in_q, self.q1 = ActQuant(quant), ActQuant(quant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self._forward_quant(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(y + residual)
+
+    def _forward_quant(self, x: torch.Tensor) -> torch.Tensor:
+        xq, s_x = self.in_q(x)
+        y = self.relu(self.bn1(self.conv1(xq, s_x)))
+        y = self.bn2(self.conv2(*self.q1(y)))
+        if self.downsample is not None:
+            residual = self.downsample[1](self.downsample[0](xq, s_x))
+        elif self.in_q.mode == "int8":
+            residual = dequantize(xq, s_x)
+        else:
+            residual = x
+        return self.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """torchvision-compatible ResNet of ``block`` (``Bottleneck`` or
+    ``BasicBlock``); ``forward`` takes NCHW.
+
+    ``features_only`` returns ``{'c2'..'c5'}`` NCHW maps (``level_channels``
+    wide); otherwise the global average pool, then ``fc`` when
+    ``num_classes`` > 0. ``quant`` builds every block's int8 twin (the stem
+    and ``fc`` stay float).
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 0, features_only: bool = False,
                  norm_layer: Callable[[int], nn.Module] = FrozenBatchNorm2d,
-                 quant: str | None = None):
+                 quant: str | None = None, block: type[nn.Module] = Bottleneck):
         super().__init__()
         self.features_only = features_only
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -169,9 +229,10 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if (i == 0 and stage > 0) else 1
-                blocks.append(Bottleneck(in_ch, width, stride, norm_layer, quant))
-                in_ch = width * Bottleneck.expansion
+                blocks.append(block(in_ch, width, stride, norm_layer, quant))
+                in_ch = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.level_channels = tuple(w * block.expansion for w in (64, 128, 256, 512))
         self.out_channels = in_ch
         self.fc = nn.Linear(in_ch, num_classes) if num_classes else None
 
@@ -189,3 +250,20 @@ class ResNet(nn.Module):
 
 def resnet50(**kw) -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3), **kw)
+
+
+def _small(stage_sizes, num_classes: int, frozen_stats: bool, kw: dict) -> ResNet:
+    """A basic-block ResNet; its norm, unless ``norm_layer`` is given, is JAX's
+    ``frozen_stats`` choice: frozen statistics, or live BatchNorm at flax
+    momentum 0.9."""
+    kw.setdefault("norm_layer", FrozenBatchNorm2d if frozen_stats
+                  else partial(LiveBatchNorm2d, momentum=0.9))
+    return ResNet(stage_sizes=stage_sizes, num_classes=num_classes, block=BasicBlock, **kw)
+
+
+def resnet34(num_classes: int = 0, frozen_stats: bool = False, **kw) -> ResNet:
+    return _small((3, 4, 6, 3), num_classes, frozen_stats, kw)
+
+
+def resnet18(num_classes: int = 0, frozen_stats: bool = False, **kw) -> ResNet:
+    return _small((2, 2, 2, 2), num_classes, frozen_stats, kw)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..losses import cross_entropy, optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from ..ops.nms import nms_keep_sorted_batch_cuda
@@ -315,8 +316,9 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_deltas: torch.Tensor,
                   fg: torch.Tensor) -> dict[str, torch.Tensor]:
     """torchvision ``fastrcnn_loss`` over ``K`` flattened samples: cross entropy
     over the valid ones, smooth-L1 of the target class's deltas over the fg ones,
-    summed and divided by the valid count."""
-    n = valid.sum().clamp(min=1).float()
+    summed and divided by the valid count (of the whole batch, over the
+    ranks, in a data-parallel step)."""
+    n = parallel.global_sum(valid.sum()).clamp(min=1).float() / parallel.shards()
     cls_loss = cross_entropy(class_logits, cls_targets, weights=valid.float())
     targets = encode_boxes(matched_gt_boxes, sampled_boxes, BOX_CODER_WEIGHTS)
     idx = cls_targets.long()[:, None, None].expand(-1, 1, 4)
@@ -343,7 +345,8 @@ def keypoints_to_heatmap_targets(keypoints: torch.Tensor, boxes: torch.Tensor,
 def keypointrcnn_loss(kp_logits: torch.Tensor, kp_targets: torch.Tensor,
                       kp_valid: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     """Cross entropy over the ``S x S`` positions per visible keypoint of each
-    fg sample; ``kp_logits (K, S, S, NK)``."""
+    fg sample, over their count (of the whole batch in a data-parallel step,
+    through ``cross_entropy``'s weights); ``kp_logits (K, S, S, NK)``."""
     K, S, _, NK = kp_logits.shape
     flat = kp_logits.permute(0, 3, 1, 2).reshape(K * NK, S * S)
     weights = (kp_valid & fg[:, None]).float().reshape(K * NK)
@@ -402,10 +405,12 @@ def maskrcnn_loss(mask_logits: torch.Tensor, cls_targets: torch.Tensor,
     """Sigmoid cross entropy of the target class's ``S x S`` mask logits
     (``mask_logits (K, S, S, C)``) against the targets cut at 0.5, averaged
     over each RoI's pixels, summed over the fg RoIs and divided by their
-    count (at least 1)."""
+    count (at least 1; of the whole batch, over the ranks, in a
+    data-parallel step)."""
     K, S, _, _ = mask_logits.shape
     idx = cls_targets.long().reshape(K, 1, 1, 1).expand(K, S, S, 1)
     per_class = torch.gather(mask_logits, 3, idx)[..., 0]
     bce = optax_sigmoid_ce(per_class, (mask_targets > 0.5).float())
     per_roi = bce.mean(dim=(1, 2))
-    return (per_roi * fg.float()).sum() / fg.sum().clamp(min=1).float()
+    n_fg = parallel.global_sum(fg.sum()).clamp(min=1).float() / parallel.shards()
+    return (per_roi * fg.float()).sum() / n_fg

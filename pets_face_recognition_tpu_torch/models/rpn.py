@@ -193,7 +193,10 @@ def rpn_loss(objectness: torch.Tensor, deltas: torch.Tensor, anchors: torch.Tens
              batch_size_per_image: int = 256, positive_fraction: float = 0.5,
              ) -> dict[str, torch.Tensor]:
     """RPN loss (torchvision normalisation: both terms over the sampled count
-    per image, then the mean over images). ``noise (B, N)`` feeds the sampler."""
+    per image, then the mean over images). ``noise (B, N)`` feeds the sampler.
+    Being a mean of per-image terms, a data-parallel step over equal shards
+    needs no whole-batch count here: the mean over the ranks of each rank's
+    mean is the whole-batch mean."""
     labels, matched = assign_rpn_targets(anchors, gt_boxes, gt_valid)
     sampled = sample_balanced(labels, noise, batch_size_per_image, positive_fraction)
     n_sampled = sampled.sum(-1).clamp(min=1.0)

@@ -26,6 +26,19 @@ def generate_anchors(sizes: tuple[float, ...], aspect_ratios: tuple[float, ...],
     return (np.stack([-ws, -hs, ws, hs], axis=1) / 2.0).astype(np.float32)
 
 
+def grid_anchors(feature_size: tuple[int, int], stride: tuple[int, int] | int,
+                 base_anchors: np.ndarray) -> np.ndarray:
+    """Every anchor of one level, on the host: ``(H * W * A, 4)`` float32 xyxy,
+    row-major over ``(y, x, anchor)``."""
+    fh, fw = feature_size
+    sy, sx = (stride, stride) if isinstance(stride, int) else stride
+    shift_y, shift_x = np.meshgrid(np.arange(fh, dtype=np.float32) * sy,
+                                   np.arange(fw, dtype=np.float32) * sx, indexing="ij")
+    shifts = np.stack([shift_x.ravel(), shift_y.ravel(), shift_x.ravel(), shift_y.ravel()],
+                      axis=1)
+    return (shifts[:, None, :] + base_anchors[None, :, :]).reshape(-1, 4).astype(np.float32)
+
+
 def multilevel_anchors(feature_sizes: list[tuple[int, int]], strides: list[int],
                        sizes_per_level: tuple[tuple[float, ...], ...],
                        aspect_ratios: tuple[float, ...] = (0.5, 1.0, 2.0),

@@ -31,7 +31,8 @@ or ``Preproc6`` (head box crop) bound to a keypoint checkpoint variant
 (``pipelines.KEYPOINT_VARIANTS``): built without a model, they load
 ``pipelines.keypoint_detector(variant=...)`` on first use, as the JAX
 package's deferred loader does; an explicit model wins. ``IdentityPreproc``
-passes photos through.
+passes photos through. ``bbox_crop_letterbox`` crops and letterboxes boxes
+of a batch on the device through K1.
 """
 
 from __future__ import annotations
@@ -50,10 +51,32 @@ from .align import align, align_batch
 
 __all__ = ["DEFAULT_BASE_PTS", "IdentityPreproc", "Preproc3", "Preproc4", "Preproc5",
            "Preproc6", "Preproc7", "Preproc8", "Preproc9", "Preproc10", "Preproc11",
-           "Preproc12", "Preproc13", "PreprocCombined", "align", "align_batch"]
+           "Preproc12", "Preproc13", "PreprocCombined", "align", "align_batch",
+           "bbox_crop_letterbox"]
 
 # Canonical head landmarks in the 224 x 224 crop.
 DEFAULT_BASE_PTS = np.array([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]], np.float32)
+
+
+def bbox_crop_letterbox(images: torch.Tensor, boxes: torch.Tensor,
+                        out_size: tuple[int, int]) -> torch.Tensor:
+    """Each box of ``images (B, H, W, C)`` cropped and letterboxed to
+    ``out_size = (oh, ow)`` in one projective warp (kernel K1 on CUDA
+    tensors, its plain version on CPU ones): the box scaled by ``min(oh / bh,
+    ow / bw)`` (sides at least 1 px), centred, zero around it; float32
+    ``(B, oh, ow, C)``."""
+    oh, ow = out_size
+    boxes = boxes.float()
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    bw = (x2 - x1).clamp(min=1.0)
+    bh = (y2 - y1).clamp(min=1.0)
+    scale = torch.minimum(oh / bh, ow / bw)
+    tx = (ow - bw * scale) / 2.0 - x1 * scale
+    ty = (oh - bh * scale) / 2.0 - y1 * scale
+    z, o = torch.zeros_like(scale), torch.ones_like(scale)
+    Hs = torch.stack([torch.stack([scale, z, tx], -1), torch.stack([z, scale, ty], -1),
+                      torch.stack([z, z, o], -1)], -2)
+    return warp_perspective_batch_cuda(images.float().contiguous(), Hs, (oh, ow))
 
 
 def _rgb(img: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:

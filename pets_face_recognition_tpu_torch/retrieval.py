@@ -15,7 +15,14 @@ Score dumps: :func:`calc_scores` fills an optional dict, keyed by query name,
 with each query's full score row, include mask and gallery names;
 :func:`write_scores_dump` saves it as the JAX package's ``PFR_SCORES_DUMP``
 npz (keys ``"{query}/gallery|scores|include"``), and :func:`near_tie_report`
-compares two dumps as ``tools/verify_near_tie_contract.py::compare`` does.
+compares two dumps as ``tools/verify_near_tie_contract.py::compare`` does;
+:func:`flush_scores_dump` writes a dump to ``PFR_SCORES_DUMP`` or a path.
+
+With a ``mesh`` (``parallel.create_mesh``) the gallery is split over the
+``data`` axis: ``pairwise_card_scores`` scores this process's gallery rows and
+gathers every rank's, and :func:`sharded_topk_scores` takes a top-k a rank
+and a global top-k over the gathered candidates, so that only ``(Q, k)`` a
+rank crosses the processes.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import math
+import os
 import re
 from pathlib import Path
 from typing import Iterable, Mapping
@@ -30,6 +38,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
+from . import parallel
 from .device import float32_matmuls, resolve_device
 
 # Per-species ensemble fallback thresholds (type 1 = dog, 2 = cat).
@@ -133,15 +142,70 @@ def max_strategy_cal_scores(v1, v2) -> float:
 
 
 @float32_matmuls()
-def pairwise_card_scores(q: np.ndarray, g: np.ndarray,
-                         device: str | torch.device = "cuda") -> np.ndarray:
+def pairwise_card_scores(q: np.ndarray, g: np.ndarray, device: str | torch.device = "cuda",
+                         mesh: parallel.Mesh | None = None) -> np.ndarray:
     """``(Q, D) x (G, D) -> (Q, G)`` mean-strategy scores ``max(0, (q.g + 1) / 2)``,
-    one ``torch.matmul`` on ``device`` in float32."""
+    one ``torch.matmul`` on ``device`` in float32; under a mesh, of this
+    process's gallery rows (the gallery zero-padded to split evenly), every
+    rank's columns gathered in order."""
     dev = resolve_device(device)
+    g = np.ascontiguousarray(g, np.float32)
+    G = g.shape[0]
+    if mesh is not None:
+        padded = _pad_rows(g, mesh.size)
+        g = padded[mesh.rows(len(padded))]
     qt = torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev)
-    gt = torch.from_numpy(np.ascontiguousarray(g, np.float32)).to(dev)
-    s = torch.matmul(qt, gt.T)
-    return torch.clamp((s + 1.0) / 2.0, min=0.0).cpu().numpy()
+    gt = torch.from_numpy(g).to(dev)
+    s = torch.clamp((torch.matmul(qt, gt.T) + 1.0) / 2.0, min=0.0)
+    if mesh is not None:
+        s = parallel.all_gather_rows(s.T, mesh).T[:, :G]
+    return s.cpu().numpy()
+
+
+def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
+    pad = (-x.shape[0]) % n
+    return np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)]) if pad else x
+
+
+def _stable_topk(s: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top ``k`` along the last axis, ties to the lower index (``lax.top_k``)."""
+    order = torch.sort(s, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(s, -1, order), order
+
+
+@float32_matmuls()
+def sharded_topk_scores(queries: np.ndarray, gallery: np.ndarray, k: int,
+                        mesh: parallel.Mesh, axis: str = "data") -> tuple[np.ndarray, np.ndarray]:
+    """Two-stage top-k of the mean-strategy scores over a gallery split over
+    the mesh's ``data`` axis (zero-padded to split evenly): each rank scores
+    its ``G / n`` rows on the mesh's device, its padded rows at ``-inf``,
+    and keeps its top ``min(k, G / n)``; the ``(Q, kk)`` of every
+    rank are gathered in order and the global top ``min(k, n kk)`` taken,
+    ties to the lower gallery index. Returns ``(scores (Q, k), indices (Q,
+    k))`` into the whole gallery."""
+    if axis != "data":
+        raise ValueError(f"axis {axis!r}: the port has only the 'data' axis")
+    dev = mesh.device
+    G = gallery.shape[0]
+    padded = _pad_rows(np.ascontiguousarray(gallery, np.float32), mesh.size)
+    shard_size = padded.shape[0] // mesh.size
+    kk = min(k, shard_size)
+    rows = mesh.rows(padded.shape[0])
+    qt = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(dev)
+    gt = torch.from_numpy(padded[rows]).to(dev)
+    s = torch.clamp((torch.matmul(qt, gt.T) + 1.0) / 2.0, min=0.0)
+    index = torch.arange(rows.start, rows.stop, device=dev)
+    s = torch.where((index < G)[None, :], s, torch.full_like(s, -math.inf))
+    top_s, top_i = _stable_topk(s, kk)
+    top_i = top_i + rows.start
+    # (n Q, kk) in rank order -> (Q, n kk), shard by shard
+    Q = qt.shape[0]
+    all_s = parallel.all_gather_rows(top_s, mesh).reshape(mesh.size, Q, kk)
+    all_i = parallel.all_gather_rows(top_i, mesh).reshape(mesh.size, Q, kk)
+    all_s = all_s.permute(1, 0, 2).reshape(Q, -1)
+    all_i = all_i.permute(1, 0, 2).reshape(Q, -1)
+    final_s, pos = _stable_topk(all_s, min(k, all_s.shape[1]))
+    return final_s.cpu().numpy(), torch.gather(all_i, 1, pos).cpu().numpy()
 
 
 def ensemble_scores(head_scores: np.ndarray, body_scores: np.ndarray, q_has_head: np.ndarray,
@@ -196,12 +260,12 @@ def infer_dim(cards: Iterable[CardRecord], default: int = 512) -> int:
 
 def calc_scores(init_cards: list[CardRecord], extra_cards: list[CardRecord],
                 device: str | torch.device = "cuda", dim: int | None = None, k: int = 100,
-                dump: dict | None = None) -> list[tuple]:
+                dump: dict | None = None, mesh: parallel.Mesh | None = None) -> list[tuple]:
     """Score the query cards ``init_cards`` against the gallery ``extra_cards``
     of the same animal type; rows ``(query, matched_1, matched_3, matched_10,
     answer)`` in ``init_cards`` order, queries with nothing scored left out.
     ``dump``, when given, receives each scored type's rows (see the module
-    docstring)."""
+    docstring); ``mesh`` splits each gallery over its ranks."""
     if dim is None:
         dim = infer_dim(list(init_cards) + list(extra_cards))
     rows_by_pos: dict[int, tuple] = {}
@@ -214,7 +278,7 @@ def calc_scores(init_cards: list[CardRecord], extra_cards: list[CardRecord],
         qh, qb, qhh, qhb, _ = build_card_matrix(q_cards, dim)
         gh, gb, ghh, ghb, _ = build_card_matrix(g_cards, dim)
         scores, include = ensemble_scores(
-            pairwise_card_scores(qh, gh, device), pairwise_card_scores(qb, gb, device),
+            pairwise_card_scores(qh, gh, device, mesh), pairwise_card_scores(qb, gb, device, mesh),
             qhh, ghh, qhb, ghb, animal_type)
         g_names = [c.name for c in g_cards]
         if dump is not None:
@@ -229,11 +293,12 @@ def calc_scores(init_cards: list[CardRecord], extra_cards: list[CardRecord],
 
 
 def create_table(db: Mapping[object, tuple[list[CardRecord], list[CardRecord]]],
-                 device: str | torch.device = "cuda", dump: dict | None = None) -> list[tuple]:
+                 device: str | torch.device = "cuda", dump: dict | None = None,
+                 mesh: parallel.Mesh | None = None) -> list[tuple]:
     """The rows of every ``(queries, gallery)`` pair of ``db``, in its order."""
     rows = []
     for init_cards, extra_cards in db.values():
-        rows.extend(calc_scores(init_cards, extra_cards, device, dump=dump))
+        rows.extend(calc_scores(init_cards, extra_cards, device, dump=dump, mesh=mesh))
     return rows
 
 
@@ -313,6 +378,18 @@ def write_scores_dump(dump: Mapping[str, Mapping], path: str | Path) -> Path:
     out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out, **arrays)
+    return out
+
+
+def flush_scores_dump(dump: Mapping[str, Mapping], path: str | Path | None = None
+                      ) -> Path | None:
+    """Write ``dump`` to ``path`` or else ``PFR_SCORES_DUMP`` and say so;
+    nothing (``None``) without a path or without a row."""
+    path = path or os.environ.get("PFR_SCORES_DUMP")
+    if not path or not dump:
+        return None
+    out = write_scores_dump(dump, path)
+    print(f"scores dump: {len(dump)} queries -> {out}")
     return out
 
 

@@ -13,6 +13,12 @@ through kernels K2 and K3 (in the detector) and K1 (in ``align_crop``).
 and letterboxes the next batches (``native.decode_batch``, PIL where no
 native route is installed) into a queue of ``prefetch`` batches while the
 device embeds the current one; the tail batch is padded with its last path.
+
+With a ``mesh`` (``parallel.create_mesh``) the batch is split over its ``data``
+axis: each process embeds its contiguous rows and the rows of every rank are
+gathered in order, so every process returns the whole batch. Every stage is
+per image, so nothing else crosses the processes; ``batch_size`` must divide
+by the axis (``ValueError``, as in JAX).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import parallel
 from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
 from .models.rcnn import (KEYPOINT_ARCHS, keypointrcnn_resnet50_fpn,
@@ -123,8 +130,12 @@ class EmbeddingService:
     def __init__(self, detector: nn.Module, embedder: nn.Module,
                  base_pts: torch.Tensor | None = None, score_thr: float = 0.9,
                  device: str | torch.device = "cuda", batch_size: int = 64,
-                 input_size: tuple[int, int] = (320, 320), prefetch: int = 2):
+                 input_size: tuple[int, int] = (320, 320), prefetch: int = 2,
+                 mesh: parallel.Mesh | None = None):
         self.device = resolve_device(device)
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} not divisible by data axis {mesh.size}")
+        self.mesh = mesh
         self.detector = detector
         self.embedder = embedder
         self.base_pts = torch.tensor(DEFAULT_BASE_PTS) if base_pts is None else base_pts
@@ -138,7 +149,16 @@ class EmbeddingService:
     @float32_matmuls()
     def embed_batch(self, images_u8: torch.Tensor, ok: torch.Tensor):
         """``images_u8 (B, H, W, 3)`` uint8, ``ok (B,)`` bool ->
-        ``(embeddings (B, 512) float32, valid (B,) bool)``."""
+        ``(embeddings (B, 512) float32, valid (B,) bool)``; under a mesh this
+        process embeds its rows and gathers every rank's."""
+        if self.mesh is not None:
+            rows = self.mesh.rows(images_u8.shape[0])
+            emb, valid = self._embed(images_u8[rows], ok[rows])
+            return (parallel.all_gather_rows(emb, self.mesh),
+                    parallel.all_gather_rows(valid, self.mesh))
+        return self._embed(images_u8, ok)
+
+    def _embed(self, images_u8: torch.Tensor, ok: torch.Tensor):
         imgs = images_u8.to(self.device).float() / 255.0
         dets = self.detector(imgs)
         det_ok = dets["valid"][:, 0] & (dets["scores"][:, 0] > self.score_thr)

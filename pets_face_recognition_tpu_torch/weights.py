@@ -64,7 +64,8 @@ def _bn(sd: dict, dst: str, params: Mapping, stats: Mapping | None) -> None:
 
 def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = ""
                       ) -> dict[str, np.ndarray]:
-    """flax ``models.resnet.ResNet`` variables -> torchvision ResNet keys (no
+    """flax ``models.resnet.ResNet`` variables (bottleneck or basic blocks) ->
+    torchvision ResNet keys (no
     ``num_batches_tracked``: the port's norms keep no counter, as flax).
     ``stats=None`` leaves out the running statistics.
     """
@@ -81,7 +82,9 @@ def resnet_state_dict(params: Mapping, stats: Mapping | None, prefix: str = ""
             continue
         base = f"layer{m.group(1)}.{m.group(2)}"
         blk, bst = params[name], sub(stats, name)
-        for c in (1, 2, 3):
+        for c in (1, 2, 3):            # a basic block has no conv3
+            if f"conv{c}" not in blk:
+                continue
             sd[f"{base}.conv{c}.weight"] = _conv(blk[f"conv{c}"]["kernel"])
             _bn(sd, f"{base}.bn{c}", blk[f"bn{c}"], sub(bst, f"bn{c}"))
         if "downsample_conv" in blk:

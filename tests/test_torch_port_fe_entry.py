@@ -108,7 +108,7 @@ def test_main_and_eval_fe_exit_0(corpus, tmp_path):
     weights without ``add_margin``, a non-strict merge) to the same metrics."""
     cfg = write_config(corpus, "main", epochs=1)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main",
                            "--config", str(cfg), "--device", "cpu"], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)

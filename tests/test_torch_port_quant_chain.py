@@ -170,8 +170,10 @@ def test_generate_tsv_int8_chain_at_full_width(tmp_path):
     the float and int8 dumps to the contract (rank flips only across float
     gaps below 5e-4; the drift itself is not bounded here)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("PFR_")}
+    # one intra-op thread a subprocess: beside the other test workers, torch's
+    # default of one a core oversubscribes the host
     env.update(PYTHONPATH=str(REPO), PFR_RETRIEVAL_THR="0.0",
-               PFR_QUANT_STATE=str(tmp_path / "qs.pkl"))
+               PFR_QUANT_STATE=str(tmp_path / "qs.pkl"), OMP_NUM_THREADS="1")
 
     def run(mode, name, dump=True):
         e = dict(env, PFR_QUANT_MODE=mode)

@@ -26,7 +26,16 @@ maps zeros to zeros), which ``test_jax_init_seeds_the_floor`` checks and the
 port's ``seed_calibration`` copies. Trunks are one block a stage at 64 x 64;
 the JAX detector's dense RoIAlign limit is set to 0, so that both frameworks
 pool by the float32 gather.
+
+XLA's CPU backend has no fast integer convolution: JAX's int8 convolutions
+take ~20x a float32 one there. While JAX runs, ``exact_int8_convolutions``
+computes each of them as two float32 convolutions of the input's 4-bit
+halves, whose every partial sum is an integer below 2^24, so the int32
+result is the same bit for bit (``test_exact_int8_convolution_is_xla_s``
+holds it at the widest reduction the models have).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -74,10 +83,69 @@ def seeded_quant(tree):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
+_XLA_CONV = jax.lax.conv_general_dilated
+
+
+def _split_int8_conv(lhs, rhs, *args, preferred_element_type=None, **kw):
+    """An int8 x int8 -> int32 convolution as ``16 conv(hi, w) + conv(lo, w)``
+    over the input's halves ``hi = x >> 4`` in [-8, 7] and ``lo = x & 15`` in
+    [0, 15], each a float32 convolution whose terms are integers of at most
+    15 x 128: exact while ``15 * 128 * K < 2^24`` for a reduction of ``K``
+    terms (asserted), whatever the order of the sums. Any other convolution
+    is XLA's own."""
+    if not (preferred_element_type == jnp.int32 and lhs.dtype == rhs.dtype == jnp.int8
+            and kw.get("feature_group_count", 1) == 1 and kw.get("batch_group_count", 1) == 1):
+        return _XLA_CONV(lhs, rhs, *args, preferred_element_type=preferred_element_type, **kw)
+    k = rhs.size // rhs.shape[kw["dimension_numbers"][1].index("O")]
+    assert 15 * 128 * k < 2 ** 24, k
+    x, w = lhs.astype(jnp.int32), rhs.astype(jnp.float32)
+
+    def conv(half):
+        return _XLA_CONV(half.astype(jnp.float32), w, *args, preferred_element_type=jnp.float32,
+                         precision=jax.lax.Precision.HIGHEST, **kw).astype(jnp.int32)
+    return conv(x >> 4) * 16 + conv(x & 15)
+
+
+@contextlib.contextmanager
+def exact_int8_convolutions():
+    """JAX's int8 convolutions computed by :func:`_split_int8_conv` within."""
+    jax.lax.conv_general_dilated = _split_int8_conv
+    try:
+        yield
+    finally:
+        jax.lax.conv_general_dilated = _XLA_CONV
+
+
+def test_exact_int8_convolution_is_xla_s():
+    """The split convolution equals XLA's int8 one bit for bit at the widest
+    reduction of the int8 models (3 x 3 x 512: ResNet-50's last stage), with
+    the extreme values -128 and 127 in the input, strided and padded."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(-128, 128, (2, 9, 9, 512)).astype(np.int8)
+    x[0, :3] = -128
+    x[1, :3] = 127
+    w = rng.randint(-127, 128, (3, 3, 512, 24)).astype(np.int8)
+    w[:, :, :, 0] = 127
+    for strides, padding in (((1, 1), "SAME"), ((2, 2), ((1, 1), (1, 1))), ((1, 1), "VALID")):
+        kw = dict(window_strides=strides, padding=padding,
+                  dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+        want = jax.jit(lambda x, w: _XLA_CONV(x, w, **kw))(x, w)
+        with exact_int8_convolutions():
+            got = jax.jit(lambda x, w: jax.lax.conv_general_dilated(x, w, **kw))(x, w)
+        assert got.dtype == want.dtype == jnp.int32
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
 def run_jax(build, variables, batches, x):
     """Calibrate ``build("calibrate")`` on ``batches``, then serve
-    ``build("int8")`` on ``x`` and on its ``ROUNDINGS``. Returns
-    ``(quant, int8 output, its ActQuant outputs, the rounded outputs)``."""
+    ``build("int8")`` on ``x`` and on its ``ROUNDINGS``, the int8
+    convolutions through :func:`exact_int8_convolutions`. Returns ``(quant,
+    int8 output, its ActQuant outputs, the rounded outputs)``."""
+    with exact_int8_convolutions():
+        return _run_jax(build, variables, batches, x)
+
+
+def _run_jax(build, variables, batches, x):
     cal, int8 = build("calibrate"), build("int8")
     quant_state = seeded_quant(jax.eval_shape(cal.init, jax.random.PRNGKey(0),
                                               jnp.asarray(x[:1]))["quant"])
