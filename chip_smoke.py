@@ -29,9 +29,20 @@ Phases, each printing one JSON line (or one per kernel):
    long groups, narrow channels, a non-square output, 2 levels, sampling
    ratios 1 and 3) against their plain versions;
 3. e2e: ``build_serving_models`` at full ResNet-50 width with seeded random
-   weights, ``EmbeddingService.embed_batch`` on seeded uint8 320x320 images at
-   B = 8 with the launch counts read around it, checks against the same models
-   on the CPU on a B = 2 input, then crops/s at B = 32;
+   weights, ``EmbeddingService.embed_batch`` (``warp_dtype=torch.float32``,
+   as every phase that holds the card to the CPU in float32) on seeded uint8
+   320x320 images at B = 8 with the launch counts read around it, checks
+   against the same models on the CPU on a B = 2 input, then crops/s at
+   B = 32; bf16_serve: the same cell at the JAX package's accelerator
+   defaults (both models at ``dtype=bfloat16``, K1 in its bfloat16 mode, the
+   service's default): K1-bf16 1, K2 1 and K3-bf16 2 launches a batch, the
+   card against the CPU on the same bfloat16 models within twice bfloat16's
+   own move from float32 (decisions forced where random weights put them at
+   near-ties, and counted), one batch with K1 in int8 and one ``Preproc3``
+   batch under ``PFR_INPUT_DTYPE=bfloat16``, each gated on its launches and
+   its crops; embedding drift, landmarks moved and crops/s in paired rounds
+   against the float32 service on the same weights, and peak memory (no
+   speed is gated);
 4. tsv: the head-only retrieval chain of ``generate_tsv`` over the committed
    kashtanka corpus (``pets_face_recognition_tpu_torch/testdata``, 32 JPEGs
    of 320 x 320) and over 16 camera-sized JPEGs (1280 x 960, 960 x 1280,
@@ -67,9 +78,13 @@ Phases, each printing one JSON line (or one per kernel):
    every step (finite), step ms, images/s and peak memory; then two steps
    from one saved state on the same batch and noise, with the count of
    parameter gradients that differ bitwise (reported, not held), by default,
-   with deterministic cuDNN and with ``torch.use_deterministic_algorithms``
-   (every warning's text kept), and the step time of deterministic
-   algorithms against the default in 3 alternating rounds;
+   with deterministic cuDNN (the arm that tells cuDNN's share apart: the
+   port's step code has no nondeterministic index op), with deterministic
+   cuDNN picking its fastest deterministic algorithms (``cudnn.benchmark``)
+   and with ``torch.use_deterministic_algorithms`` (every warning's text
+   kept), and each arm's step time against the default in 3 rounds of
+   rotating order (ROADMAP fault 2; ``mask_train_repro`` does the same for
+   the Mask R-CNN step);
 6. train_vs_cpu: one step of the same model at 256 x 256, B = 2, reduced
    sampler budgets, from the same weights and sampler noise on the card and on
    the CPU: losses within 1e-3 relative, every gradient within 5e-3 relative
@@ -213,7 +228,13 @@ and on the CPU: AP 50/70/90, Mean/Median IoU and ``Masks Mean IoU`` within
 1e-3, the 28 x 28 mask probabilities and the pasted masks within 1e-4, a
 mask pixel on either side of 0.5 allowed only inside a 1e-4 band about it
 (counted), the device paste 1e-6 from the CPU's on the card's own masks and
-boxes; the same on the fit's initial weights, which must give detections
+boxes, with the CPU held to the card's proposals and its picks where its
+own are near-ties (a smoke epoch piles the scores about the 0.05 threshold;
+the moves are counted, the CPU's post-process on the card's candidates must
+pick the card's, and end to end the images that did not move are held to
+the same gates, the metrics too when none moved), and ``eval_detection``'s
+metrics within 1e-3 of the card's detections there;
+the same on the fit's initial weights, which must give detections
 (one smoke epoch can teach random weights to find none), their masks held
 in the card's boxes (random boxes are slivers a fraction of a pixel high,
 where the boxes' float32 rounding moves the paste's rows).
@@ -287,7 +308,10 @@ miniature, B = 16 x 640 without loader threads: its first batch equal to a
 second read, one step on it and one on a batch of dog items alone, finite
 losses, K2-K4 launched.
 
-Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass, and K3, K4 and the
+Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass; K1's bfloat16 and
+int8 modes and K3 on bfloat16 levels, timed at the serving shapes in the
+kernel phase, each bit-equal to its plain version expected, their launches
+the reduced-precision serving paths'; and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
 R-CNN's shapes, ``_mask``, and K4 on Mask R-CNN's training gradient,
 ``_masktrain``, and K3 and K4 at Swin's shapes, ``_alt``; ``max_abs_err`` is each
@@ -589,6 +613,108 @@ def kernel_phase(dev) -> dict[str, dict]:
     b, by = bound_ms(k3_bound_b, k3_flops)
     rows["multilevel_roi_align"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
                                         bound_ms=b, bound_by=by, library_ms=None)
+    return rows
+
+
+# K1's reduced-precision modes against float32 crops on [0, 1] pixels: bf16
+# rounds pixels (2^-9 relative) and tents (one bf16 step, ~4e-3 of a pixel);
+# int8 is JAX's own bound (tests/test_pallas_warp.py:88)
+K1_MODE_DRIFT = {"bfloat16": 8e-3, "int8": 1.2e-2}
+
+
+def reduced_kernel_rows(dev) -> dict[str, dict]:
+    """Phase 2, the JAX package's reduced precision at the serving shapes:
+    K1's bfloat16 and int8 modes (B = 8, 320 x 320 -> 224 x 224, float32 out)
+    and K3 on bfloat16 levels (p2..p5 of a 320 image, C = 256, 16 box RoIs an
+    image at 7 x 7 and one keypoint RoI at 14 x 14), each against its plain
+    version on the card (bit-equal expected: the plain versions round at the
+    kernels' points and sum in their order; held to 1e-5 for K1 and 1e-4 of the
+    value scale for K3) and timed beside it, its bound and, for K1-bf16,
+    ``grid_sample`` on bfloat16 images and grid (the library row)."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
+    from pets_face_recognition_tpu_torch.ops import homography, roi_align
+
+    g = torch.Generator().manual_seed(0)
+    rows = {}
+    B = B_KERNELS
+    images = torch.rand(B, IMAGE, IMAGE, 3, generator=g).to(dev)
+    base = torch.tensor([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]])
+    Hs = homography.alignment_homographies(similarity_landmarks(g, B, base, IMAGE).to(dev),
+                                           base.to(dev))
+    f32 = homography.warp_perspective_batch(images, Hs, (CROP, CROP))
+    for cd, label in ((torch.bfloat16, "bfloat16"), (torch.int8, "int8")):
+        k1 = lambda cd=cd: homography.warp_perspective_batch_cuda(  # noqa: E731
+            images, Hs, (CROP, CROP), cd)
+        got = k1()
+        want = homography.warp_perspective_batch(images, Hs, (CROP, CROP), cd)
+        torch.cuda.synchronize()
+        err, tol = max_err(got, want), 1e-5
+        drift = max_err(got, f32)
+        ms = cuda_ms(k1)
+        us = kernel_us(k1, "warp_perspective_kernel")
+        plain = cuda_ms(lambda cd=cd: homography.warp_perspective_batch(
+            images, Hs, (CROP, CROP), cd))
+        lib_ms = lib_err = None
+        if cd == torch.bfloat16:
+            nchw = images.permute(0, 3, 1, 2).to(torch.bfloat16)
+            grid = grid_sample_grid(Hs).to(torch.bfloat16)
+            lib_call = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+                nchw, grid, padding_mode="zeros", align_corners=True)
+            lib_ms = cuda_ms(lib_call)
+            lib_err = max_err(lib_call().permute(0, 2, 3, 1), f32)
+        src_bytes = warp_read_bytes(images, Hs)
+        n_bytes = src_bytes + Hs.numel() * 4 + got.numel() * 4
+        b, by = bound_ms(n_bytes, B * CROP * CROP * (24 + 9 * 3))
+        name = f"warp_perspective_batch_{'bf16' if cd == torch.bfloat16 else 'int8'}"
+        emit("kernel", name=f"K1 {name}", shape=list(images.shape), max_abs_err=err, atol=tol,
+             exact=err == 0.0, distance_from_float32=drift,
+             distance_tolerance=K1_MODE_DRIFT[label], ms=ms, kernel_device_us=us,
+             plain_ms=plain, library_ms=lib_ms,
+             library="grid_sample(zeros, align_corners=True) on bfloat16 images and grid"
+             if lib_ms is not None else "none", library_distance_from_float32=lib_err,
+             bound_ms=b, bound_by=by)
+        if not err <= tol:
+            raise AssertionError(f"K1 {label} disagrees with its plain version: {err} > {tol}")
+        if not drift <= K1_MODE_DRIFT[label]:
+            raise AssertionError(f"K1 {label} moves crops by {drift} from float32")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                          library_ms=lib_ms)
+
+    C, strides = 256, (4, 8, 16, 32)
+    levels = [torch.randn(B, s_, s_, C, generator=g).to(dev).to(torch.bfloat16)
+              for s_ in (80, 40, 20, 10)]
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flops=0.0, err=0.0)
+    for n_per, out in ((16, 7), (1, 14)):
+        rois = random_rois(g, B * n_per, IMAGE, 4.5).to(dev)
+        bidx = torch.arange(B, device=dev).repeat_interleave(n_per).to(torch.int32)
+        args = (levels, rois, bidx, (out, out), strides)
+        got = roi_align.multilevel_roi_align_cuda(*args)
+        want = roi_align.multilevel_roi_align_bf16(*args)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err, tol = max_err(got, want), 1e-4 * scale
+        ms = cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args))
+        us = kernel_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
+                       "multilevel_roi_align_kernel")
+        plain = cuda_ms(lambda: roi_align.multilevel_roi_align_bf16(*args))
+        cells = touched_cells(levels, rois, bidx, (out, out), strides)
+        n_bytes = cells * C * 2 + rois.numel() * 4 + bidx.numel() * 4 + got.numel() * 4
+        n_flops = got.numel() * (6 * 4 + 1)
+        b, by = bound_ms(n_bytes, n_flops)
+        emit("kernel", name=f"K3 multilevel_roi_align_bf16 {out}x{out}", rois=rois.shape[0],
+             max_abs_err=err, atol=tol, value_scale=scale, exact=err == 0.0, ms=ms,
+             kernel_device_us=us, plain_ms=plain, library_ms=None,
+             library="none (no torchvision)", bound_ms=b, bound_by=by, touched_cells=cells)
+        if not err <= tol:
+            raise AssertionError(f"K3 bf16 {out}x{out} disagrees: {err} > {tol}")
+        tot = dict(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain,
+                   bytes=tot["bytes"] + n_bytes, flops=tot["flops"] + n_flops,
+                   err=max(tot["err"], err))
+    b, by = bound_ms(tot["bytes"], tot["flops"])
+    rows["multilevel_roi_align_bf16"] = dict(max_abs_err=tot["err"], ms=tot["ms"],
+                                             plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
+                                             library_ms=None)
     return rows
 
 
@@ -897,7 +1023,7 @@ def e2e_phase(dev, kernels_mod, smi: str, kind: str = "resnet50", phase: str = "
 
     t0 = time.perf_counter()
     detector, embedder, base = build_serving_models(device=dev, seed=0, detector_kind=kind)
-    service = EmbeddingService(detector, embedder, base, device=dev)
+    service = EmbeddingService(detector, embedder, base, device=dev, warp_dtype=torch.float32)
     g = torch.Generator().manual_seed(1)
     imgs8 = torch.randint(0, 256, (B_KERNELS, IMAGE, IMAGE, 3), generator=g,
                           dtype=torch.uint8).to(dev)
@@ -985,6 +1111,267 @@ def e2e_phase(dev, kernels_mod, smi: str, kind: str = "resnet50", phase: str = "
     del detector, embedder, service
     torch.cuda.empty_cache()
     return launches
+
+
+# bf16_serve: the card against the CPU on the same bfloat16 models, relative
+# to the largest magnitude (the pyramid, the RPN logits, the box logits and
+# keypoint heatmaps on the CPU's top boxes with the decisions forced, and the
+# embeddings of shared crops), each within this many times bfloat16's own
+# move from float32 (the CPU's float32 models against its bfloat16 ones): the
+# two devices round the same float32 sums of other orders to bfloat16, each
+# such rounding a whole bfloat16 step, as far as float32 is from bfloat16
+BF16_SPREAD_FACTOR = 2.0
+# the kernels of one served batch at JAX's accelerator defaults
+BF16_SERVE_LAUNCHES = {"warp_perspective_batch_bf16": 1, "nms_keep_sorted_batch": 1,
+                       "multilevel_roi_align_bf16": 2}
+
+
+def heads_on(det, x, boxes) -> dict:
+    """``det``'s values behind its discrete decisions on NHWC ``x``, with the
+    decisions forced: the pyramid levels, the RPN logits, and the box
+    logits and keypoint heatmaps of one given box an image (``boxes (B, 4)``),
+    pooled from ``det``'s own pyramid."""
+    import torch
+
+    feats = det.backbone(x.permute(0, 3, 1, 2))
+    names = sorted(feats, key=lambda n: int(n[1:]))
+    objectness, _ = det.rpn([feats[n] for n in names])
+    strides = [x.shape[1] // feats[n].shape[2] for n in names]
+    pool = (names[:-1], [feats[n].permute(0, 2, 3, 1).contiguous() for n in names[:-1]])
+    bidx = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    heads = det.roi_heads
+    logits, _ = heads.box_predictor(heads.box_head(
+        det._roi_align(pool, strides, boxes, bidx, (7, 7))))
+    heat = heads.keypoint_predictor(heads.keypoint_head(
+        det._roi_align(pool, strides, boxes, bidx, (14, 14)).permute(0, 3, 1, 2)))
+    out = {f"pyramid_{n}_rel_err": feats[n] for n in names}
+    out.update(rpn_logits_rel_err=objectness, box_logits_rel_err=logits,
+               heatmaps_rel_err=heat)
+    return out
+
+
+def moved_detections(d_a: dict, d_b: dict) -> list[bool]:
+    """Images whose top detection differs between two runs: its box by more
+    than 1 px or its landmarks, rounded to the pixel grid as the service
+    rounds them. Such an image took another discrete decision (a near-tie of
+    bfloat16 logits in a top-k or an argmax), which moves its score and
+    landmarks by whole steps; the decision is counted, not held."""
+    import torch
+
+    box = (d_a["boxes"][:, 0].float().cpu() - d_b["boxes"][:, 0].float().cpu()).abs().amax(-1)
+    kp = torch.round(d_a["keypoints"][:, 0, :, :2].cpu()) != torch.round(
+        d_b["keypoints"][:, 0, :, :2].cpu())
+    return [bool(m) for m in (box > 1.0) | kp.flatten(1).any(1)]
+
+
+def bf16_serve_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase bf16_serve: the served cell at the JAX package's accelerator
+    defaults, the keypoint R-CNN ResNet-50-FPN and the ResNet-50 -> 512
+    embedder at ``dtype=bfloat16`` and ``EmbeddingService``'s default
+    ``warp_dtype`` (bfloat16), B = 32 x 320 x 320, seeded random weights.
+    Gates: one batch's launches (K1-bf16 1, K2 1, K3-bf16 2), and finite
+    embeddings of its kept rows whose crops are finite (a kept row's crop is
+    NaN where its rounded landmarks are collinear); the card against
+    the CPU on the same bfloat16 models (B = 2: the top detections' moved
+    decisions counted; the pyramid, the RPN logits, and the box logits and
+    keypoint heatmaps on the CPU's top boxes, the decisions forced; the
+    embeddings of shared crops; each relative to its largest magnitude and
+    held within twice bfloat16's own move from float32 on the CPU); one batch at
+    ``warp_dtype=torch.int8`` (its launches, and its crops within JAX's 1.2e-2
+    of the float32 warp's on the same landmarks); ``Preproc3`` on 8 photos with
+    ``PFR_INPUT_DTYPE=bfloat16`` (its launches, and, the bfloat16 detector's
+    first layer rounding its input to bfloat16 anyway, the same landmarks and
+    bit-equal crops as with float32 input, both under deterministic cuDNN). Reports, against the float32
+    service on the same weights and batch: embedding drift max(1 - cos),
+    landmarks moved, and crops/s in paired rounds; and the peak memory. It
+    gates no speed and claims no gain."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.ops.homography import align_crop
+    from pets_face_recognition_tpu_torch.preprocessor import Preproc3
+    from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    det16, emb16, base = build_serving_models(device=dev, seed=0, dtype=bf16)
+    det32, emb32, _ = build_serving_models(device=dev, seed=0)
+    svc16 = EmbeddingService(det16, emb16, base, device=dev, score_thr=0.0)
+    svc32 = EmbeddingService(det32, emb32, base, device=dev, score_thr=0.0,
+                             warp_dtype=torch.float32)
+    g = torch.Generator().manual_seed(5)
+    imgs = torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
+                         dtype=torch.uint8).to(dev)
+    ok = torch.ones(B_TIMED, dtype=torch.bool, device=dev)
+    svc16.embed_batch(imgs, ok)   # warm-up: cuDNN's first bf16 use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_watch(det16) as flags:
+        kernels_mod.reset_launch_counts()
+        e16, v16 = svc16.embed_batch(imgs, ok)
+        torch.cuda.synchronize()
+        launches = kernels_mod.launch_counts()
+    peak16 = torch.cuda.max_memory_allocated() / 2 ** 30
+    if {k: v for k, v in launches.items() if v} != BF16_SERVE_LAUNCHES:
+        raise AssertionError(f"bf16 serving launches {launches}, expected {BF16_SERVE_LAUNCHES}")
+    if e16.dtype != torch.float32:
+        raise AssertionError(f"bf16 service: float32 embeddings expected, got {e16.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    e32, v32 = svc32.embed_batch(imgs, ok)
+    torch.cuda.synchronize()
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = imgs.float() / 255.0
+    with torch.inference_mode(), float32_matmuls():
+        d16, d32 = det16(x), det32(x)
+    # rows both keep whose embeddings are finite in both (a kept row's crop is
+    # NaN where its rounded landmarks are collinear)
+    finite16, finite32 = torch.isfinite(e16).all(1), torch.isfinite(e32).all(1)
+    both = v16 & v32 & finite16 & finite32
+    cos = torch.nn.functional.cosine_similarity(e16[both], e32[both], dim=-1)
+    moved_vs_f32 = moved_detections(d16, d32)
+    kp_px = float((d16["keypoints"][:, 0, :, :2] - d32["keypoints"][:, 0, :, :2]).abs().max())
+    def wall_ms(svc) -> float:
+        """Median host-clock ms of 3 synchronised ``embed_batch`` calls."""
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            svc.embed_batch(imgs, ok)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    # float32 and bfloat16 services in alternating order, 5 rounds
+    pairs = [(wall_ms(svc32), wall_ms(svc16)) if r % 2 == 0
+             else tuple(reversed((wall_ms(svc16), wall_ms(svc32)))) for r in range(5)]
+    f32_ms = statistics.median(a for a, _ in pairs)
+    bf16_ms = statistics.median(b for _, b in pairs)
+
+    # the card against the CPU, the same bfloat16 models (plain versions); the
+    # CPU's float32 models give bfloat16's own move for each quantity
+    det_c, emb_c, base_c = build_serving_models(device="cpu", seed=0, dtype=bf16)
+    det_c32, emb_c32, _ = build_serving_models(device="cpu", seed=0)
+    xc = x[:2].cpu()
+
+    def rel(a, b) -> float:
+        return max_err(a.cpu(), b) / float(b.float().abs().max())
+
+    with torch.inference_mode(), float32_matmuls():
+        dg, dc = det16(x[:2]), det_c(xc)
+        moved = moved_detections(dg, dc)
+        # the values behind each discrete decision, with the decisions forced
+        # to the CPU's: the pyramid, the RPN logits, and the box logits and
+        # keypoint heatmaps on the CPU's top boxes
+        boxes = dc["boxes"][:, 0].contiguous()
+        forced_g = heads_on(det16, x[:2], boxes.to(dev))
+        forced_c = heads_on(det_c, xc, boxes)
+        forced_32 = heads_on(det_c32, xc, boxes)
+        lms = similarity_landmarks(torch.Generator().manual_seed(2), 2, base_c, IMAGE)
+        crops_c = align_crop(xc, lms, base_c, (CROP, CROP))
+        crops_g = align_crop(x[:2], lms.to(dev), base, (CROP, CROP), compute_dtype=bf16)
+        crop_drift = max_err(crops_g.cpu(), crops_c)
+        forced_g["embedding_rel_err"] = emb16(crops_c.to(dev))
+        forced_c["embedding_rel_err"] = emb_c(crops_c)
+        forced_32["embedding_rel_err"] = emb_c32(crops_c)
+    checks = {k: rel(forced_g[k], forced_c[k]) for k in forced_c}
+    spread = {k: rel(forced_32[k], forced_c[k]) for k in forced_c}
+    del det_c, emb_c, det_c32, emb_c32
+
+    # one batch with K1 in int8, against the float32 warp on the same landmarks
+    svc8 = EmbeddingService(det16, emb16, base, device=dev, score_thr=0.0,
+                            warp_dtype=torch.int8)
+    kernels_mod.reset_launch_counts()
+    _, v8 = svc8.embed_batch(imgs, ok)
+    torch.cuda.synchronize()
+    launches_int8 = kernels_mod.launch_counts()
+    want_int8 = dict(BF16_SERVE_LAUNCHES, warp_perspective_batch_int8=1)
+    del want_int8["warp_perspective_batch_bf16"]
+    kps = torch.round(d16["keypoints"][:, 0, :, :2])
+    with torch.inference_mode():
+        crops = {cd: align_crop(x, kps, base, (CROP, CROP), compute_dtype=cd)
+                 for cd in (torch.float32, torch.bfloat16, torch.int8)}
+    fin = torch.isfinite(crops[torch.float32]).flatten(1).all(1) & v16
+    drift = {str(cd).split(".")[-1]: max_err(crops[cd][fin], crops[torch.float32][fin])
+             for cd in (torch.bfloat16, torch.int8)}
+    # the embedder leaves no finite crop of a kept row non-finite
+    crop16_ok = torch.isfinite(crops[torch.bfloat16]).flatten(1).all(1)
+    bad_rows = int((v16 & crop16_ok & ~finite16).sum())
+
+    # PFR_INPUT_DTYPE=bfloat16 through Preproc3 with the bfloat16 detector
+    photos = list(imgs[:B_KERNELS].cpu().numpy())
+    pre = Preproc3(det16, thr=0.0, device=dev)
+    saved_env = os.environ.pop("PFR_INPUT_DTYPE", None)
+    try:
+        # deterministic cuDNN for both runs: cuDNN's default algorithm for the
+        # keypoint predictor's transposed conv sums in a run-dependent order,
+        # which moves heatmap values (and, at near-ties, landmarks) by rounding
+        with deterministic_cudnn():
+            a32, ok32, raw32 = pre.batch(photos)
+            os.environ["PFR_INPUT_DTYPE"] = "bfloat16"
+            kernels_mod.reset_launch_counts()
+            a16, ok16, raw16 = pre.batch(photos)
+            torch.cuda.synchronize()
+            launches_input = kernels_mod.launch_counts()
+    finally:
+        os.environ.pop("PFR_INPUT_DTYPE", None)
+        if saved_env is not None:
+            os.environ["PFR_INPUT_DTYPE"] = saved_env
+    want_input = {"nms_keep_sorted_batch": 1, "multilevel_roi_align_bf16": 2,
+                  "warp_perspective_batch": int(ok16.sum())}
+    # NaN crops (collinear landmarks) count as equal to NaN
+    input_same = (bool((ok32 == ok16).all())
+                  and bool(np.array_equal(raw32["keypoints"], raw16["keypoints"]))
+                  and bool(((a32 == a16) | (a32.isnan() & a16.isnan())).all()))
+
+    gates = dict(launches=launches, launches_int8=launches_int8,
+                 launches_input_bf16=launches_input,
+                 **checks, crop_drift_card_bf16_vs_cpu_f32=crop_drift,
+                 crop_drift_from_float32=drift, input_bf16_same_as_float32=input_same)
+    emit("bf16_serve", card=smi, batch=B_TIMED, image=IMAGE, dtype="bfloat16",
+         warp_dtype="bfloat16", gates=gates,
+         tolerances=dict(card_vs_cpu_within=f"{BF16_SPREAD_FACTOR} x bfloat16's own move "
+                         "from float32 on the CPU", bfloat16_own_move=spread,
+                         crop_drift_from_float32=K1_MODE_DRIFT),
+         card_vs_cpu=dict(batch=2, moved_decisions=sum(moved), moved=moved,
+                          top_box_abs_err_px=max_err(dg["boxes"].cpu(), dc["boxes"]),
+                          keypoint_abs_err_px=max_err(dg["keypoints"].cpu(), dc["keypoints"])),
+         vs_float32_service=dict(valid_both=int(both.sum()), valid_bf16=int(v16.sum()),
+                                 valid_f32=int(v32.sum()),
+                                 embedding_drift_max_1_minus_cos=float((1 - cos).max())
+                                 if len(cos) else None,
+                                 detections_moved=sum(moved_vs_f32),
+                                 keypoint_max_abs_px=kp_px,
+                                 crops_per_s_f32=B_TIMED * 1e3 / f32_ms,
+                                 crops_per_s_bf16=B_TIMED * 1e3 / bf16_ms,
+                                 step_ms_f32=f32_ms, step_ms_bf16=bf16_ms, paired_ms=pairs,
+                                 peak_mem_gib_bf16=peak16, peak_mem_gib_f32=peak32),
+         kept_not_finite=dict(bf16=int((v16 & ~finite16).sum()),
+                              f32=int((v32 & ~finite32).sum()),
+                              bf16_with_finite_crop=bad_rows),
+         int8_valid=int(v8.sum()), input_bf16_valid=int(ok16.sum()),
+         tf32_flags=flags, seconds=time.perf_counter() - t0)
+    for name, value in checks.items():
+        if not value <= BF16_SPREAD_FACTOR * spread[name]:
+            raise AssertionError(f"bf16_serve {name} {value} > {BF16_SPREAD_FACTOR} x "
+                                 f"bfloat16's own move {spread[name]}")
+    if not crop_drift <= K1_MODE_DRIFT["bfloat16"]:
+        raise AssertionError(f"bf16_serve: K1-bf16 crops {crop_drift} from the CPU's float32")
+    if {k: v for k, v in launches_int8.items() if v} != want_int8:
+        raise AssertionError(f"int8 warp launches {launches_int8}, expected {want_int8}")
+    if {k: v for k, v in launches_input.items() if v} != {k: v for k, v in want_input.items()
+                                                          if v}:
+        raise AssertionError(f"PFR_INPUT_DTYPE launches {launches_input}, expected {want_input}")
+    for label, d in drift.items():
+        if not d <= K1_MODE_DRIFT[label]:
+            raise AssertionError(f"bf16_serve: {label} warp moves crops by {d} from float32")
+    if not input_same:
+        raise AssertionError("PFR_INPUT_DTYPE=bfloat16 changed the bfloat16 detector's output")
+    if bad_rows:
+        raise AssertionError(f"bf16 service: {bad_rows} kept rows with finite crops embed "
+                             "to non-finite values")
+    del det16, emb16, det32, emb32, svc16, svc32, svc8
+    torch.cuda.empty_cache()
+    return {"bf16_serve": launches, "bf16_serve_int8": launches_int8,
+            "bf16_serve_input": launches_input}
 
 
 CORPUS = REPO / "pets_face_recognition_tpu_torch" / "testdata" / "kashtanka_test"
@@ -1462,7 +1849,8 @@ def jpeg_stream_phase(dev, smi: str, detector, embedder) -> None:
     for size, ps in photos.items():
         sets["x".join(map(str, size))] = (ps * (N_STREAM_PHOTOS[size] // len(ps) + 1)
                                           )[:N_STREAM_PHOTOS[size]]
-    service = EmbeddingService(detector, embedder, device=dev, batch_size=B_STREAM)
+    service = EmbeddingService(detector, embedder, device=dev, batch_size=B_STREAM,
+                               warp_dtype=torch.float32)
     for _ in service.stream(corpus[:B_STREAM]):
         pass
     torch.cuda.synchronize()
@@ -1632,16 +2020,55 @@ def deterministic_algorithms():
         torch.backends.cudnn.deterministic = saved[2]
 
 
-def repro_phase(ctl, state, batch, B: int) -> None:
-    """Phase 4b: two training steps from one saved state on the same batch and
-    sampler noise; reports how many parameter gradients differ bitwise (a
-    reported number, not a gate: cuDNN and PyTorch may pick kernels that sum
-    in a run-dependent order). Then the same with deterministic cuDNN
-    algorithms only, and with ``torch.use_deterministic_algorithms(True,
-    warn_only=True)`` as well, each with the text of every warning the steps
-    raised (an op without a deterministic kernel, cuBLAS's workspace alert).
-    Last, what determinism costs: 3 rounds of one default and one
-    deterministic step, in alternating order."""
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Deterministic cuDNN algorithms alone inside the block."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def deterministic_cudnn_benchmark():
+    """Deterministic cuDNN algorithms inside the block, the fastest of them
+    for each shape timed at first use (``cudnn.benchmark``)."""
+    import torch
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        with deterministic_cudnn():
+            yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+REPRO_MODES = {"default": contextlib.nullcontext, "cudnn_deterministic": deterministic_cudnn,
+               "cudnn_deterministic_benchmark": deterministic_cudnn_benchmark,
+               "deterministic_algorithms": deterministic_algorithms}
+
+
+def repro_phase(ctl, state, batch, B: int, n_gt: int = MAX_BOXES,
+                phase: str = "train_repro") -> None:
+    """Phase 4b (ROADMAP fault 2): two training steps from one saved state on
+    the same batch and sampler noise; reports how many parameter gradients
+    differ bitwise (a reported number, not a gate), in three arms, each with
+    the text of every warning the steps raised: by default; with
+    deterministic cuDNN algorithms alone, the arm that tells the rest of the
+    step apart (the port's own step code has no nondeterministic index op
+    left: the keypoint heatmaps' 2x upsample has a backward that sums in a
+    fixed order, ``roi_heads.upsample_bilinear_2x``); with deterministic
+    cuDNN picking the fastest of its deterministic algorithms by timing them
+    at first use (``cudnn.benchmark``); and under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` as well.
+    Last, what each costs a step: 3 rounds of one step in each arm, the arms'
+    order rotating from round to round, and each arm's median step time over
+    the default's in the same round."""
     import copy
     import warnings
 
@@ -1649,7 +2076,7 @@ def repro_phase(ctl, state, batch, B: int) -> None:
 
     model = state.model
     n_anchors = 3 * sum((IMAGE_TRAIN // st) ** 2 for st in (4, 8, 16, 32, 64))
-    noise = model.draw_sampler_noise(B, n_anchors, MAX_BOXES, torch.Generator().manual_seed(2))
+    noise = model.draw_sampler_noise(B, n_anchors, n_gt, torch.Generator().manual_seed(2))
     saved = (copy.deepcopy(model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
              state.step)
 
@@ -1677,33 +2104,27 @@ def repro_phase(ctl, state, batch, B: int) -> None:
         worst = max((float((g1[n] - g2[n]).abs().max() / g1[n].abs().max().clamp(min=1e-30)),
                      n) for n in differ) if differ else (0.0, None)
         return dict(grads=len(g1), grads_bitwise_different=len(differ),
+                    grads_different=differ[:16],
                     grads_bitwise_equal=sorted(set(g1) - set(differ))[:32], worst_rel_diff=worst[0],
                     worst=worst[1], losses_bitwise_equal=l1 == l2, step_ms=[ms1, ms2],
                     warnings=sorted({str(w.message)[:400] for w in caught}))
 
-    default = two_steps()
-    torch.backends.cudnn.deterministic = True
-    try:
-        cudnn_only = two_steps()
-    finally:
-        torch.backends.cudnn.deterministic = False
-    with deterministic_algorithms():
-        deterministic = two_steps()
+    arms = {}
+    for mode, ctx in REPRO_MODES.items():
+        with ctx():
+            arms[mode] = two_steps()
+    names = list(REPRO_MODES)
     rounds = []
     for r in range(3):
         pair = {}
-        for mode in (("default", "deterministic") if r % 2 == 0
-                     else ("deterministic", "default")):
-            ctx = (deterministic_algorithms() if mode == "deterministic"
-                   else contextlib.nullcontext())
-            with ctx, warnings.catch_warnings():
+        for mode in names[r:] + names[:r]:
+            with REPRO_MODES[mode](), warnings.catch_warnings():
                 warnings.simplefilter("ignore")
                 pair[mode] = step()[1]
         rounds.append(pair)
-    cost = statistics.median(p["deterministic"] / p["default"] - 1 for p in rounds)
-    emit("train_repro", batch=B, default=default, cudnn_deterministic=cudnn_only,
-         deterministic_algorithms=deterministic, step_ms_rounds=rounds,
-         deterministic_cost_median=cost)
+    cost = {f"{m}_cost_median": statistics.median(p[m] / p["default"] - 1 for p in rounds)
+            for m in names[1:]}
+    emit(phase, batch=B, **arms, step_ms_rounds=rounds, **cost)
 
 
 # softmax CE over a heatmap's positions has a gradient that sums to 0, the 2x
@@ -2052,17 +2473,25 @@ def predictions(config, ckpt: Path, device, controller_cls=None) -> tuple[object
 def recorded_decisions(force: list[dict] | None = None):
     """The two discrete steps of each eval forward while the block runs, one
     record a forward, on the host: the RPN's outputs, the arguments of
-    ``generate_proposals`` and the proposals it keeps, and the candidate that
-    the one-detection post-process picks. Both steps are discontinuous: on a
-    random detector a rounding-size move of the RPN's outputs can keep
-    another proposal, and one of the scores can pick another candidate.
+    ``generate_proposals`` and the proposals it keeps, and the candidates
+    that the post-process picks (one an image, or with more detections an
+    image, :func:`picked_candidates` and the candidates themselves). Both
+    steps are discontinuous: on a random detector a rounding-size move of
+    the RPN's outputs can keep another proposal, and one of the scores can
+    pick another candidate.
 
     With ``force`` (the card's records of the same forwards), each forward
     takes the card's proposals for its own, and the card's pick where its own
-    is a near-tie: its own scores of the two candidates within the score
-    gate, ``FIT_GATES["score_abs"]``. Its own proposals and pick are still
-    recorded, with ``pick_moved`` (a flag an image) and the gaps of the picks
-    that differ."""
+    is a near-tie. One detection an image: its own scores of the two
+    candidates within the score gate, ``FIT_GATES["score_abs"]``. More: the
+    post-process replayed here on the card's candidates picks the card's
+    (``pick_replay_differs`` counts the images where it does not), and its
+    own scores and boxes of every candidate that either picks are within the
+    card's by the score and box gates; the gap is then the largest
+    difference of its own scores slot by slot, the score threshold standing
+    for an empty slot. Its own proposals and pick are still recorded, with
+    ``pick_moved`` (a flag an image) and the gaps of the picks that
+    differ."""
     import torch
     from pets_face_recognition_tpu_torch.models import rcnn
     from pets_face_recognition_tpu_torch.models import roi_heads as rh
@@ -2084,10 +2513,13 @@ def recorded_decisions(force: list[dict] | None = None):
              nms_thresh, detections_per_img):
         out = post(class_logits, box_deltas, props, prop_valid, image_size, score_thresh,
                    nms_thresh, detections_per_img)
+        cand = rh.detection_candidates(class_logits, box_deltas, props, prop_valid,
+                                       image_size, score_thresh)
         if detections_per_img != 1:
-            return out
-        boxes, labels, scores, valid = rh.detection_candidates(
-            class_logits, box_deltas, props, prop_valid, image_size, score_thresh)
+            return pick_many(out, cand, (class_logits, box_deltas, props, prop_valid,
+                                         image_size, score_thresh, nms_thresh,
+                                         detections_per_img))
+        boxes, labels, scores, valid = cand
         masked = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
         own = masked.argmax(1)
         rec = seen[-1]
@@ -2104,11 +2536,70 @@ def recorded_decisions(force: list[dict] | None = None):
         return (boxes.gather(1, take[..., None].expand(-1, 1, 4)), labels[take],
                 torch.where(ok, top, torch.zeros_like(top)), ok)
 
+    def pick_many(out, cand, args):
+        own, unmatched = picked_candidates(out, cand)
+        rec = seen[-1]
+        rec.update(pick=own.cpu(), candidates=[t.cpu() for t in cand], unmatched=unmatched,
+                   pick_replay_differs=0)
+        if force is None:
+            return out
+        card_rec = force[len(seen) - 1]
+        dev = own.device
+        card_cand = [t.to(dev) for t in card_rec["candidates"]]
+        card = card_rec["pick"].to(dev)
+        # this device's sort, NMS and top-k on the card's candidates
+        saved = rh.detection_candidates
+        rh.detection_candidates = lambda *a, **k: tuple(card_cand)
+        try:
+            replay = picked_candidates(post(*args), card_cand)[0]
+        finally:
+            rh.detection_candidates = saved
+        boxes, labels, scores, _ = cand
+        score_gap = (scores - card_cand[2]).abs()
+        box_gap = (boxes - card_cand[0]).abs().amax(-1)
+        thresh, box_tol = args[5], FIT_GATES["box_rel_to_side"] * max(args[4])
+        differ = (own != card).any(1).tolist()
+        replayed = (replay == card).all(1).tolist()
+        moved, gaps = [], []
+        for b, row in enumerate(torch.cat([own, card], 1).tolist()):
+            near = all(float(score_gap[b, i]) <= FIT_GATES["score_abs"]
+                       and float(box_gap[b, i]) <= box_tol for i in set(row) if i >= 0)
+            moved.append(differ[b] and replayed[b] and near)
+            if differ[b]:
+                slot = [[float(scores[b, i]) if i >= 0 else thresh for i in (o, c)]
+                        for o, c in zip(own[b].tolist(), card[b].tolist())]
+                gaps.append(max(abs(o - c) for o, c in slot))
+        rec.update(pick_moved=moved, pick_gaps=gaps,
+                   pick_replay_differs=sum(not r for r in replayed))
+        take = torch.where(torch.tensor(moved, device=dev)[:, None], card, own)
+        ok, t = take >= 0, take.clamp(min=0)
+        return (torch.where(ok[..., None], boxes.gather(1, t[..., None].expand(-1, -1, 4)),
+                            out[0]),
+                torch.where(ok, labels[t], out[1]),
+                torch.where(ok, scores.gather(1, t), torch.zeros_like(out[2])), ok)
+
     rcnn.generate_proposals, rh.postprocess_detections_batch = proposals, pick
     try:
         yield seen
     finally:
         rcnn.generate_proposals, rh.postprocess_detections_batch = gen, post
+
+
+def picked_candidates(out, cand) -> tuple:
+    """Each detection slot's index among the post-process's candidates
+    (``detection_candidates``), -1 where the slot is empty: the candidate of
+    the slot's score, label and box, which the post-process copies. Returns
+    the indices ``(B, D)`` and the count of filled slots that match no
+    candidate."""
+    import torch
+
+    boxes, labels, scores, valid = out
+    c_boxes, c_labels, c_scores, _ = cand
+    same = ((c_scores[:, None, :] == scores[:, :, None])
+            & (c_labels[None, None, :] == labels[:, :, None])
+            & (c_boxes[:, None] == boxes[:, :, None]).all(-1))
+    idx = torch.where(valid, same.float().argmax(-1), torch.full_like(labels, -1))
+    return idx, int((valid & ~same.any(-1)).sum())
 
 
 def detections_apart(out_a, out_b, metrics_a, metrics_b, side: int, keep=None) -> dict:
@@ -3829,6 +4320,7 @@ def mask_train_phase(dev, kernels_mod, smi: str) -> tuple[dict, tuple]:
     if {k: by_site.get(k, 0) for k in want} != want or sum(by_site.values()) != sum(
             want.values()):
         raise AssertionError(f"launches by call site {by_site}, expected {want}")
+    repro_phase(ctl, state, batch, B_MASK, MASK_BOXES, "mask_train_repro")
     del state
     torch.cuda.empty_cache()
     return launches, k4_args[0]
@@ -4008,73 +4500,136 @@ def smoke_env(root: Path, cwd: Path):
             os.environ["PFR_SMOKE_ROOT"] = saved[0]
 
 
-def eval_card_vs_cpu(config, ckpt: Path, dev, end_to_end: bool = True) -> dict:
-    """A Mask R-CNN checkpoint's validation detections on the card and on
-    the CPU: the metrics of each, their differences, and how far the
-    detections, the 28 x 28 mask probabilities and the pasted masks are
-    apart (pixels cut differently at 0.5 counted inside and outside the
-    threshold band), and the card's paste against the CPU's on the card's
-    own masks and boxes. The pasted masks are gated as each device pasted
-    them (``end_to_end``), or with the CPU's masks pasted into the card's
-    boxes: on a box a fraction of a pixel high, its coordinates' float32
-    rounding (within the box gate) moves the paste's sample rows by a
-    good part of a mask cell."""
+def masks_apart(out_a, out_b, raw_a, raw_b, metrics_a, metrics_b, side: int,
+                end_to_end: bool = True, keep=None) -> dict:
+    """Two devices' Mask R-CNN eval batches apart (``a`` the card) over the
+    images that ``keep`` (one boolean list a batch) holds, by default all:
+    validity, scores, boxes as a share of ``side``, the 28 x 28 mask
+    probabilities and the pasted masks (pixels cut differently at 0.5
+    counted inside and outside the threshold band), and ``a``'s paste
+    against the CPU's on ``a``'s own masks and boxes; the pasted masks as
+    each device pasted them (``end_to_end``), or with ``b``'s masks pasted
+    into ``a``'s boxes. Gated in ``failed``; each metric's difference, gated
+    apart in ``metrics_failed``."""
     import numpy as np
-    from pets_face_recognition_tpu_torch.engine.detector_controller import DetectionController
     from pets_face_recognition_tpu_torch.ops.masks import paste_masks
 
-    with raw_masks() as raw_card:
-        t = time.perf_counter()
-        ctl_card, out_card = predictions(config, ckpt, dev, DetectionController)
-        t_card = time.perf_counter() - t
-    with raw_masks() as raw_cpu:
-        t = time.perf_counter()
-        ctl_cpu, out_cpu = predictions(config, ckpt, "cpu", DetectionController)
-        t_cpu = time.perf_counter() - t
-    m_card, m_cpu = ctl_card.evaluate([out_card]), ctl_cpu.evaluate([out_cpu])
-    side = max(config.image_size)
     band = MASK_FIT_GATES["threshold_band"]
-    r = dict(valid_equal=True, detections=0, score_abs=0.0, box_rel_to_side=0.0, mask_abs=0.0,
-             mask_abs_end_to_end=0.0, raw_mask_abs=0.0, paste_abs=0.0, pasted_mask_max=0.0,
-             threshold_band_pixels_apart=0, pixels_apart_outside_band=0,
+    r = dict(images=0, valid_equal=True, detections=0, score_abs=0.0, box_rel_to_side=0.0,
+             mask_abs=0.0, mask_abs_end_to_end=0.0, raw_mask_abs=0.0, paste_abs=0.0,
+             pasted_mask_max=0.0, threshold_band_pixels_apart=0, pixels_apart_outside_band=0,
              masks_pasted_into="each device's own boxes" if end_to_end else "the card's boxes")
-    for bc, br, rc, rr in zip(out_card, out_cpu, raw_card, raw_cpu):
-        pc, pr = bc["pred"], br["pred"]
-        r["valid_equal"] &= bool((pc["valid"] == pr["valid"]).all())
-        v = pc["valid"] & pr["valid"]
+    for i, (ba, bb, ra, rb) in enumerate(zip(out_a, out_b, raw_a, raw_b)):
+        pa, pb = ba["pred"], bb["pred"]
+        k = np.ones(len(pa["valid"]), bool) if keep is None else np.asarray(keep[i])
+        r["images"] += int(k.sum())
+        r["valid_equal"] &= bool((pa["valid"] == pb["valid"])[k].all())
+        v = pa["valid"] & pb["valid"] & k[:, None]
         r["detections"] += int(v.sum())
         r["score_abs"] = max(r["score_abs"],
-                             float(np.abs(pc["scores"] - pr["scores"])[v].max(initial=0)))
+                             float(np.abs(pa["scores"] - pb["scores"])[v].max(initial=0)))
         r["box_rel_to_side"] = max(r["box_rel_to_side"], float(
-            np.abs(pc["boxes"] - pr["boxes"])[v].max(initial=0)) / side)
+            np.abs(pa["boxes"] - pb["boxes"])[v].max(initial=0)) / side)
         r["raw_mask_abs"] = max(r["raw_mask_abs"],
-                                float((rc[0] - rr[0]).abs().numpy()[v].max(initial=0)))
+                                float((ra[0] - rb[0]).abs().numpy()[v].max(initial=0)))
         # the device paste alone: the CPU's paste of the card's inputs
         r["paste_abs"] = max(r["paste_abs"], float(np.abs(
-            paste_masks(*rc).numpy() - pc["masks"]).max(initial=0)))
-        mc, mr = pc["masks"][v], pr["masks"][v]
+            paste_masks(*ra).numpy() - pa["masks"]).max(initial=0)))
+        ma, mb = pa["masks"][v], pb["masks"][v]
         r["mask_abs_end_to_end"] = max(r["mask_abs_end_to_end"],
-                                       float(np.abs(mc - mr).max(initial=0)))
+                                       float(np.abs(ma - mb).max(initial=0)))
         if not end_to_end:
-            mr = paste_masks(rr[0], rc[1], rc[2]).numpy()[v]
-        r["mask_abs"] = max(r["mask_abs"], float(np.abs(mc - mr).max(initial=0)))
-        r["pasted_mask_max"] = max(r["pasted_mask_max"], float(mc.max(initial=0)))
-        flip = (mc >= 0.5) != (mr >= 0.5)
-        inside = (np.abs(mc - 0.5) <= band) & (np.abs(mr - 0.5) <= band)
+            mb = paste_masks(rb[0], ra[1], ra[2]).numpy()[v]
+        r["mask_abs"] = max(r["mask_abs"], float(np.abs(ma - mb).max(initial=0)))
+        r["pasted_mask_max"] = max(r["pasted_mask_max"], float(ma.max(initial=0)))
+        flip = (ma >= 0.5) != (mb >= 0.5)
+        inside = (np.abs(ma - 0.5) <= band) & (np.abs(mb - 0.5) <= band)
         r["threshold_band_pixels_apart"] += int((flip & inside).sum())
         r["pixels_apart_outside_band"] += int((flip & ~inside).sum())
-    r["metric_abs_diff"] = {m: abs(v - m_cpu["val"][m]) for m, v in m_card["val"].items()}
-    bad = [m for m, d in r["metric_abs_diff"].items()
-           if not (d <= MASK_FIT_GATES["metric"] or (math.isnan(m_card["val"][m])
-                                                     and math.isnan(m_cpu["val"][m])))]
-    bad += [n for n in ("score_abs", "box_rel_to_side", "mask_abs") if not r[n] <= MASK_FIT_GATES[n]]
+    r["metric_abs_diff"] = {m: abs(v - metrics_b[m]) for m, v in metrics_a.items()}
+    bad = [n for n in ("score_abs", "box_rel_to_side", "mask_abs") if not r[n] <= MASK_FIT_GATES[n]]
     bad += ["raw_mask_abs"] * (not r["raw_mask_abs"] <= MASK_FIT_GATES["mask_abs"])
     bad += ["paste_abs"] * (not r["paste_abs"] <= MASK_FIT_GATES["paste_abs"])
     bad += ["pixels_apart_outside_band"] * bool(r["pixels_apart_outside_band"])
     bad += ["valid_equal"] * (not r["valid_equal"])
-    bad += ["metric names"] * (list(m_card["val"]) != list(m_cpu["val"]))
-    return dict(r, test_card=m_card, test_cpu=m_cpu, predict_s_card=t_card, predict_s_cpu=t_cpu,
-                failed=bad)
+    r["metrics_failed"] = [m for m, d in r["metric_abs_diff"].items()
+                           if not (d <= MASK_FIT_GATES["metric"] or (math.isnan(metrics_a[m])
+                                                                     and math.isnan(metrics_b[m])))]
+    r["metrics_failed"] += ["metric names"] * (list(metrics_a) != list(metrics_b))
+    return dict(r, failed=bad)
+
+
+def eval_card_vs_cpu(config, ckpt: Path, dev, end_to_end: bool = True) -> dict:
+    """A Mask R-CNN checkpoint's validation detections on the card against
+    the CPU's (:func:`masks_apart`, the pasted masks as ``end_to_end``
+    says: on a box a fraction of a pixel high, its coordinates' float32
+    rounding, within the box gate, moves the paste's sample rows by a good
+    part of a mask cell), end to end and with the CPU held to the card's
+    discrete decisions (:func:`recorded_decisions`): a smoke epoch leaves
+    the classifier's scores piled about the 0.05 threshold, where a score
+    within rounding of it is kept on one device and not on the other.
+
+    Held with the CPU forced to the card's decisions (always): the RPN's
+    outputs within ``FIT_GATES["rpn_rel"]``; the CPU's ``generate_proposals``
+    on the card's RPN outputs keeps the card's proposals, and its
+    post-process on the card's candidates picks the card's (so K2 and the
+    top-k took the card's decisions from the card's numbers); every filled
+    slot is a candidate; the CPU's forward with the card's proposals, and the
+    card's picks where its own are near-ties, gives the card's detections,
+    masks and metrics within ``MASK_FIT_GATES``.
+
+    End to end, each device on its own: the images whose proposals (as
+    sets) and picks did not move must agree within ``MASK_FIT_GATES``, and
+    the metrics too when no image moved. The moves are counted and
+    reported."""
+    import torch
+    from pets_face_recognition_tpu_torch.engine.detector_controller import DetectionController
+    from pets_face_recognition_tpu_torch.models.rpn import generate_proposals
+
+    side = max(config.image_size)
+    with raw_masks() as raw_card, recorded_decisions() as rec_card:
+        t = time.perf_counter()
+        ctl_card, out_card = predictions(config, ckpt, dev, DetectionController)
+        t_card = time.perf_counter() - t
+    with raw_masks() as raw_cpu, recorded_decisions() as rec_cpu:
+        t = time.perf_counter()
+        ctl_cpu, out_cpu = predictions(config, ckpt, "cpu", DetectionController)
+        t_cpu = time.perf_counter() - t
+    with raw_masks() as raw_forced, recorded_decisions(rec_card) as rec_forced:
+        ctl_forced, out_forced = predictions(config, ckpt, "cpu", DetectionController)
+    m_card, m_cpu, m_forced = (c.evaluate([o])["val"] for c, o in (
+        (ctl_card, out_card), (ctl_cpu, out_cpu), (ctl_forced, out_forced)))
+
+    moved = [[p or k for p, k in zip(proposals_apart(c, f, side, as_sets=True), f["pick_moved"])]
+             for c, f in zip(rec_card, rec_forced)]
+    forced = masks_apart(out_card, out_forced, raw_card, raw_forced, m_card, m_forced, side,
+                         end_to_end)
+    e2e = masks_apart(out_card, out_cpu, raw_card, raw_cpu, m_card, m_cpu, side, end_to_end,
+                      keep=[[not m for m in b] for b in moved])
+    replayed = []
+    with torch.no_grad():
+        for rec in rec_card:
+            props, valid = generate_proposals(rec["objectness"], rec["deltas"], rec["anchors"],
+                                              *rec["args"])
+            replayed += proposals_apart(rec, dict(proposals=props, valid=valid), side)
+    r = dict(forced=forced, end_to_end=e2e, detections=forced["detections"],
+             rpn_rel=rpn_apart(rec_card, rec_cpu), replay_differs=sum(replayed),
+             pick_replay_differs=sum(rec["pick_replay_differs"] for rec in rec_forced),
+             unmatched_slots=sum(rec["unmatched"] for rec in rec_card + rec_cpu + rec_forced),
+             moved_images=sum(map(sum, moved)),
+             proposal_moves=sum(sum(proposals_apart(c, f, side, as_sets=True))
+                                for c, f in zip(rec_card, rec_forced)),
+             pick_moves=sum(sum(rec["pick_moved"]) for rec in rec_forced),
+             pick_gaps=[g for rec in rec_forced for g in rec["pick_gaps"]],
+             test_card={"val": m_card}, test_cpu={"val": m_cpu},
+             test_cpu_forced={"val": m_forced}, predict_s_card=t_card, predict_s_cpu=t_cpu)
+    bad = [f"forced {n}" for n in forced["failed"] + forced["metrics_failed"]]
+    bad += ["rpn_rel"] * (not r["rpn_rel"] <= FIT_GATES["rpn_rel"])
+    bad += [n for n in ("replay_differs", "pick_replay_differs", "unmatched_slots") if r[n]]
+    bad += [f"end to end {n}" for n in e2e["failed"]]
+    if not r["moved_images"]:
+        bad += [f"end to end {n}" for n in e2e["metrics_failed"]]
+    return dict(r, failed=bad)
 
 
 def mask_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
@@ -4147,11 +4702,14 @@ def mask_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     if not (launches["nms_keep_sorted_batch"] and launches["multilevel_roi_align"]) or (
             launches["multilevel_roi_align_backward"] or launches["roi_footprints"]):
         raise AssertionError(f"eval launches: {launches}")
-    # eval_detection's own numbers against the CPU's too
+    # eval_detection's own numbers against the card's detections here, and
+    # so against the CPU's (forced, and end to end where nothing moved)
     trained["failed"] += [f"eval_detection {m}" for m, v in metrics_card["val"].items()
-                          if not (abs(v - trained["test_cpu"]["val"][m]) <= MASK_FIT_GATES["metric"]
+                          if not (abs(v - trained["test_card"]["val"][m]) <= MASK_FIT_GATES["metric"]
                                   or (math.isnan(v)
-                                      and math.isnan(trained["test_cpu"]["val"][m])))]
+                                      and math.isnan(trained["test_card"]["val"][m])))]
+    trained["failed"] += ["eval_detection metric names"] * (
+        list(metrics_card["val"]) != list(trained["test_card"]["val"]))
     emit("mask_fit", card=smi, config=str(smoke_cfg.relative_to(REPO)), main_detection_s=main_s,
          checkpoints=[p.name for p in made], train_records=[r for r in recs if "epoch_time_s" in r],
          validation=[{k: v for k, v in r.items() if k != "time"} for r in recs
@@ -4162,7 +4720,8 @@ def mask_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     if trained["failed"] or initial["failed"] or not initial["detections"]:
         raise AssertionError(f"eval_detection on the card differs from the CPU: checkpoint "
                              f"{trained['failed']}, initial weights {initial['failed']} "
-                             f"({initial['detections']} detections)")
+                             f"({initial['detections']} detections); images moved "
+                             f"{trained['moved_images']}, {initial['moved_images']}")
     return {"mask_eval": launches}
 
 
@@ -4389,8 +4948,10 @@ def int8_serve_phase(dev, kernels_mod, smi: str) -> dict:
     fn_det, fn_emb = ptq.PTQModelFn(det, "calibrate"), ptq.PTQModelFn(emb, "calibrate")
     f_det, f_emb, base = build_serving_models(dev, 0)
     # threshold 0: random detectors score about 0.5, and the drift needs rows
-    service_q = EmbeddingService(fn_det, fn_emb, base, device=dev, score_thr=0.0)
-    service_f = EmbeddingService(f_det, f_emb, base, device=dev, score_thr=0.0)
+    service_q = EmbeddingService(fn_det, fn_emb, base, device=dev, score_thr=0.0,
+                                 warp_dtype=torch.float32)
+    service_f = EmbeddingService(f_det, f_emb, base, device=dev, score_thr=0.0,
+                                 warp_dtype=torch.float32)
     g = torch.Generator().manual_seed(31)
     batches = [torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
                              dtype=torch.uint8).to(dev) for _ in range(INT8_CALIB_BATCHES)]
@@ -4553,7 +5114,7 @@ def centred_embedder_ckpts(dev, out: Path) -> dict[str, str]:
     from pets_face_recognition_tpu_torch.serving import EmbeddingService
 
     det, dog, cat = build_retrieval_models(dev, 0)
-    service = EmbeddingService(det, dog, device=dev, score_thr=0.0)
+    service = EmbeddingService(det, dog, device=dev, score_thr=0.0, warp_dtype=torch.float32)
     paths = sorted(CORPUS.rglob("*.jpg"))
     imgs, ok, _, _ = native.decode_batch([str(p) for p in paths], (IMAGE, IMAGE))
     env = {}
@@ -4935,6 +5496,14 @@ def alt_rcnn_phase(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
+    # K1's bfloat16 and int8 modes (JAX compute_dtype) and K3 on bfloat16
+    # levels: their launches are the paths that serve in reduced precision
+    ("warp_perspective_batch_bf16", ("warp_perspective_batch_bf16",), "csrc/warp.cu",
+     "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
+    ("warp_perspective_batch_int8", ("warp_perspective_batch_int8",), "csrc/warp.cu",
+     "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
+    ("multilevel_roi_align_bf16", ("multilevel_roi_align_bf16",), "csrc/roi_align.cu",
+     "pets_face_recognition_tpu/ops/pallas_roi_align.py:120"),
     ("nms_keep_sorted_batch", ("nms_keep_sorted_batch",), "csrc/nms.cu",
      "pets_face_recognition_tpu/ops/pallas_nms.py:153"),
     ("multilevel_roi_align", ("multilevel_roi_align",), "csrc/roi_align.cu",
@@ -5166,9 +5735,9 @@ def ddp_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
         ok = torch.ones(B_TIMED, dtype=torch.bool, device=dev)
         # threshold 0 as in the chain's checks: random weights score below 0.9
         plain = EmbeddingService(detector, embedder, base, score_thr=0.0, device=dev,
-                                 batch_size=B_TIMED)
+                                 batch_size=B_TIMED, warp_dtype=torch.float32)
         served = EmbeddingService(detector, embedder, base, score_thr=0.0, device=dev,
-                                  batch_size=B_TIMED, mesh=mesh)
+                                  batch_size=B_TIMED, mesh=mesh, warp_dtype=torch.float32)
         want_emb, want_valid = plain.embed_batch(imgs, ok)
         kernels_mod.reset_launch_counts()
         torch.cuda.synchronize()
@@ -5444,6 +6013,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t, library=str(path))
 
     rows = kernel_phase(dev)
+    rows.update(reduced_kernel_rows(dev))  # K1-bf16, K1-int8, K3-bf16
     rows.update(train_kernel_phase(dev))   # K2 and K3 at the training shapes, K4, K5
     rows.update(mobile_kernel_phase(dev))  # K3, K4 and the pre-pass on p4, p5
     edge_phase(dev)
@@ -5451,6 +6021,7 @@ def main() -> int:
     paths = {"e2e": e2e_phase(dev, kernels, smi)}
     paths["mobile_e2e"] = e2e_phase(dev, kernels, smi, "mobile", "mobile_e2e",
                                     (B_TIMED, B_BENCH))
+    paths.update(bf16_serve_phase(dev, kernels, smi))  # JAX's accelerator precision
     paths["tsv"], (detector, dog, _) = tsv_phase(dev, kernels, smi)
     jpeg_stream_phase(dev, smi, detector, dog)
     del detector, dog

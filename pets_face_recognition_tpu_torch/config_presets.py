@@ -49,7 +49,8 @@ def build_fe_config(
     focal loss (gamma 0); SGD in three groups at ``lr`` (1e-2) or AdamW
     (``optimizer_kind="adamw"``, 1e-4), the rate x 0.1 at epochs 35 and 45;
     ``thrs`` ``linspace(0.5, 0.99, 6)``, the ``far_thr`` list, ``k`` 5, 10,
-    100. The port trains in float32 (the JAX ``compute_dtype`` is not taken).
+    100. The port trains in float32: the JAX ``compute_dtype`` (bfloat16 off
+    the CPU) of FE training is not ported yet (ROADMAP §1).
 
     ``optimizer(config)`` returns the factory ``model -> (optimizer,
     schedule)`` the FE controller calls with the wrapper."""

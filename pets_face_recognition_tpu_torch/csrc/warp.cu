@@ -5,8 +5,25 @@
 // before the call). Output pixel (x, y) of image b samples the source at
 // H[b]^-1 @ (x, y, 1) with bilinear interpolation and zero outside the image
 // (cv2 BORDER_CONSTANT), exactly as ops/homography.py::warp_perspective does.
-// The TPU kernel's band clamp, chunk-skip flags, channel planes, images per
-// program and int8 tents are not carried over: this kernel computes the exact op.
+// The TPU kernel's band clamp, chunk-skip flags, channel planes and images per
+// program are not carried over: this kernel computes the exact op.
+//
+// Compute modes, as the JAX kernel's compute_dtype (pallas_warp.py:114-139,
+// 287-292), one template instance and one extern "C" symbol each:
+//   f32  (pfr_warp_perspective_batch): the exact op above;
+//   bf16 (pfr_warp_perspective_batch_bf16): each tap's pixel and each x-tent
+//        weight (1 - fx, fx) rounded to bfloat16 (round to nearest even), the
+//        two products of a source row summed in float32 (each product of two
+//        bfloat16 values is exact in float32), and the two row sums weighted
+//        by the float32 y-tent (1 - fy, fy): out = A0 (1 - fy) + A1 fy;
+//   int8 (pfr_warp_perspective_batch_int8): q = clip(rint(127 p), 0, 127) and
+//        w = rint(127 wx), the row sum an exact integer, scaled by the float32
+//        1 / 127^2, then weighted by the float32 y-tent.
+// The x-tent covers the source columns the TPU kernel contracts over, so these
+// are its numbers wherever the TPU sums a row's two taps in one chunk (the
+// taps of a pixel fall into two 128-column chunks only at columns 127/128,
+// where the TPU adds the chunks' partial rows in another order). out_bf16
+// rounds the float32 result once to bfloat16 (the JAX out_dtype).
 //
 // Bound: memory. Per image it must read the source once (H*W*C*4 bytes) and
 // write the 224*224*C*4-byte crop; its arithmetic is ~50 flops per pixel. Design:
@@ -25,9 +42,12 @@
 // (ops/homography.py::invert_homographies and warp_perspective_batch), so the
 // kernel gives the plain version's numbers to the bit on the same inputs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+enum Mode { kF32 = 0, kBF16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float det2(float a, float b, float c, float d) {
   return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));  // a*b - c*d
@@ -52,10 +72,32 @@ __device__ __forceinline__ float tap(const float* __restrict__ img, bool inb,
   return inb ? __ldg(img + ((long long)y * W + x) * C + c) : 0.0f;
 }
 
-template <int C>
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// the int8 mode's quantized pixel: clip(rint(127 p), 0, 127)
+__device__ __forceinline__ int quant_pixel(float p) {
+  return (int)fminf(fmaxf(rintf(__fmul_rn(p, 127.0f)), 0.0f), 127.0f);
+}
+
+// one source row's two taps (a at x0, b at x0 + 1) with their x-tents
+template <int MODE>
+__device__ __forceinline__ float row_sum(float a, float b, float wx0, float wx1) {
+  if (MODE == kBF16)
+    return __fadd_rn(__fmul_rn(round_bf16(a), wx0), __fmul_rn(round_bf16(b), wx1));
+  // kInt8: wx0, wx1 hold rint(127 wx); the integer sum is exact in float32
+  const int s = quant_pixel(a) * (int)wx0 + quant_pixel(b) * (int)wx1;
+  return __fmul_rn((float)s, 1.0f / 16129.0f);
+}
+
+__device__ __forceinline__ void store(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+template <int C, int MODE, typename OutT>
 __global__ void warp_perspective_kernel(const float* __restrict__ src,
                                         const float* __restrict__ hs,
-                                        float* __restrict__ out, int H, int W,
+                                        OutT* __restrict__ out, int H, int W,
                                         int OH, int OW) {
   __shared__ float m[9];
   const int b = blockIdx.y;
@@ -79,10 +121,6 @@ __global__ void warp_perspective_kernel(const float* __restrict__ src,
   float fy = __fsub_rn(sy, y0);
   float gfx = __fsub_rn(1.0f, fx);
   float gfy = __fsub_rn(1.0f, fy);
-  float w00 = __fmul_rn(gfy, gfx);
-  float w01 = __fmul_rn(gfy, fx);
-  float w10 = __fmul_rn(fy, gfx);
-  float w11 = __fmul_rn(fy, fx);
 
   // in-bounds tests on the float coordinates: exact for integral values and
   // safe where the coordinate is far outside the int range (or NaN)
@@ -98,7 +136,7 @@ __global__ void warp_perspective_kernel(const float* __restrict__ src,
   int yi1 = iny1 ? (int)y1 : 0;
 
   const float* img = src + (long long)b * H * W * C;
-  float* o = out + ((long long)b * OH * OW + p) * C;
+  OutT* o = out + ((long long)b * OH * OW + p) * C;
   float t[4][C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -107,37 +145,78 @@ __global__ void warp_perspective_kernel(const float* __restrict__ src,
     t[2][c] = tap(img, iny1 && inx0, yi1, xi0, W, C, c);
     t[3][c] = tap(img, iny1 && inx1, yi1, xi1, W, C, c);
   }
+  if (MODE == kF32) {
+    float w00 = __fmul_rn(gfy, gfx);
+    float w01 = __fmul_rn(gfy, fx);
+    float w10 = __fmul_rn(fy, gfx);
+    float w11 = __fmul_rn(fy, fx);
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    o[c] = __fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(t[0][c], w00), __fmul_rn(t[1][c], w01)),
-                  __fmul_rn(t[2][c], w10)),
-        __fmul_rn(t[3][c], w11));
+    for (int c = 0; c < C; ++c)
+      store(o + c, __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(t[0][c], w00),
+                                                 __fmul_rn(t[1][c], w01)),
+                                       __fmul_rn(t[2][c], w10)),
+                             __fmul_rn(t[3][c], w11)));
+  } else {
+    const float wx0 = MODE == kBF16 ? round_bf16(gfx) : rintf(__fmul_rn(gfx, 127.0f));
+    const float wx1 = MODE == kBF16 ? round_bf16(fx) : rintf(__fmul_rn(fx, 127.0f));
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float a0 = row_sum<MODE>(t[0][c], t[1][c], wx0, wx1);
+      const float a1 = row_sum<MODE>(t[2][c], t[3][c], wx0, wx1);
+      store(o + c, __fadd_rn(__fmul_rn(a0, gfy), __fmul_rn(a1, fy)));
+    }
+  }
+}
+
+template <int MODE, typename OutT>
+int launch(const float* src, const float* hs, void* out, int B, int H, int W, int C, int OH,
+           int OW, cudaStream_t stream) {
+  long long pixels = (long long)OH * OW;
+  const int threads = 256;
+  dim3 grid((unsigned int)((pixels + threads - 1) / threads), (unsigned int)B);
+  OutT* o = static_cast<OutT*>(out);
+  switch (C) {
+    case 1:
+      warp_perspective_kernel<1, MODE, OutT><<<grid, threads, 0, stream>>>(src, hs, o, H, W, OH, OW);
+      break;
+    case 2:
+      warp_perspective_kernel<2, MODE, OutT><<<grid, threads, 0, stream>>>(src, hs, o, H, W, OH, OW);
+      break;
+    case 3:
+      warp_perspective_kernel<3, MODE, OutT><<<grid, threads, 0, stream>>>(src, hs, o, H, W, OH, OW);
+      break;
+    default:
+      warp_perspective_kernel<4, MODE, OutT><<<grid, threads, 0, stream>>>(src, hs, o, H, W, OH, OW);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int warp(const float* src, const float* hs, void* out, int B, int H, int W, int C, int OH,
+         int OW, int out_bf16, cudaStream_t stream) {
+  if (B > 65535 || C < 1 || C > 4) return (int)cudaErrorInvalidValue;
+  if (B == 0 || (long long)OH * OW == 0) return 0;
+  return out_bf16 ? launch<MODE, __nv_bfloat16>(src, hs, out, B, H, W, C, OH, OW, stream)
+                  : launch<MODE, float>(src, hs, out, B, H, W, C, OH, OW, stream);
 }
 
 }  // namespace
 
-extern "C" int pfr_warp_perspective_batch(const float* src, const float* hs,
-                                          float* out, int B, int H, int W,
-                                          int C, int OH, int OW,
-                                          cudaStream_t stream) {
-  if (B > 65535 || C < 1 || C > 4) return (int)cudaErrorInvalidValue;
-  long long pixels = (long long)OH * OW;
-  if (B == 0 || pixels == 0) return 0;
-  const int threads = 256;
-  dim3 grid((unsigned int)((pixels + threads - 1) / threads), (unsigned int)B);
-  switch (C) {
-    case 1:
-      warp_perspective_kernel<1><<<grid, threads, 0, stream>>>(src, hs, out, H, W, OH, OW);
-      break;
-    case 2:
-      warp_perspective_kernel<2><<<grid, threads, 0, stream>>>(src, hs, out, H, W, OH, OW);
-      break;
-    case 3:
-      warp_perspective_kernel<3><<<grid, threads, 0, stream>>>(src, hs, out, H, W, OH, OW);
-      break;
-    default:
-      warp_perspective_kernel<4><<<grid, threads, 0, stream>>>(src, hs, out, H, W, OH, OW);
-  }
-  return (int)cudaGetLastError();
+// out is float32, or bfloat16 where out_bf16 is nonzero
+extern "C" int pfr_warp_perspective_batch(const float* src, const float* hs, void* out,
+                                          int B, int H, int W, int C, int OH, int OW,
+                                          int out_bf16, cudaStream_t stream) {
+  return warp<kF32>(src, hs, out, B, H, W, C, OH, OW, out_bf16, stream);
+}
+
+extern "C" int pfr_warp_perspective_batch_bf16(const float* src, const float* hs, void* out,
+                                               int B, int H, int W, int C, int OH, int OW,
+                                               int out_bf16, cudaStream_t stream) {
+  return warp<kBF16>(src, hs, out, B, H, W, C, OH, OW, out_bf16, stream);
+}
+
+extern "C" int pfr_warp_perspective_batch_int8(const float* src, const float* hs, void* out,
+                                               int B, int H, int W, int C, int OH, int OW,
+                                               int out_bf16, cudaStream_t stream) {
+  return warp<kInt8>(src, hs, out, B, H, W, C, OH, OW, out_bf16, stream);
 }

@@ -4,7 +4,9 @@ Entry points default to ``device="cuda"`` and never fall back to the CPU on
 their own: the CPU runs only when the caller asks for it, as the tests do.
 They also run under :func:`float32_matmuls`, so that their parity with the JAX
 package, which is stated in float32, holds whatever TF32 settings the caller
-has.
+has; and so that a model computing in bfloat16 sums its products in float32,
+as XLA does, whatever the caller allows cuBLAS (its bfloat16 reduced-precision
+reductions are turned off inside).
 """
 
 from __future__ import annotations
@@ -58,6 +60,11 @@ def _switches() -> list[tuple[str, Callable, Callable, object]]:
          unless_none(lambda v: setattr(cudnn, "allow_tf32", v)), False),
         ("float32_matmul_precision", tolerant(torch.get_float32_matmul_precision),
          unless_none(torch.set_float32_matmul_precision), "highest"),
+        # bfloat16 products summed in float32 (cuBLAS may otherwise reduce
+        # split-K partial sums in bfloat16)
+        ("cuda.matmul.allow_bf16_reduced_precision_reduction",
+         lambda: matmul.allow_bf16_reduced_precision_reduction,
+         lambda v: setattr(matmul, "allow_bf16_reduced_precision_reduction", v), False),
     ]
     per_op = [("cudnn.conv", getattr(cudnn, "conv", None)),
               ("cudnn.rnn", getattr(cudnn, "rnn", None)), ("cuda.matmul", matmul)]
@@ -80,8 +87,9 @@ def float32_flags() -> dict[str, object]:
 
 @contextlib.contextmanager
 def float32_matmuls():
-    """Turn TF32 off for cuDNN convolutions and CUDA matrix products inside the
-    block, and give the caller's settings back on exit, exceptions included.
+    """Turn TF32 off for cuDNN convolutions and CUDA matrix products, and
+    cuBLAS's bfloat16 reduced-precision reductions, inside the block, and give
+    the caller's settings back on exit, exceptions included.
 
     Usable as a decorator. Nesting is safe: each level restores what it found.
     """

@@ -13,9 +13,13 @@ import torch
 
 from ._build import build, library
 
-KERNELS = ("warp_perspective_batch", "nms_keep_sorted_batch", "nms_keep_sorted",
-           "nms_keep_sorted_grid", "multilevel_roi_align", "roi_footprints",
-           "multilevel_roi_align_backward")
+# K1 and K3 count each compute mode under its own name: ``warp_perspective_batch``
+# is K1 in float32, ``_bf16`` and ``_int8`` its reduced-precision modes;
+# ``multilevel_roi_align_bf16`` is K3 on bfloat16 levels
+KERNELS = ("warp_perspective_batch", "warp_perspective_batch_bf16",
+           "warp_perspective_batch_int8", "nms_keep_sorted_batch", "nms_keep_sorted",
+           "nms_keep_sorted_grid", "multilevel_roi_align", "multilevel_roi_align_bf16",
+           "roi_footprints", "multilevel_roi_align_backward")
 
 _launches = {name: 0 for name in KERNELS}
 
@@ -49,17 +53,24 @@ def launch(name: str, symbol: str, device: torch.device, *args) -> None:
     _launches[name] += 1
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, shape_rank: int) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of the given rank."""
+def check_cuda(name: str, t: torch.Tensor, shape_rank: int,
+               dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given rank whose
+    dtype is one of ``dtypes``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != shape_rank:
         raise ValueError(f"{name}: expected rank {shape_rank}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_cuda_f32(name: str, t: torch.Tensor, shape_rank: int) -> None:
+    """Raise unless ``t`` is a contiguous float32 CUDA tensor of the given rank."""
+    check_cuda(name, t, shape_rank)
+
+
 __all__ = ["KERNELS", "build", "library", "reset_launch_counts",
-           "launch_counts", "launch", "check_cuda_f32"]
+           "launch_counts", "launch", "check_cuda", "check_cuda_f32"]

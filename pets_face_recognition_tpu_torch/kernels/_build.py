@@ -108,8 +108,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    # (src, hs, out, B, H, W, C, OH, OW, stream)
-    "pfr_warp_perspective_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (src, hs, out, B, H, W, C, OH, OW, out_bf16, stream), one symbol a mode
+    "pfr_warp_perspective_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pfr_warp_perspective_batch_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pfr_warp_perspective_batch_int8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (boxes, valid, words, keep, G, K, iou_threshold, stream)
     "pfr_nms_keep_sorted_batch": (_P, _P, _P, _P, _I, _I, _F, _P),
     # (p0..p3, H0..H3, W0..W3, stride0..stride3, n_levels, C,
@@ -117,6 +119,10 @@ _SIGNATURES = {
     "pfr_multilevel_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                                  _I, _I, _I, _P, _P),
+    # the same, over bfloat16 levels (float32 RoIs and output)
+    "pfr_multilevel_roi_align_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                                      _I, _I, _I, _P, _P),
     # (rois, batch_idx, level, H0..H3, W0..W3, stride0..stride3, n_levels, B, K,
     #  OH, OW, sampling_ratio, key, footprint, stream)
     "pfr_roi_footprints": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

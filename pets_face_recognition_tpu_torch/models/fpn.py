@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, check_quant_dtype
 from .quant import ActQuant, QuantConv
 
 
@@ -27,11 +28,13 @@ class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  out_channels: int = 256,
                  in_levels: Sequence[str] = ("c2", "c3", "c4", "c5"),
-                 add_p6: bool = True, quant: str | None = None):
+                 add_p6: bool = True, quant: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_quant_dtype(quant, dtype)
         self.in_levels = tuple(in_levels)
         self.add_p6 = add_p6
-        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
         self.inner_blocks = nn.ModuleList(conv(c, out_channels, 1) for c in in_channels)
         self.layer_blocks = nn.ModuleList(
             conv(out_channels, out_channels, 3, padding=1) for _ in in_channels)
@@ -64,16 +67,18 @@ class BackboneWithFPN(nn.Module):
     body's ``in_levels`` maps: ResNet-50's by default; the MobileNetV3
     detector takes ``(112, 160)`` over ``("c4", "c5")``, giving p4, p5 and
     the max-pool p6 (JAX ``BackboneWithFPN(..., in_levels=("c4", "c5"))``).
-    ``quant`` quantizes the FPN's convolutions only; the body carries its own."""
+    ``quant`` quantizes the FPN's convolutions only; the body carries its own.
+    ``dtype`` is the FPN's compute dtype; the body carries its own."""
 
     def __init__(self, body: nn.Module, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  in_levels: Sequence[str] = ("c2", "c3", "c4", "c5"),
-                 out_channels: int = 256, quant: str | None = None):
+                 out_channels: int = 256, quant: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(in_channels) != len(in_levels):
             raise ValueError(f"in_channels {in_channels} do not match in_levels {in_levels}")
         self.body = body
-        self.fpn = FPN(in_channels, out_channels, in_levels, quant=quant)
+        self.fpn = FPN(in_channels, out_channels, in_levels, quant=quant, dtype=dtype)
         self.out_channels = out_channels
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -23,6 +23,12 @@ The norm is :class:`FrozenBatchNorm2d` (``frozen_stats=True``, running
 statistics always, as ``use_running_average=True``) or :class:`LiveBatchNorm2d`
 (flax ``nn.BatchNorm``: batch statistics and a running-statistics update in
 ``train()``, the running statistics in ``eval()``).
+
+``dtype`` is the JAX ``MobileNetV3Large.dtype``: every convolution (the
+squeeze-excite's too) and ``head_fc1`` compute in it, the norms round their
+output to it where they read running statistics (float32 in live training,
+JAX ``mobilenet_v3.py:57-63``), the activations and the squeeze-excite's mean
+and product run on it; ``head_fc2`` stays float32.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from .layers import Conv2d, Linear
 from .resnet import FrozenBatchNorm2d, LiveBatchNorm2d
 
 # (expansion, out, kernel, stride, squeeze-excite, hard swish): the JAX table
@@ -68,10 +75,10 @@ class SqueezeExcite(nn.Module):
     """Spatial mean -> 1x1 conv (bias) -> ReLU -> 1x1 conv (bias) -> hard
     sigmoid, multiplied into the input."""
 
-    def __init__(self, channels: int, squeeze: int):
+    def __init__(self, channels: int, squeeze: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Conv2d(channels, squeeze, 1)
-        self.fc2 = nn.Conv2d(squeeze, channels, 1)
+        self.fc1 = Conv2d(channels, squeeze, 1, dtype=dtype)
+        self.fc2 = Conv2d(squeeze, channels, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = torch.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True)))
@@ -80,20 +87,21 @@ class SqueezeExcite(nn.Module):
 
 class InvertedResidual(nn.Module):
     def __init__(self, inp: int, exp: int, out: int, kernel: int, stride: int,
-                 use_se: bool, use_hs: bool, norm: Callable[[int], nn.Module]):
+                 use_se: bool, use_hs: bool, norm: Callable[[int], nn.Module],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = hard_swish if use_hs else torch.relu
         self.residual = stride == 1 and inp == out
         if exp != inp:
-            self.expand = nn.Conv2d(inp, exp, 1, bias=False)
+            self.expand = Conv2d(inp, exp, 1, bias=False, dtype=dtype)
             self.bn_expand = norm(exp)
         else:
             self.expand = None
-        self.dwconv = nn.Conv2d(exp, exp, kernel, stride, (kernel - 1) // 2, groups=exp,
-                                bias=False)
+        self.dwconv = Conv2d(exp, exp, kernel, stride, (kernel - 1) // 2, groups=exp,
+                             bias=False, dtype=dtype)
         self.bn_dw = norm(exp)
-        self.se = SqueezeExcite(exp, max(exp // 4, 8)) if use_se else None
-        self.project = nn.Conv2d(exp, out, 1, bias=False)
+        self.se = SqueezeExcite(exp, max(exp // 4, 8), dtype) if use_se else None
+        self.project = Conv2d(exp, out, 1, bias=False, dtype=dtype)
         self.bn_project = norm(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,28 +125,29 @@ class MobileNetV3Large(nn.Module):
     """
 
     def __init__(self, num_classes: int = 0, features_only: bool = False,
-                 frozen_stats: bool = False, bn_momentum: float = 0.99):
+                 frozen_stats: bool = False, bn_momentum: float = 0.99,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.features_only = features_only
 
         def norm(c: int) -> nn.Module:
             if frozen_stats:
-                return FrozenBatchNorm2d(c, eps=BN_EPS)
-            return LiveBatchNorm2d(c, eps=BN_EPS, momentum=bn_momentum)
+                return FrozenBatchNorm2d(c, eps=BN_EPS, dtype=dtype)
+            return LiveBatchNorm2d(c, eps=BN_EPS, momentum=bn_momentum, dtype=dtype)
 
-        self.stem = nn.Conv2d(3, 16, 3, 2, 1, bias=False)
+        self.stem = Conv2d(3, 16, 3, 2, 1, bias=False, dtype=dtype)
         self.bn_stem = norm(16)
         blocks, inp = [], 16
         for exp, out, k, s, se, hs in MBV3_LARGE:
-            blocks.append(InvertedResidual(inp, exp, out, k, s, se, hs, norm))
+            blocks.append(InvertedResidual(inp, exp, out, k, s, se, hs, norm, dtype))
             inp = out
         self.blocks = nn.ModuleList(blocks)
         self.out_channels = {TAPS[i]: MBV3_LARGE[i][1] for i in TAPS}
         if not features_only:
-            self.head_conv = nn.Conv2d(inp, 960, 1, bias=False)
+            self.head_conv = Conv2d(inp, 960, 1, bias=False, dtype=dtype)
             self.bn_head = norm(960)
-            self.head_fc1 = nn.Linear(960, 1280)
-            self.head_fc2 = nn.Linear(1280, num_classes) if num_classes else None
+            self.head_fc1 = Linear(960, 1280, dtype=dtype)
+            self.head_fc2 = Linear(1280, num_classes) if num_classes else None
 
     def forward(self, x: torch.Tensor):
         x = hard_swish(self.bn_stem(self.stem(x)))

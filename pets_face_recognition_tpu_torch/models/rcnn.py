@@ -89,17 +89,19 @@ class RCNNConfig:
 
 
 class RoIHeads(nn.Module):
-    """Box, mask and keypoint heads under torchvision's ``roi_heads.*`` names."""
+    """Box, mask and keypoint heads under torchvision's ``roi_heads.*`` names,
+    computing in ``dtype`` but where JAX pins float32 (the predictors)."""
 
-    def __init__(self, cfg: RCNNConfig, channels: int, quant_kp: str | None = None):
+    def __init__(self, cfg: RCNNConfig, channels: int, quant_kp: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.box_head = rh.TwoMLPHead(channels * 7 * 7)
+        self.box_head = rh.TwoMLPHead(channels * 7 * 7, dtype=dtype)
         self.box_predictor = rh.FastRCNNPredictor(1024, cfg.num_classes)
         if cfg.with_mask:
-            self.mask_head = rh.MaskHead(channels)
-            self.mask_predictor = rh.MaskPredictor(256, cfg.num_classes)
+            self.mask_head = rh.MaskHead(channels, dtype=dtype)
+            self.mask_predictor = rh.MaskPredictor(256, cfg.num_classes, dtype=dtype)
         if cfg.num_keypoints:
-            self.keypoint_head = rh.KeypointHead(channels, quant=quant_kp)
+            self.keypoint_head = rh.KeypointHead(channels, quant=quant_kp, dtype=dtype)
             self.keypoint_predictor = rh.KeypointPredictor(512, cfg.num_keypoints)
 
 
@@ -115,18 +117,23 @@ class GeneralizedRCNN(nn.Module):
     ``quant`` (``None``, ``"calibrate"`` or ``"int8"``) quantizes the RPN's
     shared conv, ``quant_kp`` the keypoint head's eight convolutions; the
     backbone carries its own flags (JAX ``GeneralizedRCNN(quant, quant_kp)``).
+    ``dtype`` is the compute dtype of the RPN and the RoI heads (JAX
+    ``GeneralizedRCNN.dtype``); the backbone carries its own. With bfloat16
+    levels the RoIAligns run K3's bfloat16 instance; training (K4) takes
+    float32 levels only.
     """
 
     def __init__(self, backbone: BackboneWithFPN, cfg: RCNNConfig, quant: str | None = None,
-                 quant_kp: str | None = None):
+                 quant_kp: str | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.backbone = backbone
+        self.dtype = dtype
         self.num_anchors = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
         # the RPN sees every pyramid level: the FPN's and the max-pool one
         self.rpn = RPN(backbone.out_channels, self.num_anchors, quant,
-                       num_levels=len(backbone.fpn.in_levels) + 1)
-        self.roi_heads = RoIHeads(cfg, backbone.out_channels, quant_kp)
+                       num_levels=len(backbone.fpn.in_levels) + 1, dtype=dtype)
+        self.roi_heads = RoIHeads(cfg, backbone.out_channels, quant_kp, dtype)
 
     def _roi_align(self, pool, strides, boxes_flat, batch_idx, output_size):
         """RoIAlign over the pooled levels ``pool = (names, NHWC maps)``; the
@@ -285,50 +292,59 @@ class GeneralizedRCNN(nn.Module):
 QUANT_SCOPES = ("trunk", "fpn", "rpn", "full")
 
 
-def _quant_trunk(stage_sizes, quant: str | None, quant_scope: str):
+def _quant_trunk(stage_sizes, quant: str | None, quant_scope: str,
+                 dtype: torch.dtype = torch.float32):
     """The ResNet-50-FPN backbone with int8 twins per ``quant_scope`` (JAX
     ``rcnn.py``): the trunk always, the FPN for ``fpn`` and ``full``; returns
     ``(backbone, the RPN's quant)``, the RPN quantized for ``rpn`` and
-    ``full``."""
+    ``full``. Trunk and FPN compute in ``dtype``."""
     if quant_scope not in QUANT_SCOPES:
         raise ValueError(f"quant_scope {quant_scope!r}: expected one of {QUANT_SCOPES}")
-    body = ResNet(stage_sizes=stage_sizes, features_only=True, quant=quant)
-    backbone = BackboneWithFPN(body, quant=quant if quant_scope in ("fpn", "full") else None)
+    body = ResNet(stage_sizes=stage_sizes, features_only=True, quant=quant, dtype=dtype)
+    backbone = BackboneWithFPN(body, quant=quant if quant_scope in ("fpn", "full") else None,
+                               dtype=dtype)
     return backbone, quant if quant_scope in ("rpn", "full") else None
 
 
 def maskrcnn_resnet50_fpn(num_classes: int = 2, box_detections_per_img: int = 3,
                           stage_sizes: tuple[int, ...] = (3, 4, 6, 3), quant=None,
-                          quant_scope: str = "rpn", **overrides) -> GeneralizedRCNN:
+                          quant_scope: str = "rpn", dtype: torch.dtype = torch.float32,
+                          **overrides) -> GeneralizedRCNN:
     """The production body detector and segmenter: ResNet-50-FPN Mask R-CNN
     with a frozen-BN trunk, 2 classes, 3 detections an image (JAX
     ``maskrcnn_resnet50_fpn``). ``stage_sizes`` cuts depth for tests;
     ``overrides`` set :class:`RCNNConfig` fields. ``quant`` (``"calibrate"``
     or ``"int8"``) with ``quant_scope`` (``trunk``, ``fpn``, ``rpn`` (the
-    default, the shipping scope) or ``full``) builds the int8 serving twin."""
+    default, the shipping scope) or ``full``) builds the int8 serving twin.
+    ``dtype`` is the compute dtype of trunk, FPN, RPN and heads (the JAX
+    model ``clone(dtype=...)`` at all three levels)."""
     cfg = RCNNConfig(num_classes=num_classes, with_mask=True,
                      box_detections_per_img=box_detections_per_img, **overrides)
-    backbone, rpn_quant = _quant_trunk(stage_sizes, quant, quant_scope)
-    return GeneralizedRCNN(backbone, cfg, quant=rpn_quant)
+    backbone, rpn_quant = _quant_trunk(stage_sizes, quant, quant_scope, dtype)
+    return GeneralizedRCNN(backbone, cfg, quant=rpn_quant, dtype=dtype)
 
 
 def keypointrcnn_resnet50_fpn(num_classes: int = 2, num_keypoints: int = 3,
                               stage_sizes: tuple[int, ...] = (3, 4, 6, 3), quant=None,
                               quant_scope: str = "rpn", quant_kp=None,
+                              dtype: torch.dtype = torch.float32,
                               **overrides) -> GeneralizedRCNN:
     """The production head+landmark detector: ResNet-50-FPN keypoint R-CNN with
     a frozen-BN trunk, 3 keypoints, 1 detection per image. ``stage_sizes`` cuts
     depth for tests; ``overrides`` set :class:`RCNNConfig` fields. ``quant``
     and ``quant_scope`` as for :func:`maskrcnn_resnet50_fpn`; ``quant_kp``
-    quantizes the keypoint head's convolutions (an independent knob)."""
+    quantizes the keypoint head's convolutions (an independent knob).
+    ``dtype`` is the compute dtype of every part, as for
+    :func:`maskrcnn_resnet50_fpn`."""
     cfg = RCNNConfig(num_classes=num_classes, num_keypoints=num_keypoints,
                      box_detections_per_img=1, **overrides)
-    backbone, rpn_quant = _quant_trunk(stage_sizes, quant, quant_scope)
-    return GeneralizedRCNN(backbone, cfg, quant=rpn_quant, quant_kp=quant_kp)
+    backbone, rpn_quant = _quant_trunk(stage_sizes, quant, quant_scope, dtype)
+    return GeneralizedRCNN(backbone, cfg, quant=rpn_quant, quant_kp=quant_kp, dtype=dtype)
 
 
 def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: float = 0.99,
-                                      quant_kp=None, **overrides) -> GeneralizedRCNN:
+                                      quant_kp=None, dtype: torch.dtype = torch.float32,
+                                      **overrides) -> GeneralizedRCNN:
     """MobileNetV3-Large keypoint R-CNN (JAX ``mobile_net_v3_large_keypoint_rcnn``):
     a 2-level FPN over ``c4``/``c5`` (p4, p5 and a max-pool p6), anchor sizes
     ``(32, 64, 128, 256, 512)`` on every level with ratios ``(0.5, 1, 2)`` (15
@@ -338,19 +354,22 @@ def mobile_net_v3_large_keypoint_rcnn(frozen_stats: bool = True, bn_momentum: fl
     ``frozen_stats=False, bn_momentum=0.9``). ``overrides`` set
     :class:`RCNNConfig` fields. ``quant_kp`` (``"calibrate"`` or ``"int8"``)
     quantizes the keypoint head's convolutions; the MobileNetV3 trunk has no
-    int8 path, as in JAX."""
+    int8 path, as in JAX. ``dtype`` is the compute dtype of every part."""
     kw = dict(num_classes=2, num_keypoints=3, box_detections_per_img=1,
               anchor_sizes=((32, 64, 128, 256, 512),) * 3, aspect_ratios=(0.5, 1.0, 2.0))
     kw.update(overrides)
     body = MobileNetV3Large(features_only=True, frozen_stats=frozen_stats,
-                            bn_momentum=bn_momentum)
-    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5")), RCNNConfig(**kw), quant_kp=quant_kp)
+                            bn_momentum=bn_momentum, dtype=dtype)
+    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5"), dtype), RCNNConfig(**kw),
+                           quant_kp=quant_kp, dtype=dtype)
 
 
-def _fpn_over(body: nn.Module, in_levels: tuple[str, ...] = ("c2", "c3", "c4", "c5")
-              ) -> BackboneWithFPN:
-    """``BackboneWithFPN`` over a trunk's ``out_channels`` at ``in_levels``."""
-    return BackboneWithFPN(body, tuple(body.out_channels[lvl] for lvl in in_levels), in_levels)
+def _fpn_over(body: nn.Module, in_levels: tuple[str, ...] = ("c2", "c3", "c4", "c5"),
+              dtype: torch.dtype = torch.float32) -> BackboneWithFPN:
+    """``BackboneWithFPN`` over a trunk's ``out_channels`` at ``in_levels``,
+    its FPN in ``dtype``."""
+    return BackboneWithFPN(body, tuple(body.out_channels[lvl] for lvl in in_levels), in_levels,
+                           dtype=dtype)
 
 
 # the 2-level box-only factories' anchors and budgets (JAX rcnn.py:525-568)
@@ -372,27 +391,31 @@ def swin_tiny_keypoint_rcnn(num_classes: int = 2, num_keypoints: int = 3, window
     return GeneralizedRCNN(_fpn_over(body), cfg)
 
 
-def fasterrcnn_resnet50_fpn(num_classes: int = 2, **overrides) -> GeneralizedRCNN:
+def fasterrcnn_resnet50_fpn(num_classes: int = 2, dtype: torch.dtype = torch.float32,
+                            **overrides) -> GeneralizedRCNN:
     """Box-only ResNet-50-FPN Faster R-CNN with a frozen-BN trunk at the JAX
     config's defaults (JAX ``fasterrcnn_resnet50_fpn``): 100 detections an
     image, so its box NMS runs through K2. Like JAX's ``top_k``, the box
     post-process raises unless the test proposals (times the foreground
     classes) number at least 100.
-    ``overrides`` set :class:`RCNNConfig` fields."""
-    body = ResNet(features_only=True)
-    return GeneralizedRCNN(BackboneWithFPN(body), RCNNConfig(num_classes=num_classes,
-                                                             **overrides))
+    ``overrides`` set :class:`RCNNConfig` fields; ``dtype`` is the compute
+    dtype of every part."""
+    body = ResNet(features_only=True, dtype=dtype)
+    return GeneralizedRCNN(BackboneWithFPN(body, dtype=dtype),
+                           RCNNConfig(num_classes=num_classes, **overrides), dtype=dtype)
 
 
-def mobile_net_v3_large_rcnn(**overrides) -> GeneralizedRCNN:
+def mobile_net_v3_large_rcnn(dtype: torch.dtype = torch.float32,
+                             **overrides) -> GeneralizedRCNN:
     """Box-only MobileNetV3-Large Faster R-CNN (JAX ``mobile_net_v3_large_rcnn``):
     frozen statistics, a 2-level FPN over ``c4``/``c5`` and a max-pool p6,
     anchor sizes ``(32, 64, 128, 256, 512)`` on every level with ratios
-    ``(0.5, 1, 2)``, 150/150 test proposals, 1 detection."""
+    ``(0.5, 1, 2)``, 150/150 test proposals, 1 detection; ``dtype`` is the
+    compute dtype of every part."""
     kw = dict(_P4_P5, aspect_ratios=(0.5, 1.0, 2.0))
     kw.update(overrides)
-    body = MobileNetV3Large(features_only=True, frozen_stats=True)
-    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5")), RCNNConfig(**kw))
+    body = MobileNetV3Large(features_only=True, frozen_stats=True, dtype=dtype)
+    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5"), dtype), RCNNConfig(**kw), dtype=dtype)
 
 
 def convnetx_tiny_rcnn(**overrides) -> GeneralizedRCNN:
@@ -424,7 +447,7 @@ def frozen_twin(model: GeneralizedRCNN) -> GeneralizedRCNN:
     body = model.backbone.body
     if not isinstance(body, MobileNetV3Large):
         raise TypeError("frozen_twin: a MobileNetV3 detector is expected")
-    twin = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True,
+    twin = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, dtype=model.dtype,
                                              **dataclasses.asdict(model.cfg))
     twin.load_state_dict(model.state_dict(), strict=True)
     dev = next(model.parameters()).device

@@ -8,6 +8,13 @@ epsilon 1e-5, eval-mode statistics (the detection trunk's affine trains, see
 exact rewrite of the 7x7/s2 conv and stores 7x7 weights, so the port runs the
 plain ``Conv2d(3, 64, 7, 2, 3)``.
 
+``dtype`` (``torch.float32``, the default, or ``torch.bfloat16``) is the
+JAX ``ResNet.dtype``: the stem and every block's convolutions compute in it,
+and so do the norms where they read running statistics (flax's
+``use_running_average``: they compute in float32 and round their output to
+``dtype``); live BatchNorm in training stays float32 (JAX
+``models/resnet.py:221-236``). Parameters and statistics stay float32.
+
 ``quant`` (``None``, ``"calibrate"`` or ``"int8"``) builds the serving int8
 twin (``models/quant.py``): every block's convolutions become
 :class:`~.quant.QuantConv` behind :class:`~.quant.ActQuant` points, under the
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from .. import parallel
+from .layers import Conv2d, Linear, check_dtype, check_quant_dtype
 from .quant import ActQuant, QuantConv, dequantize
 
 
@@ -38,11 +46,16 @@ class FrozenBatchNorm2d(nn.Module):
     ``bias`` in ``params``, so training differentiates and updates them; it
     departs from torchvision's ``FrozenBatchNorm2d``, which keeps all four as
     buffers. The ``state_dict`` keys are torchvision's either way.
+
+    ``dtype``: it computes in float32 (flax promotes the input to the
+    statistics' float32) and rounds its output to ``dtype``, as flax's
+    ``nn.BatchNorm(use_running_average=True, dtype=...)``.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.dtype = check_dtype(dtype)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -50,8 +63,9 @@ class FrozenBatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean[:, None, None]) * mul[:, None, None] \
+        y = (x - self.running_mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
+        return y.to(self.dtype)
 
 
 class LiveBatchNorm2d(nn.Module):
@@ -74,12 +88,18 @@ class LiveBatchNorm2d(nn.Module):
     batch, as JAX's sharded jit takes them: the sums of ``x`` and ``x^2``
     go through a differentiable all-reduce, so the backward is the
     whole-batch backward and the running statistics stay equal on every rank.
+
+    ``dtype``: in ``eval()`` the output is rounded to it, as flax's
+    ``dtype=self.dtype if use_running_average``; in ``train()`` the norm
+    computes in float32 and returns float32 (JAX ``resnet.py:221-236``).
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.99,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.dtype = check_dtype(dtype)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -87,6 +107,7 @@ class LiveBatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            x = x.float()
             if parallel.shards() > 1:
                 mean, mean_sq = parallel.global_moments(x, (0, 2, 3))
             else:
@@ -99,7 +120,8 @@ class LiveBatchNorm2d(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y if self.training else y.to(self.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -109,16 +131,19 @@ class Bottleneck(nn.Module):
     quantized once (``in_q``) and read by ``conv1``, by the projection
     shortcut and, dequantized as ``xq * (s_x / 127)``, by the identity
     residual (in calibrate mode the identity residual is the float input);
-    ``q1`` and ``q2`` sit between the convolutions.
+    ``q1`` and ``q2`` sit between the convolutions. ``dtype``: the
+    convolutions' compute dtype (``norm_layer`` carries the norms').
     """
 
     expansion = 4
 
     def __init__(self, in_ch: int, width: int, stride: int,
-                 norm_layer: Callable[[int], nn.Module], quant: str | None = None):
+                 norm_layer: Callable[[int], nn.Module], quant: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_quant_dtype(quant, dtype)
         out_ch = width * self.expansion
-        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
         self.conv1 = conv(in_ch, width, 1, bias=False)
         self.bn1 = norm_layer(width)
         self.conv2 = conv(width, width, 3, stride, 1, bias=False)
@@ -162,14 +187,17 @@ class BasicBlock(nn.Module):
     needed. With ``quant`` the block input is quantized once (``in_q``) and
     read by ``conv1``, by the projection shortcut and, dequantized, by the
     identity residual (the float input in calibrate mode); ``q1`` sits between
-    the convolutions (JAX ``BasicBlock(quant=...)``)."""
+    the convolutions (JAX ``BasicBlock(quant=...)``). ``dtype``: the
+    convolutions' compute dtype (``norm_layer`` carries the norms')."""
 
     expansion = 1
 
     def __init__(self, in_ch: int, width: int, stride: int,
-                 norm_layer: Callable[[int], nn.Module], quant: str | None = None):
+                 norm_layer: Callable[[int], nn.Module], quant: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        check_quant_dtype(quant, dtype)
+        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
         self.conv1 = conv(in_ch, width, 3, stride, 1, bias=False)
         self.bn1 = norm_layer(width)
         self.conv2 = conv(width, width, 3, 1, 1, bias=False)
@@ -211,16 +239,22 @@ class ResNet(nn.Module):
     ``features_only`` returns ``{'c2'..'c5'}`` NCHW maps (``level_channels``
     wide); otherwise the global average pool, then ``fc`` when
     ``num_classes`` > 0. ``quant`` builds every block's int8 twin (the stem
-    and ``fc`` stay float).
+    and ``fc`` stay float). ``dtype`` is the compute dtype of the stem, the
+    blocks, the running-statistics norms (``norm_layer`` is called with
+    ``dtype=``) and, unless ``fc_dtype`` is given, ``fc`` (JAX's ``nn.Dense(...,
+    dtype=self.dtype)``); the maps come out in ``dtype``.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 0, features_only: bool = False,
                  norm_layer: Callable[[int], nn.Module] = FrozenBatchNorm2d,
-                 quant: str | None = None, block: type[nn.Module] = Bottleneck):
+                 quant: str | None = None, block: type[nn.Module] = Bottleneck,
+                 dtype: torch.dtype = torch.float32, fc_dtype: torch.dtype | None = None):
         super().__init__()
+        check_quant_dtype(quant, dtype)
+        norm_layer = partial(norm_layer, dtype=dtype)
         self.features_only = features_only
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, dtype=dtype)
         self.bn1 = norm_layer(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -229,12 +263,13 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if (i == 0 and stage > 0) else 1
-                blocks.append(block(in_ch, width, stride, norm_layer, quant))
+                blocks.append(block(in_ch, width, stride, norm_layer, quant, dtype))
                 in_ch = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.level_channels = tuple(w * block.expansion for w in (64, 128, 256, 512))
         self.out_channels = in_ch
-        self.fc = nn.Linear(in_ch, num_classes) if num_classes else None
+        self.fc = (Linear(in_ch, num_classes, dtype=dtype if fc_dtype is None else fc_dtype)
+                   if num_classes else None)
 
     def forward(self, x: torch.Tensor):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

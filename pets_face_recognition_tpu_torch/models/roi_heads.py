@@ -10,6 +10,13 @@ torchvision module names (``box_head.fc6``, ``box_predictor.cls_score``,
 heads take the JAX layout: pooled RoIs ``(K, oh, ow, C)`` NHWC. ``fc6``
 flattens that NHWC block in ``(h, w, c)`` order, as the JAX ``TwoMLPHead`` does,
 so weights carried over from the JAX package give the same numbers.
+
+``dtype`` is the heads' compute dtype (JAX ``models/roi_heads.py``):
+``TwoMLPHead``, the mask head's four convolutions and ``conv5_mask``, and
+the keypoint head's eight convolutions compute in it; the layers that JAX
+pins to float32 stay float32 whatever it is: the box predictor, the mask
+logits (``mask_fcn_logits``) and the keypoint predictor's
+``kps_score_lowres`` (with its upsample), so logits and heatmaps are float32.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from .. import parallel
 from ..losses import cross_entropy, optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from ..ops.nms import nms_keep_sorted_batch_cuda
+from .layers import Conv2d, ConvTranspose2d, Linear, check_quant_dtype
 from .quant import ActQuant, QuantConv
 from .rpn import _top_k, batched_iou, sample_balanced
 
@@ -34,10 +42,11 @@ BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 class TwoMLPHead(nn.Module):
     """flatten -> fc6 -> relu -> fc7 -> relu."""
 
-    def __init__(self, in_features: int, representation_size: int = 1024):
+    def __init__(self, in_features: int, representation_size: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc6 = nn.Linear(in_features, representation_size)
-        self.fc7 = nn.Linear(representation_size, representation_size)
+        self.fc6 = Linear(in_features, representation_size, dtype=dtype)
+        self.fc7 = Linear(representation_size, representation_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
@@ -45,14 +54,16 @@ class TwoMLPHead(nn.Module):
 
 
 class FastRCNNPredictor(nn.Module):
-    """``cls_score`` (C classes incl. background) and ``bbox_pred`` (4C)."""
+    """``cls_score`` (C classes incl. background) and ``bbox_pred`` (4C), in
+    float32 on float32 input (a bfloat16 input is cast, as flax does)."""
 
     def __init__(self, in_features: int, num_classes: int):
         super().__init__()
-        self.cls_score = nn.Linear(in_features, num_classes)
-        self.bbox_pred = nn.Linear(in_features, num_classes * 4)
+        self.cls_score = Linear(in_features, num_classes)
+        self.bbox_pred = Linear(in_features, num_classes * 4)
 
     def forward(self, x: torch.Tensor):
+        x = x.float()
         return self.cls_score(x), self.bbox_pred(x).reshape(x.shape[0], -1, 4)
 
 
@@ -60,11 +71,11 @@ class MaskHead(nn.Module):
     """4 x (conv3x3 + relu) at 256 channels (torchvision ``MaskRCNNHeads``,
     0.12 names); NCHW in and out."""
 
-    def __init__(self, in_channels: int, channels: int = 256):
+    def __init__(self, in_channels: int, channels: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
         for i in range(1, 5):
-            setattr(self, f"mask_fcn{i}", nn.Conv2d(in_channels if i == 1 else channels,
-                                                    channels, 3, padding=1))
+            setattr(self, f"mask_fcn{i}", Conv2d(in_channels if i == 1 else channels,
+                                                 channels, 3, padding=1, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(1, 5):
@@ -75,12 +86,14 @@ class MaskHead(nn.Module):
 class MaskPredictor(nn.Module):
     """Transposed conv (2, stride 2) + relu, then the 1x1 per-class logits
     (torchvision ``MaskRCNNPredictor``); NCHW in, ``(K, 2S, 2S, C)`` NHWC
-    logits out, as the JAX ``MaskHead`` returns them."""
+    logits out, as the JAX ``MaskHead`` returns them. ``conv5_mask`` computes
+    in ``dtype``, the logits in float32."""
 
-    def __init__(self, in_channels: int, num_classes: int, channels: int = 256):
+    def __init__(self, in_channels: int, num_classes: int, channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv5_mask = nn.ConvTranspose2d(in_channels, channels, 2, 2)
-        self.mask_fcn_logits = nn.Conv2d(channels, num_classes, 1)
+        self.conv5_mask = ConvTranspose2d(in_channels, channels, 2, 2, dtype=dtype)
+        self.mask_fcn_logits = Conv2d(channels, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mask_fcn_logits(torch.relu(self.conv5_mask(x))).permute(0, 2, 3, 1)
@@ -96,9 +109,10 @@ class KeypointHead(nn.Module):
     """
 
     def __init__(self, in_channels: int, channels: int = 512, n_convs: int = 8,
-                 quant: str | None = None):
+                 quant: str | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        check_quant_dtype(quant, dtype)
+        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
         self.n_convs = n_convs
         for i in range(n_convs):
             self.add_module(str(2 * i), conv(in_channels if i == 0 else channels, channels,
@@ -115,18 +129,57 @@ class KeypointHead(nn.Module):
         return x
 
 
+def _upsample2x_transpose(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint of a 2x linear upsample (``align_corners=False``) along
+    ``dim`` (counted from the end, negative): output ``2i`` is ``x[i-1] / 4 + 3 x[i] / 4`` (``x[0]`` for
+    ``i = 0``), output ``2i + 1`` is ``3 x[i] / 4 + x[i+1] / 4`` (``x[n-1]``
+    for the last), so input ``j`` gathers ``3/4`` of outputs ``2j`` and
+    ``2j + 1`` and ``1/4`` of outputs ``2j - 1`` and ``2j + 2``, each clamped
+    output counting whole at the two ends. Elementwise, with no atomics."""
+    e, o = g.unflatten(dim, (-1, 2)).unbind(dim)
+    n = e.shape[dim]
+    prev = torch.cat([e.narrow(dim, 0, 1), o.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([e.narrow(dim, 1, n - 1), o.narrow(dim, n - 1, 1)], dim)
+    return 0.75 * (e + o) + 0.25 * (prev + nxt)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)``
+    whose backward is :func:`_upsample2x_transpose` along both axes. PyTorch's
+    CUDA backward of the bilinear upsample adds with atomics, in an order that
+    changes from run to run (ROADMAP fault 2); this one sums in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _upsample2x_transpose(_upsample2x_transpose(g, -1), -2)
+
+
+def upsample_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of NCHW ``x`` (``align_corners=False``, torch's
+    ``interpolate`` and JAX's ``jax.image.resize``). On a CUDA tensor that
+    needs a gradient, its backward is deterministic (:class:`_Upsample2x`);
+    elsewhere it is ``F.interpolate`` itself."""
+    if x.is_cuda and x.requires_grad:
+        return _Upsample2x.apply(x)
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
 class KeypointPredictor(nn.Module):
     """Transposed conv (4, stride 2) then 2x bilinear upsample
-    (``align_corners=False``); NCHW in, ``(K, S, S, NK)`` NHWC heatmaps out."""
+    (``align_corners=False``, :func:`upsample_bilinear_2x`); NCHW in,
+    ``(K, S, S, NK)`` NHWC heatmaps out."""
 
     def __init__(self, in_channels: int, num_keypoints: int):
         super().__init__()
-        self.kps_score_lowres = nn.ConvTranspose2d(in_channels, num_keypoints, 4, 2, 1)
+        self.kps_score_lowres = ConvTranspose2d(in_channels, num_keypoints, 4, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(self.kps_score_lowres(x), scale_factor=2,
-                          mode="bilinear", align_corners=False)
-        return x.permute(0, 2, 3, 1)
+        return upsample_bilinear_2x(self.kps_score_lowres(x)).permute(0, 2, 3, 1)
 
 
 def detection_candidates(class_logits: torch.Tensor, box_deltas: torch.Tensor,

@@ -22,6 +22,7 @@ from torch import nn
 from ..losses import optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ..ops.nms import nms_keep_sorted_batch_cuda
+from .layers import Conv2d, check_quant_dtype
 from .quant import ActQuant, QuantConv
 
 
@@ -33,17 +34,20 @@ class RPNHead(nn.Module):
     ``quant`` the shared conv is one :class:`~.quant.QuantConv` (with its
     bias) behind one :class:`~.quant.ActQuant` a level (``conv_q.{l}``, the
     JAX ``conv_q_{lvl}`` in level order); ``cls_logits`` and ``bbox_pred``
-    stay float.
+    stay float. ``dtype`` is the compute dtype of the shared conv and of both
+    1x1 predictors (JAX ``rpn.py:61-65``), so the logits and deltas come out
+    in it; the proposals upcast as JAX's do (the boxes are float32).
     """
 
     def __init__(self, in_channels: int, num_anchors: int, quant: str | None = None,
-                 num_levels: int = 5):
+                 num_levels: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_quant_dtype(quant, dtype)
         self.quant = quant is not None
-        conv = nn.Conv2d if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
         self.conv = conv(in_channels, in_channels, 3, padding=1)
-        self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
-        self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
+        self.cls_logits = Conv2d(in_channels, num_anchors, 1, dtype=dtype)
+        self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1, dtype=dtype)
         if self.quant:
             self.conv_q = nn.ModuleList(ActQuant(quant) for _ in range(num_levels))
 
@@ -61,9 +65,9 @@ class RPN(nn.Module):
     """Holds the head under torchvision's ``rpn.head`` name."""
 
     def __init__(self, in_channels: int, num_anchors: int, quant: str | None = None,
-                 num_levels: int = 5):
+                 num_levels: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.head = RPNHead(in_channels, num_anchors, quant, num_levels)
+        self.head = RPNHead(in_channels, num_anchors, quant, num_levels, dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         return self.head(feats)
@@ -81,6 +85,16 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic of the RPN's logits: ``torch.sigmoid`` in float32; in
+    bfloat16, JAX's ``1 / (1 + exp(-x))`` with every op rounded to bfloat16,
+    as XLA computes ``jax.nn.sigmoid`` there, so that ties among the
+    proposals' scores, which the top-k breaks by index, are JAX's ties."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def generate_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
                        anchors: torch.Tensor, level_counts: Sequence[int],
                        image_size: tuple[int, int], pre_nms_top_n: int,
@@ -91,8 +105,14 @@ def generate_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
 
     ``objectness (B, N)`` logits, ``deltas (B, N, 4)``, ``anchors (N, 4)``,
     ``level_counts``: anchors per level. Returns ``(B, post_nms_top_n, 4)``
-    proposals and a ``(B, post_nms_top_n)`` validity mask.
+    proposals and a ``(B, post_nms_top_n)`` validity mask. bfloat16 logits
+    and deltas (a bfloat16 head) are handled as XLA computes JAX's
+    ``generate_proposals`` on them: the logits ranked and scored in bfloat16
+    (:func:`_sigmoid`), the deltas decoded in float32 (XLA keeps the float32
+    intermediates of that elementwise chain), so the boxes, K2's input, are
+    float32.
     """
+    deltas = deltas.float()
     B = objectness.shape[0]
     L = len(level_counts)
     k = min(pre_nms_top_n, max(level_counts))
@@ -112,7 +132,7 @@ def generate_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
         h = boxes[..., 3] - boxes[..., 1]
         # torchvision filters on sigmoid PROBABILITIES, not logits
         valid = ((w >= min_size) & (h >= min_size)
-                 & (torch.sigmoid(top_s) >= score_thresh) & torch.isfinite(top_s))
+                 & (_sigmoid(top_s) >= score_thresh) & torch.isfinite(top_s))
         pad = k - kk
         if pad:
             boxes = nn.functional.pad(boxes, (0, 0, 0, pad))
@@ -127,7 +147,7 @@ def generate_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
     valid = torch.stack(lvl_valid, 1).reshape(B * L, k).contiguous()
 
     keep = nms_keep_sorted_batch_cuda(boxes, valid, nms_thresh)   # kernel K2
-    kept_scores = torch.where(keep, torch.sigmoid(scores_k),
+    kept_scores = torch.where(keep, _sigmoid(scores_k),
                               torch.full_like(scores_k, float("-inf")))
 
     flat_boxes = boxes.reshape(B, L * k, 4)

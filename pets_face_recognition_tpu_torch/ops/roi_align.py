@@ -15,6 +15,12 @@ twin ``roi_footprints``) sorts the RoIs by level and image and bounds the cells
 each can reach. ``MultilevelRoIAlign`` ties the two into one
 ``torch.autograd.Function``. Numerics: torchvision ``aligned=False`` with a
 fixed ``sampling_ratio``.
+
+K3 has a second instance for bfloat16 levels, which a detector computing in
+bfloat16 hands it: the JAX kernel's ``compute_dtype=bfloat16``, with the
+interpolation weights rounded to bfloat16, float32 sums and a float32
+result; ``multilevel_roi_align_bf16`` is its plain version, and the wrapper
+picks the instance from the levels' dtype. K4 takes float32 levels only.
 """
 
 from __future__ import annotations
@@ -46,11 +52,13 @@ def _sample_offsets(n: int, s: int, device) -> torch.Tensor:
 
 
 def _taps(level_shapes, rois, roi_batch_idx, output_size, strides, s,
-          canonical_scale, canonical_level, min_level, max_level):
+          canonical_scale, canonical_level, min_level, max_level, axis_weights=False):
     """Bilinear taps of every sample: 4 flat row indices into the ``(B * P, C)``
     concatenated pyramid and 4 weights, each ``(K, oh * s, ow * s)``, the
-    out-of-bounds mask, and ``P`` (cells per image). Shared by the plain
-    forward and backward so that both use the same geometry."""
+    out-of-bounds mask, and ``P`` (cells per image); with ``axis_weights``
+    also the per-axis weights ``(hy, ly, hx, lx)`` (row low, row high, column
+    low, column high) whose products the 4 weights are. Shared by the plain
+    forwards and backward so that all use the same geometry."""
     oh, ow = output_size
     K = rois.shape[0]
     dev = rois.device
@@ -105,6 +113,8 @@ def _taps(level_shapes, rois, roi_batch_idx, output_size, strides, s,
     idx = [row0 + yi * W3 + xi for yi, xi in
            ((y_low, x_low), (y_low, x_high), (y_high, x_low), (y_high, x_high))]
     wts = [hy * hx, hy * lx, ly * hx, ly * lx]
+    if axis_weights:
+        return idx, wts, oob, P, (hy, ly, hx, lx)
     return idx, wts, oob, P
 
 
@@ -132,6 +142,36 @@ def multilevel_roi_align(features: list[torch.Tensor], rois: torch.Tensor,
 
     val = (take(idx[0]) * wts[0][..., None] + take(idx[1]) * wts[1][..., None]
            + take(idx[2]) * wts[2][..., None] + take(idx[3]) * wts[3][..., None])
+    val = torch.where(oob[..., None], torch.zeros((), device=rois.device), val)
+    return val.reshape(K, oh, s, ow, s, C).mean(dim=(2, 4))
+
+
+def multilevel_roi_align_bf16(features: list[torch.Tensor], rois: torch.Tensor,
+                              roi_batch_idx: torch.Tensor, output_size: tuple[int, int],
+                              strides: tuple[int, ...], sampling_ratio: int = 2,
+                              canonical_scale: float = 224.0, canonical_level: int = 4,
+                              min_level: int = 2, max_level: int = 5) -> torch.Tensor:
+    """Plain K3 over bfloat16 levels, the JAX kernel's ``compute_dtype=bfloat16``:
+    the taps and samples of :func:`multilevel_roi_align`, the row and column
+    weights rounded to bfloat16, each column's two rows summed first and then
+    the two columns, in float32. Returns float32 ``(K, oh, ow, C)``."""
+    oh, ow = output_size
+    s = sampling_ratio
+    B, _, _, C = features[0].shape
+    K = rois.shape[0]
+    idx, _, oob, P, axis_w = _taps([f.shape for f in features], rois, roi_batch_idx,
+                                   output_size, strides, s, canonical_scale,
+                                   canonical_level, min_level, max_level, axis_weights=True)
+    wy_lo, wy_hi, wx_lo, wx_hi = (w.to(torch.bfloat16).float()[..., None] for w in axis_w)
+    big = torch.cat([f.to(torch.bfloat16).float().reshape(B, -1, C) for f in features],
+                    dim=1).reshape(B * P, C)
+
+    def take(i):
+        return big[i.reshape(-1)].reshape(K, oh * s, ow * s, C)
+
+    col_lo = take(idx[0]) * wy_lo + take(idx[2]) * wy_hi
+    col_hi = take(idx[1]) * wy_lo + take(idx[3]) * wy_hi
+    val = col_lo * wx_lo + col_hi * wx_hi
     val = torch.where(oob[..., None], torch.zeros((), device=rois.device), val)
     return val.reshape(K, oh, s, ow, s, C).mean(dim=(2, 4))
 
@@ -268,24 +308,31 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
     """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
     Same arguments and result as :func:`multilevel_roi_align`; at most 4 levels,
-    ``C`` a multiple of 4 and 16-byte aligned levels (the kernel moves 4
+    ``C`` a multiple of 4 and levels aligned to 4 channels (the kernel moves 4
     channels at a time). The level of each RoI comes from :func:`roi_levels`,
     as in the plain version; the result is bit-equal to the plain version's.
-    Not differentiable: :class:`MultilevelRoIAlign` is.
+    bfloat16 levels (all of them) take the bfloat16 instance, whose plain
+    version is :func:`multilevel_roi_align_bf16`; the result is float32
+    either way. Not differentiable: :class:`MultilevelRoIAlign` is.
     """
+    bf16 = features[0].dtype == torch.bfloat16
     if rois.device.type == "cpu":
-        return multilevel_roi_align(features, rois, roi_batch_idx, output_size,
-                                    strides, sampling_ratio, canonical_scale,
-                                    canonical_level, min_level, max_level)
+        plain = multilevel_roi_align_bf16 if bf16 else multilevel_roi_align
+        return plain(features, rois, roi_batch_idx, output_size, strides, sampling_ratio,
+                     canonical_scale, canonical_level, min_level, max_level)
     hs, ws, sts = _level_args([f.shape for f in features], strides, min_level, max_level)
     B, _, _, C = features[0].shape
     for i, f in enumerate(features):
-        kernels.check_cuda_f32(f"roi_align level {i}", f, 4)
+        # every level float32, or every level bfloat16 (the first's dtype)
+        if bf16:
+            kernels.check_cuda(f"roi_align level {i}", f, 4, (torch.bfloat16,))
+        else:
+            kernels.check_cuda_f32(f"roi_align level {i}", f, 4)
         if f.shape[0] != B or f.shape[3] != C or f.device != rois.device:
             raise ValueError("roi_align: levels must share B, C and the device")
-        if C % 4 or f.data_ptr() % 16:
-            raise ValueError("roi_align: the kernel reads 4 channels as 16 aligned bytes; "
-                             f"needs C % 4 == 0 and 16-byte aligned levels (C = {C})")
+        if C % 4 or f.data_ptr() % (4 * f.element_size()):
+            raise ValueError("roi_align: the kernel reads 4 channels at once; needs C % 4 "
+                             f"== 0 and levels aligned to 4 channels (C = {C})")
     _check_rois(rois, roi_batch_idx)
     K = rois.shape[0]
     oh, ow = output_size
@@ -296,7 +343,8 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
     lvl = roi_levels(rois, min_level, max_level, canonical_scale,
                      canonical_level).contiguous()
     ptrs = [f.data_ptr() for f in features] + [None] * (4 - len(features))
-    kernels.launch("multilevel_roi_align", "pfr_multilevel_roi_align", rois.device,
+    name = "multilevel_roi_align_bf16" if bf16 else "multilevel_roi_align"
+    kernels.launch(name, f"pfr_{name}", rois.device,
                    *ptrs, *hs, *ws, *sts, len(features), C, rois.data_ptr(),
                    bidx.data_ptr(), lvl.data_ptr(), K, oh, ow, sampling_ratio,
                    out.data_ptr())
@@ -371,11 +419,15 @@ class MultilevelRoIAlign(torch.autograd.Function):
         ctx.save_for_backward(rois, roi_batch_idx)
         ctx.args = args
         ctx.level_shapes = [tuple(f.shape) for f in features]
+        ctx.bf16 = features[0].dtype == torch.bfloat16
         return multilevel_roi_align_cuda(list(features), rois, roi_batch_idx, *args)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
+        if ctx.bf16:
+            raise NotImplementedError("RoIAlign backward (K4) over bfloat16 levels is not "
+                                      "ported; train the detector in float32")
         rois, roi_batch_idx = ctx.saved_tensors
         grads = multilevel_roi_align_backward_cuda(
             grad_out.contiguous(), ctx.level_shapes, rois, roi_batch_idx, *ctx.args)

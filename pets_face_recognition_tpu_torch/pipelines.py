@@ -23,6 +23,11 @@ component and the MobileNetV3 detector only ``kp_head``; a requested
 component that a factory does not support falls back to float with JAX's
 message. :func:`keypoint_detector` binds the dataset-version checkpoints of
 ``KEYPOINT_VARIANTS`` (``Preproc7``-``13``).
+
+Every factory takes the model's compute ``dtype`` (float32 by default; the
+int8 twins compute in float32 only, and their models refuse another). ``PFR_INPUT_DTYPE=bfloat16`` rounds
+each embedder's input crop to bfloat16, as the JAX ``retrieval_common.py``
+does, and the detector's batch in ``Preproc3``/``Preproc4``.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from .models import ptq
 from .models.embedder import resnet50_embedder
 from .models.quant import load_float_state_dict, quant_state
 from .models.rcnn import KEYPOINT_ARCHS, maskrcnn_resnet50_fpn
-from .preprocessor import Preproc3, Preproc4
+from .preprocessor import Preproc3, Preproc4, round_input
 from .serving import serving_detector
 from .utils.preprocs import resize_with_padding
 from .weights import init_random_
@@ -93,7 +98,8 @@ def _served(name: str, model: nn.Module, mode: str, dev: torch.device) -> nn.Mod
     return model
 
 
-def embedder(name: str, seed: int, device: str | torch.device = "cuda") -> nn.Module:
+def embedder(name: str, seed: int, device: str | torch.device = "cuda",
+             dtype: torch.dtype = torch.float32) -> nn.Module:
     """One retrieval embedder (``name`` in :data:`FE_CKPTS`, e.g.
     ``fe_dog_head``): the port FE checkpoint that its variable names (a
     folder gives its newest ``epoch=*-step=*``; the margin head is dropped),
@@ -101,13 +107,13 @@ def embedder(name: str, seed: int, device: str | torch.device = "cuda") -> nn.Mo
     checkpoint raises. Under ``PFR_QUANT_MODE`` with the ``embedder``
     component, its int8 twin (the trunk quantized, ``fc`` float), calibrated
     on what it embeds (224 x 224 head crops, 256 x 256 body crops). Eval mode
-    on ``device``."""
+    on ``device``; the trunk computes in ``dtype``."""
     from .engine.checkpoint import load_params
 
     dev = resolve_device(device)
     mode = ptq.quant_mode()
     quant = mode if (mode and "embedder" in ptq.quant_components()) else None
-    model = resnet50_embedder(512, quant=quant)
+    model = resnet50_embedder(512, quant=quant, dtype=dtype)
     ckpt = _checkpoint(*FE_CKPTS[name])
     if ckpt is None:
         init_random_(model, seed)
@@ -140,14 +146,15 @@ def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
 
 
 def serving_keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
-                              arch: str = "resnet50") -> nn.Module:
+                              arch: str = "resnet50", dtype: torch.dtype = torch.float32
+                              ) -> nn.Module:
     """``serving.serving_detector`` (the serving budgets, weights from
-    ``seed``) under the process quant mode, named as the JAX ``prod``
-    keypoint pipeline."""
+    ``seed``, compute ``dtype``) under the process quant mode, named as the
+    JAX ``prod`` keypoint pipeline."""
     dev = resolve_device(device)
     name, supports = _keypoint_name(arch, "prod")
     mode, det_q, kp_q = detector_quant(name, supports)
-    model = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q)
+    model = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q, dtype=dtype)
     return _served(name, model, mode, dev)
 
 
@@ -174,7 +181,8 @@ def _checkpoint(env: str, default: str) -> Path | None:
     return ckpt
 
 
-def mask_detector(device: str | torch.device = "cuda", seed: int = 0) -> nn.Module:
+def mask_detector(device: str | torch.device = "cuda", seed: int = 0,
+                  dtype: torch.dtype = torch.float32) -> nn.Module:
     """The body detector, as the JAX ``configs/pipelines.py::mask_pipeline``
     resolves it: ``maskrcnn_resnet50_fpn(num_classes=2,
     box_detections_per_img=3)`` at ``RCNNConfig``'s test budgets (RPN 1000 a
@@ -183,12 +191,14 @@ def mask_detector(device: str | torch.device = "cuda", seed: int = 0) -> nn.Modu
     ``results/mask/checkpoints``; a folder gives its newest
     ``epoch=*-step=*``). Without the variable and without a checkpoint at the
     default, seeded random weights from ``seed``; a ``PFR_MASK_CKPT`` that
-    names no checkpoint raises. In eval mode on ``device``."""
+    names no checkpoint raises. In eval mode on ``device``, computing in
+    ``dtype``."""
     from .engine.checkpoint import load_params
 
     dev = resolve_device(device)
     mode, det_q, _ = detector_quant("det_mask", ("detector",))
-    detector = maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3, quant=det_q)
+    detector = maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3, quant=det_q,
+                                     dtype=dtype)
     ckpt = _checkpoint("PFR_MASK_CKPT", "results/mask/checkpoints")
     if ckpt is None:
         print(f"no mask checkpoint at results/mask/checkpoints: seeded random weights "
@@ -200,7 +210,7 @@ def mask_detector(device: str | torch.device = "cuda", seed: int = 0) -> nn.Modu
 
 
 def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
-                      variant: str = "prod") -> nn.Module:
+                      variant: str = "prod", dtype: torch.dtype = torch.float32) -> nn.Module:
     """The head detector of the offline transforms, as the JAX
     ``configs/pipelines.py::keypoint_pipeline(variant)`` resolves it: the
     port checkpoint that ``variant``'s variable in :data:`KEYPOINT_VARIANTS`
@@ -215,7 +225,8 @@ def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
     (``serving.serving_detector``, at the serving budgets of 128 and 16); a
     variable that names no checkpoint raises. Under ``PFR_QUANT_MODE``, the
     int8 twin (``det_keypoint_{variant}``, or ``det_keypoint_mobile_{variant}``
-    with the ``kp_head`` component alone). In eval mode on ``device``."""
+    with the ``kp_head`` component alone). In eval mode on ``device``,
+    computing in ``dtype``."""
     from .engine.checkpoint import load_params
     from .models.rcnn import keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn
 
@@ -231,11 +242,12 @@ def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
     if ckpt is None:
         print(f"no keypoint checkpoint at {default}: "
               f"seeded random weights (seed {seed})", flush=True)
-        detector = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q)
+        detector = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q, dtype=dtype)
     else:
         detector = (keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, quant=det_q,
-                                              quant_kp=kp_q) if arch == "resnet50"
-                    else mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, quant_kp=kp_q))
+                                              quant_kp=kp_q, dtype=dtype) if arch == "resnet50"
+                    else mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, quant_kp=kp_q,
+                                                           dtype=dtype))
         load_float_state_dict(detector, load_params(ckpt))
     return _served(name, detector, mode, dev)
 
@@ -274,7 +286,7 @@ def build_head_pipeline(detector: nn.Module, dog_embedder: nn.Module, cat_embedd
         except (AssertionError, ValueError, OSError):
             return None
         fe = dog_embedder if animal_type == DOG else cat_embedder
-        return fe(aligned[None] / scale)[0].cpu().numpy()
+        return fe(round_input(aligned[None] / scale))[0].cpu().numpy()
 
     return head_pipeline
 
@@ -303,6 +315,7 @@ def build_body_pipeline(detector: nn.Module, dog_embedder: nn.Module, cat_embedd
             return None
         padded = resize_with_padding(crop.to(torch.uint8).cpu().numpy(), BODY_SIZE)
         fe = dog_embedder if animal_type == DOG else cat_embedder
-        return fe(torch.from_numpy(padded).to(dev)[None].float() / scale)[0].cpu().numpy()
+        x = torch.from_numpy(padded).to(dev)[None].float() / scale
+        return fe(round_input(x))[0].cpu().numpy()
 
     return body_pipeline

@@ -24,7 +24,10 @@ extents alone cross to the host); an empty mask or crop drops the image.
 ``Preproc6`` is the same crop from the keypoint detector's head box,
 ``Preproc5`` weighs the photo by a soft mask (squared below ``mask_thr``)
 without tightening, and ``PreprocCombined`` aligns the head of the masked
-body crop. Everything runs in float32 with TF32 off.
+body crop. Everything runs in float32 with TF32 off, but the models, which
+compute in their own ``dtype``. ``PFR_INPUT_DTYPE=bfloat16`` rounds the
+detector's batch to bfloat16 at the device boundary (JAX
+``preprocessor/__init__.py:200-205``; :func:`input_dtype`).
 
 The dataset-version pipelines ``Preproc7``-``13`` are ``Preproc3`` (aligned)
 or ``Preproc6`` (head box crop) bound to a keypoint checkpoint variant
@@ -52,10 +55,29 @@ from .align import align, align_batch
 __all__ = ["DEFAULT_BASE_PTS", "IdentityPreproc", "Preproc3", "Preproc4", "Preproc5",
            "Preproc6", "Preproc7", "Preproc8", "Preproc9", "Preproc10", "Preproc11",
            "Preproc12", "Preproc13", "PreprocCombined", "align", "align_batch",
-           "bbox_crop_letterbox"]
+           "bbox_crop_letterbox", "input_dtype", "round_input"]
 
 # Canonical head landmarks in the 224 x 224 crop.
 DEFAULT_BASE_PTS = np.array([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]], np.float32)
+
+
+def input_dtype() -> str:
+    """The device-boundary input dtype, ``PFR_INPUT_DTYPE`` (``float32``, the
+    default, or ``bfloat16``); any other value raises, as JAX's
+    ``_input_dtype`` does."""
+    import os
+
+    v = os.environ.get("PFR_INPUT_DTYPE", "float32")
+    if v not in ("float32", "bfloat16"):
+        raise ValueError(f"PFR_INPUT_DTYPE={v!r}: float32 | bfloat16")
+    return v
+
+
+def round_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (and back to float32) under
+    ``PFR_INPUT_DTYPE=bfloat16``, else ``x``: the values a model sees from
+    JAX's bfloat16 device input, which its first layer casts to its dtype."""
+    return x.to(torch.bfloat16).float() if input_dtype() == "bfloat16" else x
 
 
 def bbox_crop_letterbox(images: torch.Tensor, boxes: torch.Tensor,
@@ -153,7 +175,7 @@ class _ModelPipeline:
             if n > self.serve_batch:
                 raise ValueError(f"{n} images exceed serve_batch={self.serve_batch}")
             batch = torch.cat([batch, batch.new_zeros((self.serve_batch - n, *batch.shape[1:]))])
-        dets = self.model(batch)
+        dets = self.model(round_input(batch))
         out = {k: v[:n].cpu().numpy() for k, v in dets.items()}
         return out, n, scales, pads
 

@@ -5,9 +5,15 @@
 ``(B, 512)`` embeddings and a ``(B,)`` validity mask. Validity follows the
 reference's assert-and-skip: the top detection must score above
 ``score_thr`` and its landmarks, rounded to the pixel grid, must be pairwise
-more than 5 px apart. Everything runs in float32, with TF32 off inside
-``embed_batch`` whatever the caller set. On a CUDA device the path goes
-through kernels K2 and K3 (in the detector) and K1 (in ``align_crop``).
+more than 5 px apart. The models compute in their own ``dtype`` (float32 by
+default, bfloat16 as the JAX serving models on an accelerator); products
+run with TF32 off and bfloat16 sums in float32 inside ``embed_batch``,
+whatever the caller set. On a CUDA device the path goes through kernels K2
+and K3 (in the detector) and K1 (in ``align_crop``). K1 runs in the
+service's ``warp_dtype``: bfloat16 by default, as JAX's ``EmbeddingService``
+(``torch.float32`` for the exact warp, ``torch.int8`` for its int8 mode);
+on the CPU the warp is the exact float32 one whatever ``warp_dtype`` says,
+as JAX's ``align_crop`` on its CPU backend.
 
 ``stream`` runs ``embed_batch`` over image files: one producer thread decodes
 and letterboxes the next batches (``native.decode_batch``, PIL where no
@@ -37,7 +43,7 @@ from .device import float32_matmuls, resolve_device
 from .models.embedder import resnet50_embedder
 from .models.rcnn import (KEYPOINT_ARCHS, keypointrcnn_resnet50_fpn,
                           mobile_net_v3_large_keypoint_rcnn)
-from .ops.homography import align_crop
+from .ops.homography import WARP_DTYPES, align_crop
 from .utils.collate import letterbox_image
 from .weights import init_random_
 
@@ -50,7 +56,7 @@ RPN_PRE_NMS_TOP_N, RPN_POST_NMS_TOP_N = 128, 16
 
 
 def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
-                         detector_kind: str = "resnet50",
+                         detector_kind: str = "resnet50", dtype: torch.dtype = torch.float32,
                          ) -> tuple[nn.Module, nn.Module, torch.Tensor]:
     """The serving detector (3 keypoints, 1 detection per image, RPN budgets
     128/16, frozen norms) of ``detector_kind``: ``"resnet50"``, the
@@ -60,32 +66,36 @@ def build_serving_models(device: str | torch.device = "cuda", seed: int = 0,
     weights, in eval mode on ``device``. Returns ``(detector, embedder,
     base_pts (3, 2))``. The default stays ``"resnet50"``, the port's first
     serving detector, so that callers written for it keep their meaning; the
-    JAX ``bench.py`` defaults to ``"mobile"``."""
+    JAX ``bench.py`` defaults to ``"mobile"``. ``dtype`` is both models'
+    compute dtype (the JAX ``bench.py`` ``bf16`` switch; the weights are the
+    same whatever it is); it stays float32 by default, the module default."""
     dev = resolve_device(device)
-    detector = serving_detector(dev, seed, detector_kind)
-    embedder = init_random_(resnet50_embedder(512), seed + 1)
+    detector = serving_detector(dev, seed, detector_kind, dtype=dtype)
+    embedder = init_random_(resnet50_embedder(512, dtype=dtype), seed + 1)
     embedder = embedder.eval().requires_grad_(False).to(dev)
     return detector, embedder, torch.tensor(DEFAULT_BASE_PTS, device=dev)
 
 
 def serving_detector(device: str | torch.device = "cuda", seed: int = 0,
                      detector_kind: str = "resnet50", quant: str | None = None,
-                     quant_kp: str | None = None) -> nn.Module:
+                     quant_kp: str | None = None, dtype: torch.dtype = torch.float32
+                     ) -> nn.Module:
     """:func:`build_serving_models`' detector alone, the same weights from
     ``seed``; ``quant`` (the ResNet-50 trunk and RPN, scope ``rpn``) and
     ``quant_kp`` (the keypoint head) build its int8 twin over those weights
-    (the MobileNetV3 trunk has no int8 path: ``quant`` is refused there)."""
+    (the MobileNetV3 trunk has no int8 path: ``quant`` is refused there);
+    ``dtype`` is its compute dtype (float32 only with an int8 twin)."""
     dev = resolve_device(device)
     budgets = dict(rpn_pre_nms_top_n_test=RPN_PRE_NMS_TOP_N,
                    rpn_post_nms_top_n_test=RPN_POST_NMS_TOP_N)
     if detector_kind == "resnet50":
         detector = keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, quant=quant,
-                                             quant_kp=quant_kp, **budgets)
+                                             quant_kp=quant_kp, dtype=dtype, **budgets)
     elif detector_kind == "mobile":
         if quant is not None:
             raise ValueError("the MobileNetV3 trunk has no int8 path: pass quant_kp alone")
         detector = mobile_net_v3_large_keypoint_rcnn(frozen_stats=True, quant_kp=quant_kp,
-                                                     **budgets)
+                                                     dtype=dtype, **budgets)
     else:
         raise ValueError(f"detector kind {detector_kind!r}: expected one of {KEYPOINT_ARCHS}")
     init_random_(detector, seed)
@@ -125,13 +135,21 @@ def _decode_batch_host(paths: Sequence[Path], input_size: tuple[int, int]):
 
 
 class EmbeddingService:
-    """Head-embedding service over decoded uint8 image batches or image files."""
+    """Head-embedding service over decoded uint8 image batches or image files.
+
+    ``warp_dtype`` is K1's compute mode on a CUDA device (one of
+    ``ops.homography.WARP_DTYPES``), bfloat16 by default as in JAX; the CPU
+    warps in exact float32 whatever it is."""
 
     def __init__(self, detector: nn.Module, embedder: nn.Module,
                  base_pts: torch.Tensor | None = None, score_thr: float = 0.9,
                  device: str | torch.device = "cuda", batch_size: int = 64,
                  input_size: tuple[int, int] = (320, 320), prefetch: int = 2,
-                 mesh: parallel.Mesh | None = None):
+                 mesh: parallel.Mesh | None = None,
+                 warp_dtype: torch.dtype = torch.bfloat16):
+        if warp_dtype not in WARP_DTYPES:
+            raise ValueError(f"warp_dtype {warp_dtype}: expected one of {WARP_DTYPES}")
+        self.warp_dtype = warp_dtype
         self.device = resolve_device(device)
         if mesh is not None and batch_size % mesh.size:
             raise ValueError(f"batch_size {batch_size} not divisible by data axis {mesh.size}")
@@ -170,7 +188,7 @@ class EmbeddingService:
         d12 = torch.linalg.norm(kps[:, 1] - kps[:, 2], dim=-1)
         kp_ok = (d01 > MIN_LANDMARK_DISTANCE) & (d02 > MIN_LANDMARK_DISTANCE) \
             & (d12 > MIN_LANDMARK_DISTANCE)
-        crops = align_crop(imgs, kps, self.base_pts, CROP_SIZE)
+        crops = align_crop(imgs, kps, self.base_pts, CROP_SIZE, compute_dtype=self.warp_dtype)
         emb = self.embedder(crops)
         return emb, ok.to(self.device) & det_ok & kp_ok
 

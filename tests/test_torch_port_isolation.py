@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
         "data_loading.oxford", "data_loading.transforms", "main_detection", "eval_detection",
         "models.quant", "models.ptq", "near_tie", "score_detection", "score_landmark",
         "models.swin", "models.convnext", "drive_alt_factories", "parallel",
-        "parallel.distributed", "parallel.mesh", "utils.tuners", "data_loading.human")]
+        "parallel.distributed", "parallel.mesh", "utils.tuners", "data_loading.human",
+        "models.layers")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -263,6 +264,73 @@ LEFT_OUT = {
     "utils.torchvision_layouts": {"fe_controller_sd", "keypointrcnn_resnet50_fpn_sd",
                                   "maskrcnn_resnet50_fpn_sd", "resnet50_sd"},
 }
+
+
+# the JAX package's reduced-precision knobs (ROADMAP §1 leaves none out): a
+# flax module's compute ``dtype`` field and the factories' and entry points'
+# dtype arguments, each with its port counterpart and their common default
+DTYPE_KNOBS = (
+    ("models.resnet", "ResNet", "dtype", "models.resnet", "ResNet", "dtype"),
+    ("models.resnet", "Bottleneck", "dtype", "models.resnet", "Bottleneck", "dtype"),
+    ("models.resnet", "BasicBlock", "dtype", "models.resnet", "BasicBlock", "dtype"),
+    ("models.embedder", "resnet50_embedder", "dtype", "models.embedder", "resnet50_embedder",
+     "dtype"),
+    ("models.fpn", "FPN", "dtype", "models.fpn", "FPN", "dtype"),
+    ("models.fpn", "BackboneWithFPN", "dtype", "models.fpn", "BackboneWithFPN", "dtype"),
+    ("models.rpn", "RPNHead", "dtype", "models.rpn", "RPNHead", "dtype"),
+    ("models.roi_heads", "TwoMLPHead", "dtype", "models.roi_heads", "TwoMLPHead", "dtype"),
+    ("models.roi_heads", "MaskHead", "dtype", "models.roi_heads", "MaskHead", "dtype"),
+    ("models.roi_heads", "KeypointHead", "dtype", "models.roi_heads", "KeypointHead", "dtype"),
+    ("models.rcnn", "GeneralizedRCNN", "dtype", "models.rcnn", "GeneralizedRCNN", "dtype"),
+    ("models.mobilenet_v3", "MobileNetV3Large", "dtype", "models.mobilenet_v3",
+     "MobileNetV3Large", "dtype"),
+    ("ops.homography", "align_crop", "compute_dtype", "ops.homography", "align_crop",
+     "compute_dtype"),
+    ("ops.pallas_warp", "warp_affine_batch_pallas", "compute_dtype", "ops.homography",
+     "warp_perspective_batch_cuda", "compute_dtype"),
+    ("ops.pallas_warp", "warp_affine_batch_pallas", "out_dtype", "ops.homography",
+     "warp_perspective_batch_cuda", "out_dtype"),
+    ("serving", "EmbeddingService", "warp_dtype", "serving", "EmbeddingService", "warp_dtype"),
+)
+
+
+def _jax_default(module: str, name: str, arg: str) -> str:
+    """The source text of the default of ``arg`` of JAX's ``name`` in
+    ``module``: a flax module's field, or a function's or ``__init__``'s
+    keyword."""
+    import ast
+
+    path = REPO / "pets_face_recognition_tpu" / (module.replace(".", "/") + ".py")
+    for node in ast.walk(ast.parse(path.read_text())):
+        if getattr(node, "name", None) != name:
+            continue
+        if isinstance(node, ast.ClassDef):
+            for stmt in node.body:
+                if isinstance(stmt, ast.AnnAssign) and getattr(stmt.target, "id", "") == arg:
+                    return ast.unparse(stmt.value)
+            node = next(n for n in node.body if getattr(n, "name", "") == "__init__")
+        args = node.args.args[-len(node.args.defaults):]
+        return ast.unparse(node.args.defaults[[a.arg for a in args].index(arg)])
+    raise KeyError((module, name, arg))
+
+
+def test_reduced_precision_knobs_have_port_counterparts():
+    """Each JAX dtype knob has its port counterpart under the same name with
+    the same default (``jnp.bfloat16`` is ``torch.bfloat16``), and
+    ``PFR_INPUT_DTYPE`` is read by both preprocessors."""
+    import importlib
+    import inspect
+
+    from pets_face_recognition_tpu_torch.preprocessor import input_dtype
+
+    src = (REPO / "pets_face_recognition_tpu" / "preprocessor" / "__init__.py").read_text()
+    assert '"PFR_INPUT_DTYPE"' in src and "PFR_INPUT_DTYPE" in inspect.getsource(input_dtype)
+    for j_mod, j_name, j_arg, p_mod, p_name, p_arg in DTYPE_KNOBS:
+        want = getattr(torch, _jax_default(j_mod, j_name, j_arg).split(".")[-1])
+        port = getattr(importlib.import_module(f"pets_face_recognition_tpu_torch.{p_mod}"),
+                       p_name)
+        got = inspect.signature(port).parameters[p_arg].default
+        assert got == want, (p_mod, p_name, p_arg, got, want)
 
 
 def _public_names(root: Path) -> dict[str, set[str]]:
