@@ -286,6 +286,34 @@ step makes in them under 1e-6 rounding, six draws on the card and three on
 the CPU); and K3 and K4 at the Swin detector's 448 x 448 training shapes
 against their plain versions (rows ``_alt``).
 
+Reduced precision in training and int8 (the JAX package's bfloat16
+defaults): the kernel row ``multilevel_roi_align_backward_bf16``, K4 with
+bfloat16 operands at the training step's shapes, its float32 sums within
+1e-5 of the scale of its plain version's (K4 in float32 beyond that) and
+its result bit-identical across two launches, timed beside K4 in float32
+on the same RoIs. fe_fit's configs pin ``compute_dtype="float32"`` (the
+card held to the CPU in float32); bf16_fe runs ``build_fe_config``'s
+default (bfloat16 on the card): the B = 64 step beside float32's, a
+reduced step card against CPU in bfloat16 within twice bfloat16's own
+move (the CPU's bfloat16 step's distance from the card's float32 one: the
+card's bfloat16 result is in no bound) plus the float32 gates, and
+``eval_fe`` from a bfloat16-trained checkpoint. bf16_train: the keypoint
+R-CNN (B = 16 x 640) and Mask R-CNN (B = 8 x 640) steps with the models at
+``dtype=bfloat16``, launches a step K2 1, K3-bf16 2, K4-bf16 2, pre-pass 2,
+ms and peak memory beside the float32 steps; a reduced step of each card
+against CPU, the CPU given the card's proposals over bfloat16 near-ties
+(counted), within twice bfloat16's own move; fault 2's bitwise count on
+the bfloat16 keypoint step. int8_bf16_serve: the bfloat16 service with the
+int8 twins at JAX's bench components (launches K1-bf16 1, K2 1, K3-bf16 2),
+crops/s beside the bfloat16 float service, every ``QuantConv``'s int32 sums
+bit-equal card against CPU, and the forced values card against CPU within
+twice bfloat16's own move (the CPU's from the card's float32 int8 twin).
+alt_bf16: the Swin-T and ConvNeXt-T keypoint R-CNNs at ``dtype=bfloat16``,
+an eval and a step each, card against CPU likewise. Each of these gates
+must reject a planted fault on the card, a kernel wrapper's result scaled
+(``planted_fault``): K4's level gradients x 2 in a step, K3's pooled values
+x 1.1 in an eval; in bf16_fe the cotangent of the trunk's last stage x 2.
+
 Then data parallelism (ddp): ``parallel.init_distributed`` over NCCL from
 the env names (``COORDINATOR_ADDRESS=localhost:<free port>``,
 ``NUM_PROCESSES=1``, ``PROCESS_ID=0``), a world of one with ``device_info``;
@@ -314,7 +342,9 @@ kernel phase, each bit-equal to its plain version expected, their launches
 the reduced-precision serving paths'; and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
 R-CNN's shapes, ``_mask``, and K4 on Mask R-CNN's training gradient,
-``_masktrain``, and K3 and K4 at Swin's shapes, ``_alt``; ``max_abs_err`` is each
+``_masktrain``, and K3 and K4 at Swin's shapes, ``_alt``, and K4 with
+bfloat16 operands, ``_bf16``, whose launches are the bfloat16 training
+paths'; ``max_abs_err`` is each
 row's largest absolute difference from its plain version on the card, 0 or 1
 for a keep mask, an integer for the pre-pass; ``launches`` sums every path's
 counts, the ``_mobile`` rows the mobile paths' alone, the ``_mask`` rows the
@@ -325,8 +355,10 @@ script leaves torch's TF32 defaults as they are: the entry points
 (``embed_batch``, ``train_step``) turn TF32 off inside themselves, a forward
 pre-hook records the switches their models see (the run fails if TF32 was on
 there, or if the switches were not restored after), and models called
-directly run under ``float32_matmuls``. Every number is float32. A hang
-becomes a traceback and exit 1 through ``faulthandler``.
+directly run under ``float32_matmuls``. Every number is float32 but in the
+reduced-precision phases, which say so. Each phase line carries ``t_s``, the
+seconds since the script began. A hang becomes a traceback and exit 1
+through ``faulthandler``.
 """
 
 from __future__ import annotations
@@ -354,10 +386,36 @@ B_TRAIN = 16                       # keypoint config: train_batch_size
 IMAGE_TRAIN = 640                  # keypoint config: image_size
 MAX_BOXES = 4                      # keypoint config: max_boxes
 K2_KERNELS = "nms_keep_sorted_batch_"  # K2's two kernels: the IoU words, the sweep
+T_START = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for ``phase``, with ``t_s``: seconds since the script began."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - T_START, 2), **kw}),
+          flush=True)
+
+
+@contextlib.contextmanager
+def background(cmd: list[str], cwd: Path, env: dict, timeout: float = 300):
+    """Start ``cmd`` now and yield ``wait() -> (CompletedProcess, seconds)``:
+    an entry point checked in its own process runs beside the phase's work
+    that shares nothing with it (its CPU reference passes). The process is
+    killed if the block is left before it ends."""
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        out, err = proc.communicate(timeout=timeout)
+        return (subprocess.CompletedProcess(cmd, proc.returncode, out, err),
+                time.perf_counter() - t)
+
+    try:
+        yield wait
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def kernel_us(fn, kernel_name: str, **kw) -> float | None:
@@ -1381,10 +1439,10 @@ PHOTOS = REPO / "smoke_out" / "photos"      # git-ignored: written at run time
 # camera photos (width, height): 4:3 at 1.2 MP, landscape and portrait, and a
 # 12 MP phone photo
 PHOTO_SIZES = ((1280, 960), (960, 1280), (4032, 3024))
-B_STREAM, N_STREAM = 32, 1024      # crops/s from JPEG files: batch, paths of the corpus
-N_STREAM_PHOTOS = {(1280, 960): 128, (960, 1280): 128, (4032, 3024): 64}
+B_STREAM, N_STREAM = 32, 512       # crops/s from JPEG files: batch, paths of the corpus
+N_STREAM_PHOTOS = {(1280, 960): 64, (960, 1280): 64, (4032, 3024): 32}
 # paths through PIL, for each set: one fallback run that measures the route
-N_STREAM_PIL = {"320x320": 128, "1280x960": 64, "960x1280": 64, "4032x3024": 32}
+N_STREAM_PIL = {"320x320": 64, "1280x960": 32, "960x1280": 32, "4032x3024": 32}
 Q_RETRIEVAL, G_RETRIEVAL, D_EMB = 1000, 10000, 512
 # card against CPU on the same photos: aligned crops on [0, 1], embeddings
 # relative to their largest magnitude, and scores (the gap across which a
@@ -1833,7 +1891,7 @@ def stream_rate(service, paths, windows: int) -> dict:
 
 def jpeg_stream_phase(dev, smi: str, detector, embedder) -> None:
     """Crops/s from JPEG files: ``EmbeddingService.stream`` at B = 32 over the
-    committed corpus repeated to 1024 paths and over camera photos of each
+    committed corpus repeated to 512 paths and over camera photos of each
     size, decoding overlapped on its producer thread, through the native
     route and through PIL; beside them, each route's decode of one photo and
     the native decode of one batch alone."""
@@ -1875,7 +1933,7 @@ def jpeg_stream_phase(dev, smi: str, detector, embedder) -> None:
         t = time.perf_counter()
         native.decode_batch(ps[:B_STREAM], service.input_size)
         batch_ms[name] = (time.perf_counter() - t) * 1e3
-    # one pass of the 1024 corpus paths; two of the shorter camera sets
+    # one pass of the corpus paths; two of the shorter camera sets
     rates = {name: stream_rate(service, ps, 1 if len(ps) >= N_STREAM else 2)
              for name, ps in sets.items()}
     with pil_route():
@@ -1987,6 +2045,7 @@ def train_phase(dev, kernels_mod, smi: str, arch: str = "resnet50", phase: str =
                                  f"{stats_moved} of {len(stats[0])}")
     timed = [t for t, _ in steps[1:]]
     step = statistics.median(timed)
+    F32_STEPS[phase] = (step * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30)
     emit(phase, arch=arch, batch=B, image=IMAGE_TRAIN, max_boxes=MAX_BOXES, cut=B != B_TRAIN,
          steps=len(steps), warmup_steps=1, step_ms=step * 1e3,
          step_ms_all=[t * 1e3 for t, _ in steps], images_per_s=B / step,
@@ -2054,7 +2113,8 @@ REPRO_MODES = {"default": contextlib.nullcontext, "cudnn_deterministic": determi
 
 
 def repro_phase(ctl, state, batch, B: int, n_gt: int = MAX_BOXES,
-                phase: str = "train_repro") -> None:
+                phase: str = "train_repro", modes: tuple[str, ...] = tuple(REPRO_MODES),
+                rounds: int = 1) -> None:
     """Phase 4b (ROADMAP fault 2): two training steps from one saved state on
     the same batch and sampler noise; reports how many parameter gradients
     differ bitwise (a reported number, not a gate), in three arms, each with
@@ -2066,9 +2126,9 @@ def repro_phase(ctl, state, batch, B: int, n_gt: int = MAX_BOXES,
     cuDNN picking the fastest of its deterministic algorithms by timing them
     at first use (``cudnn.benchmark``); and under
     ``torch.use_deterministic_algorithms(True, warn_only=True)`` as well.
-    Last, what each costs a step: 3 rounds of one step in each arm, the arms'
-    order rotating from round to round, and each arm's median step time over
-    the default's in the same round."""
+    Last, what each costs a step: ``rounds`` rounds of one step in each arm,
+    the arms' order rotating from round to round, and each arm's median step
+    time over the default's in the same round. ``modes`` picks the arms."""
     import copy
     import warnings
 
@@ -2110,21 +2170,21 @@ def repro_phase(ctl, state, batch, B: int, n_gt: int = MAX_BOXES,
                     warnings=sorted({str(w.message)[:400] for w in caught}))
 
     arms = {}
-    for mode, ctx in REPRO_MODES.items():
-        with ctx():
+    for mode in modes:
+        with REPRO_MODES[mode]():
             arms[mode] = two_steps()
-    names = list(REPRO_MODES)
-    rounds = []
-    for r in range(3):
+    names = list(modes)
+    timed = []
+    for r in range(rounds):
         pair = {}
-        for mode in names[r:] + names[:r]:
+        for mode in names[r % len(names):] + names[:r % len(names)]:
             with REPRO_MODES[mode](), warnings.catch_warnings():
                 warnings.simplefilter("ignore")
                 pair[mode] = step()[1]
-        rounds.append(pair)
-    cost = {f"{m}_cost_median": statistics.median(p[m] / p["default"] - 1 for p in rounds)
-            for m in names[1:]}
-    emit(phase, batch=B, **arms, step_ms_rounds=rounds, **cost)
+        timed.append(pair)
+    cost = {f"{m}_cost_median": statistics.median(p[m] / p["default"] - 1 for p in timed)
+            for m in names[1:]} if timed else {}
+    emit(phase, batch=B, **arms, step_ms_rounds=timed, **cost)
 
 
 # softmax CE over a heatmap's positions has a gradient that sums to 0, the 2x
@@ -2808,8 +2868,17 @@ def keypoint_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
         if not (k["nms_keep_sorted_batch"] and k["multilevel_roi_align"]) or (
                 k["multilevel_roi_align_backward"] or k["roi_footprints"]):
             raise AssertionError(f"eval launches: {k}")
-        # the same checkpoint on the CPU over the same validation batch
-        vs_cpu = fit_eval_vs_cpu(config, last, dev, metrics_card["val"])
+        # the same checkpoint on the CPU over the same validation batch, with
+        # main_keypoints on the smoke config in its own process beside it
+        main_dir = FIT_OUT / "main"
+        main_dir.mkdir(parents=True)
+        smoke_cfg = REPO / "pets_face_recognition_tpu_torch" / "configs" / "keypoint_smoke.py"
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+        with background([sys.executable, "-m", "pets_face_recognition_tpu_torch.main_keypoints",
+                         "--config", str(smoke_cfg)], main_dir, env) as wait_main:
+            vs_cpu = fit_eval_vs_cpu(config, last, dev, metrics_card["val"])
+            proc, main_s = wait_main()
         emit("keypoint_fit", arch="resnet50", card=smi, data=str(MINIATURE.relative_to(REPO)),
              batch=config.train_batch_size, image=list(config.image_size),
              steps=len(ctl.step_s) + len(ctl2.step_s), first_step_ms=ctl.step_s[0] * 1e3,
@@ -2846,16 +2915,6 @@ def keypoint_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
         del mtrainer
         torch.cuda.empty_cache()
 
-        main_dir = FIT_OUT / "main"
-        main_dir.mkdir(parents=True)
-        smoke_cfg = REPO / "pets_face_recognition_tpu_torch" / "configs" / "keypoint_smoke.py"
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main_keypoints",
-                               "--config", str(smoke_cfg)], cwd=main_dir, env=env,
-                              capture_output=True, text=True, timeout=300)
-        main_s = time.perf_counter() - t
         made = sorted(p.name for p in main_dir.glob("results_smoke/*/checkpoints/*"))
         emit("main_keypoints", config=str(smoke_cfg.relative_to(REPO)), returncode=proc.returncode,
              seconds=main_s, checkpoints=made, stdout_tail=proc.stdout[-600:],
@@ -3110,14 +3169,20 @@ FE_CONFIG = """from pets_face_recognition_tpu_torch.config_presets import build_
 
 globals().update(build_fe_config(dataset_dir={data!r}, extra_dataset_dir={extra!r},
                                  n_epochs={epochs}, num_workers=8, output={out!r},
-                                 n_pairs=500, optimizer_kind={kind!r}))
+                                 n_pairs=500, optimizer_kind={kind!r}{dtype}))
 img_dir = {img!r}
 """
+# fe_fit holds the card to the CPU in float32 (embeddings 1e-4, metrics
+# 1e-3), and build_fe_config's default trains in bfloat16 on the card and in
+# float32 on the CPU: its configs pin float32 on both sides; bf16_fe runs the
+# default
+FE_FLOAT32 = ', compute_dtype="float32"'
 
 
-def fe_config(root: Path, name: str, epochs: int, kind: str):
+def fe_config(root: Path, name: str, epochs: int, kind: str, dtype: str = FE_FLOAT32):
     """The production FE config over the fit corpus, written as a config file
-    and read back as ``main()`` reads one."""
+    and read back as ``main()`` reads one; ``dtype`` is the text of its
+    ``compute_dtype`` argument (``FE_FLOAT32``, or "" for the default)."""
     from pets_face_recognition_tpu_torch.utils import get_config
 
     out = root / name
@@ -3125,7 +3190,8 @@ def fe_config(root: Path, name: str, epochs: int, kind: str):
     path = out / "fe_fit.py"
     path.write_text(FE_CONFIG.format(data=str(root / "smoke_fe_cats"),
                                      extra=str(root / "petfinder_extra_cats"), epochs=epochs,
-                                     out=str(out), kind=kind, img=str(out / "img")))
+                                     out=str(out), kind=kind, img=str(out / "img"),
+                                     dtype=dtype))
     return path, get_config(path)
 
 
@@ -3522,20 +3588,19 @@ def fe_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     m_entry = eval_fe.main(["--config", str(cfg_path), "--ckpt", str(last), "--device",
                             str(dev)])["Val"]
     eval_fe_s = time.perf_counter() - t
-    cmp = fe_eval_vs_cpu(cfg_path, last, dev)
-    step_cpu = fe_step_vs_cpu(dev)
     contention = fe_step_contention(config, dev)
 
+    # main on the smoke config in its own process, beside the CPU references
     main_dir = FE_OUT / "main"
     main_dir.mkdir(parents=True)
     smoke_cfg = REPO / "pets_face_recognition_tpu_torch" / "configs" / "fe_smoke.py"
     env = dict(os.environ, PFR_SMOKE_ROOT=str(main_dir / "data"), PYTHONPATH=os.pathsep.join(
         p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main",
-                           "--config", str(smoke_cfg)], cwd=main_dir, env=env,
-                          capture_output=True, text=True, timeout=300)
-    main_s = time.perf_counter() - t
+    with background([sys.executable, "-m", "pets_face_recognition_tpu_torch.main", "--config",
+                     str(smoke_cfg)], main_dir, env) as wait_main:
+        cmp = fe_eval_vs_cpu(cfg_path, last, dev)
+        step_cpu = fe_step_vs_cpu(dev)
+        proc, main_s = wait_main()
     made = sorted(p.name for p in main_dir.glob("results_smoke/*/checkpoints/*"))
 
     emit("fe_fit", card=smi, corpus=dict(identities=64, crops=384, train_crops=len(
@@ -3570,7 +3635,7 @@ def fe_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
 
 
 def fe_phases(dev, kernels_mod, smi: str) -> dict[str, dict]:
-    """fe_transform and fe_fit, everything under the git-ignored
+    """fe_transform, fe_fit and bf16_fe, everything under the git-ignored
     ``smoke_out/fe``, deleted after them."""
     import shutil
 
@@ -3578,6 +3643,7 @@ def fe_phases(dev, kernels_mod, smi: str) -> dict[str, dict]:
     try:
         paths = fe_transform_phase(dev, kernels_mod, smi)
         paths.update(fe_fit_phase(dev, kernels_mod, smi))
+        paths.update(bf16_fe_phase(dev, smi))          # over fe_fit's corpus
     finally:
         shutil.rmtree(FE_OUT, ignore_errors=True)   # ~0.2 GB an FE checkpoint
     return paths
@@ -4304,6 +4370,7 @@ def mask_train_phase(dev, kernels_mod, smi: str) -> tuple[dict, tuple]:
     timed = [t * 1e3 for t, _ in steps[1:]]
     by_site = dict(sites, nms_keep_sorted_batch=launches["nms_keep_sorted_batch"])
     first_mask = steps[0][1]["loss_mask"]
+    F32_STEPS["mask_train"] = (statistics.median(timed), peak)
     emit("mask_train", card=smi, batch=B_MASK, image=IMAGE_TRAIN, max_boxes=MASK_BOXES,
          masks_shape=list(batch["masks"].shape), steps=len(steps), warmup_steps=1,
          step_ms=statistics.median(timed), step_ms_min=min(timed), step_ms_max=max(timed),
@@ -4726,9 +4793,10 @@ def mask_fit_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
 
 
 def mask_train_phases(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
-    """mask_train, mask_train_vs_cpu and mask_fit; everything written under
-    the git-ignored ``smoke_out/mask_train`` is deleted after them. Returns
-    the paths' launch counts and the ``_masktrain`` kernel row."""
+    """mask_train, mask_train_vs_cpu, mask_fit and bf16_train; everything
+    written under the git-ignored ``smoke_out/mask_train`` is deleted after
+    them. Returns the paths' launch counts and the ``_masktrain`` kernel
+    row."""
     import shutil
 
     shutil.rmtree(MASK_TRAIN_OUT, ignore_errors=True)
@@ -4739,6 +4807,7 @@ def mask_train_phases(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
         del k4_args
         mask_train_vs_cpu_phase(dev)
         paths.update(mask_fit_phase(dev, kernels_mod, smi))
+        paths.update(bf16_train_phase(dev, kernels_mod, smi))   # reads the miniature too
     finally:
         shutil.rmtree(MASK_TRAIN_OUT, ignore_errors=True)
     return paths, rows
@@ -4767,17 +4836,21 @@ INT8_ROUNDINGS = (1e-7,) * 6
 INT8_CALIB_BATCHES = 4
 
 
-def int8_models(dev):
+def int8_models(dev, dtype=None):
     """The serving detector (scope ``rpn`` and the keypoint head) and the
     head embedder as int8 twins over the seeded weights of
-    ``build_serving_models(seed=0)``, each behind a ``PTQServing``."""
+    ``build_serving_models(seed=0)``, computing in ``dtype`` (float32 by
+    default), each behind a ``PTQServing``."""
+    import torch
     from pets_face_recognition_tpu_torch.models import ptq
     from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
     from pets_face_recognition_tpu_torch.serving import serving_detector
     from pets_face_recognition_tpu_torch.weights import init_random_
 
-    det = serving_detector(dev, 0, "resnet50", quant="calibrate", quant_kp="calibrate")
-    emb = init_random_(resnet50_embedder(512, quant="calibrate"), 1)
+    dtype = dtype or torch.float32
+    det = serving_detector(dev, 0, "resnet50", quant="calibrate", quant_kp="calibrate",
+                           dtype=dtype)
+    emb = init_random_(resnet50_embedder(512, quant="calibrate", dtype=dtype), 1)
     emb = emb.eval().requires_grad_(False).to(dev)
     return (ptq.PTQServing("det_keypoint_prod", det), ptq.PTQServing("fe_dog_head", emb))
 
@@ -5157,7 +5230,10 @@ def int8_chain_phase(dev, smi: str) -> None:
     state of all six models, written at exit); ``int8 --body``; int8 on the
     embedder alone (``PFR_QUANT_COMPONENTS=embedder``: the detector stays
     float, so the crops are the float run's and only the embedder's int8
-    error shows) and int8 on the default components, each with a dump.
+    error shows) and int8 on the default components, each with a dump. The
+    runs go in two rounds of concurrent processes: the float, the stateless
+    (given a state path that does not exist) and the calibrate one; then the
+    three int8 ones, which read the calibrated state.
     Every run but the one without state exits 0 and every tsv query has its
     dump row. ``near_tie`` holds the float and embedder-only int8 dumps to
     the contract: no rank flip across a float gap of ``flip_budget`` or more
@@ -5173,28 +5249,38 @@ def int8_chain_phase(dev, smi: str) -> None:
     env.update(PFR_RETRIEVAL_THR="0.0", PFR_QUANT_STATE=str(state),
                PYTHONPATH=os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]))
     centred = centred_embedder_ckpts(dev, INT8_OUT / "fe")
-    runs = {}
+    runs, procs = {}, {}
 
-    def run(label, mode, body=False, dump=False, extra=None):
+    def start(stack, label, mode, body=False, dump=False, extra=None):
         e = dict(env, PFR_QUANT_MODE=mode, **(extra or {}))
         if dump:
             e["PFR_SCORES_DUMP"] = str(INT8_OUT / f"{label}.npz")
         cmd = [sys.executable, "-m", "pets_face_recognition_tpu_torch.generate_tsv", "--data",
                str(CORPUS), "--device", str(dev), "--output", str(INT8_OUT / f"{label}.tsv")]
-        t = time.perf_counter()
-        proc = subprocess.run(cmd + (["--body"] if body else []), cwd=INT8_OUT, env=e,
-                              capture_output=True, text=True, timeout=300)
-        runs[label] = dict(rc=proc.returncode, seconds=time.perf_counter() - t,
+        procs[label] = stack.enter_context(background(cmd + (["--body"] if body else []),
+                                                      INT8_OUT, e))
+
+    def finish(label):
+        proc, seconds = procs[label]()
+        runs[label] = dict(rc=proc.returncode, seconds=seconds,
                            ptq=[ln for ln in proc.stdout.splitlines() if ln.startswith("PTQ:")],
                            stderr_tail=proc.stderr[-300:] if proc.returncode else "")
         return proc
 
-    run("float", "", dump=True, extra=centred)
-    missing = run("int8_no_state", "int8", extra=centred)
-    run("calibrate_body", "calibrate", body=True, extra=centred)
-    run("int8_body", "int8", body=True, extra=centred)
-    run("int8_embedder", "int8", dump=True, extra=dict(centred, PFR_QUANT_COMPONENTS="embedder"))
-    run("int8", "int8", dump=True, extra=centred)
+    with contextlib.ExitStack() as stack:
+        start(stack, "float", "", dump=True, extra=centred)
+        start(stack, "int8_no_state", "int8",
+              extra=dict(centred, PFR_QUANT_STATE=str(INT8_OUT / "no_state" / "absent.pkl")))
+        start(stack, "calibrate_body", "calibrate", body=True, extra=centred)
+        finish("float")
+        missing = finish("int8_no_state")
+        finish("calibrate_body")
+        start(stack, "int8_body", "int8", body=True, extra=centred)
+        start(stack, "int8_embedder", "int8", dump=True,
+              extra=dict(centred, PFR_QUANT_COMPONENTS="embedder"))
+        start(stack, "int8", "int8", dump=True, extra=centred)
+        for label in ("int8_body", "int8_embedder", "int8"):
+            finish(label)
     expected_rc = {k: (v["rc"] != 0 if k == "int8_no_state" else v["rc"] == 0)
                    for k, v in runs.items()}
     message = "PFR_QUANT_MODE=int8 requires a calibrated quant state at" in missing.stderr
@@ -5493,6 +5579,837 @@ def alt_rcnn_phase(dev, kernels_mod, smi: str) -> tuple[dict, dict]:
                    "multilevel_roi_align_backward_alt": rows["multilevel_roi_align_backward"]}
 
 
+# ---- reduced precision training and int8 in bfloat16 ----------------------
+# each bfloat16 detector step: K2 once (the RPN), K3's and K4's bfloat16
+# instances and K4's pre-pass once at each RoI size (box 7 x 7, and keypoint
+# or mask 14 x 14)
+BF16_TRAIN_LAUNCHES = {"nms_keep_sorted_batch": 1, "multilevel_roi_align_bf16": 2,
+                       "multilevel_roi_align_backward_bf16": 2, "roi_footprints": 2}
+BF16_EVAL_LAUNCHES = {"nms_keep_sorted_batch": 1, "multilevel_roi_align_bf16": 2}
+BF16_TRAIN_STEPS = 4              # one warm-up and three timed
+# the reduced steps' float32 gates (train_vs_cpu, fe_step_vs_cpu), added to
+# twice bfloat16's own move: statistics relative, gradients relative in norm;
+# a loss's is the largest error of one bfloat16 rounding of its value, 2^-8
+# (above the float32 gate's 1e-3): a scalar's own move can land near 0 in
+# every draw (ConvNeXt-T's classifier loss: the card's bfloat16 1.3e-3 from
+# float32, the CPU's 1.5e-4 at most over two draws, of 0.498)
+BF16_STEP_FLOOR = dict(loss_rel=2.0 ** -8, grad_rel_norm=5e-3, stats_rel_norm=1e-4)
+# bfloat16's own move on the CPU is the largest over the input and
+# BF16_DRAWS copies of it with each value jittered by up to BF16_JITTER
+# relative, below bfloat16's resolution (tests/test_torch_port_bf16_train.py)
+BF16_DRAWS, BF16_JITTER = 1, 2.0 ** -9
+# float32 step ms and peak GiB of `train` and `mask_train`, read by bf16_train
+F32_STEPS: dict[str, tuple[float, float]] = {}
+
+
+def bf16_backward_kernel_row(dev) -> dict[str, dict]:
+    """Kernel row ``multilevel_roi_align_backward_bf16``: K4 with bfloat16
+    operands at the training step's shapes (p2..p5 of 16 images of 640 x 640,
+    C = 256, bfloat16 levels; 8192 box RoIs at 7 x 7 and 2048 keypoint RoIs at
+    14 x 14), its float32 sums (before the wrapper's cast) against its plain
+    version's within 1e-5 of the scale (the two sum in other orders), where
+    K4 in float32 on the same inputs must lie beyond that (its operands are
+    not rounded to bfloat16); its result (rounded to the levels' bfloat16)
+    bit-identical across two launches. Timed with CUDA events
+    beside K4 in float32 on the same RoIs and cotangent, the plain version
+    and the byte bound (the cotangent and RoIs read, the bfloat16 level
+    gradients written once), with each kernel's device us."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    g = torch.Generator().manual_seed(17)
+    C, strides, bf16 = 256, (4, 8, 16, 32), torch.bfloat16
+    shapes = [(B_TRAIN, IMAGE_TRAIN // st, IMAGE_TRAIN // st, C) for st in strides]
+    level_elems = sum(math.prod(s) for s in shapes)
+    acc = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
+    for n_per, out in ((512, 7), (128, 14)):
+        n = B_TRAIN * n_per
+        rois = random_rois(g, n, IMAGE_TRAIN, 5.0).to(dev)
+        bidx = torch.arange(B_TRAIN, device=dev).repeat_interleave(n_per).to(torch.int32)
+        grad = torch.randn(n, out, out, C, generator=g).to(dev)
+        args = (grad, shapes, rois, bidx, (out, out), strides)
+        got = roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16)
+        again = roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16)
+        torch.cuda.synchronize()
+        bit_diff = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                       for a, b in zip(got, again))
+        del got, again
+        sums = roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16,
+                                                            out_dtype=torch.float32)
+        want = roi_align.multilevel_roi_align_backward_bf16(*args)
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(max_err(a, w) for a, w in zip(sums, want))
+        del sums
+        f32_gap = max(max_err(a, w) for a, w in zip(
+            roi_align.multilevel_roi_align_backward_cuda(*args), want))
+        del want
+        ms = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16),
+                     iters=10)
+        f32_ms = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*args), iters=10)
+        plain = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_bf16(*args), warmup=1,
+                        iters=3)
+        us = kernel_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16),
+                       "multilevel_roi_align_backward_kernel<true>", iters=5)
+        us32 = kernel_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*args),
+                         "multilevel_roi_align_backward_kernel<false>", iters=5)
+        nb = grad.numel() * 4 + rois.numel() * 4 + bidx.numel() * 4 + level_elems * 2
+        nf = n * out * out * C * (8 * 4 + 1)
+        b, by = bound_ms(nb, nf)
+        name = f"K4-bf16 multilevel_roi_align_backward_bf16 {out}x{out}"
+        emit("kernel", name=name, rois=n, shape=[B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, C],
+             levels=[2, 5], level_dtype="bfloat16", max_abs_err=err, grad_max_abs=scale,
+             atol=1e-5 * scale, float32_instance_max_abs_err=f32_gap,
+             second_launch_bits_differ=bit_diff, ms=ms,
+             kernel_device_us=us, float32_ms=f32_ms, float32_kernel_device_us=us32,
+             plain_ms=plain, library_ms=None, library="none (no torchvision)", bound_ms=b,
+             bound_by=by)
+        if not err <= 1e-5 * scale < f32_gap:
+            raise AssertionError(f"{name}: float32 sums {err} from the plain version, K4 in "
+                                 f"float32 {f32_gap}, the scale {scale}")
+        if bit_diff:
+            raise AssertionError(f"{name}: two launches differ in {bit_diff} elements")
+        acc["ms"] += ms
+        acc["plain"] += plain
+        acc["bytes"] += nb
+        acc["flops"] += nf
+        acc["err"] = max(acc["err"], err)
+        del grad
+    torch.cuda.empty_cache()
+    b, by = bound_ms(acc["bytes"], acc["flops"])
+    return {"multilevel_roi_align_backward_bf16": dict(
+        max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain"], bound_ms=b, bound_by=by,
+        library_ms=None)}
+
+
+@contextlib.contextmanager
+def carried_proposals(record: list, force: list | None = None):
+    """``rcnn.generate_proposals`` while the block runs: each call's boxes
+    and validity appended to ``record`` (host copies); or, with ``force``,
+    each call answered with the next of ``force`` (a run on the other device
+    takes the card's proposals over near-ties of bfloat16 logits) and the
+    count of its own proposals that differ from them (by over 0.5 px, or in
+    validity) appended to ``record``."""
+    from pets_face_recognition_tpu_torch.models import rcnn
+
+    real = rcnn.generate_proposals
+    given = iter(force or ())
+
+    def call(*args, **kw):
+        boxes, valid = real(*args, **kw)
+        if force is None:
+            record.append((boxes.detach().cpu(), valid.cpu()))
+            return boxes, valid
+        fb, fv = next(given)
+        moved = ((boxes.detach().cpu() - fb).abs().amax(-1) > 0.5) | (valid.cpu() != fv)
+        record.append(int(moved.sum()))
+        return fb.to(boxes.device), fv.to(valid.device)
+
+    rcnn.generate_proposals = call
+    try:
+        yield record
+    finally:
+        rcnn.generate_proposals = real
+
+
+def dist(a, b) -> float:
+    """The L2 distance of two values or tensors, in float64 on the host."""
+    import torch
+
+    return float((torch.as_tensor(a).double().cpu() - torch.as_tensor(b).double().cpu()).norm())
+
+
+def own_moves(draws: list[tuple]) -> dict:
+    """bfloat16's own move on the CPU for each key: the largest over the
+    draws of the distance of the CPU's bfloat16 value from the card's
+    float32 one; ``draws`` holds ``(cpu, f32)`` dicts, one pair a draw."""
+    return {k: max(dist(cpu[k], f32[k]) for cpu, f32 in draws) for k in draws[0][0]}
+
+
+def own_move_ratio(card, cpu, move: float, floor: float) -> float:
+    """``|card - cpu|`` over twice bfloat16's own move ``move`` (the CPU's,
+    ``own_moves``: the card's bfloat16 value stays out of its own bound)
+    plus ``floor`` of the CPU's magnitude and 1e-6 (float32 rounding where
+    a value is 0 by construction): at most 1 passes. Norms for tensors."""
+    import torch
+
+    return dist(card, cpu) / (BF16_SPREAD_FACTOR * move + floor * float(
+        torch.as_tensor(cpu).double().norm()) + 1e-6)
+
+
+def jittered(x, seed: int):
+    """``x`` (a tensor or a numpy array) with each value times 1 + u, u
+    uniform in [-BF16_JITTER, BF16_JITTER] from ``seed``: another draw of
+    bfloat16's rounding on the same input."""
+    import numpy as np
+    import torch
+
+    u = np.random.RandomState(seed).uniform(-1, 1, tuple(x.shape)).astype(np.float32)
+    if isinstance(x, np.ndarray):
+        return (x * (1 + BF16_JITTER * u)).astype(np.float32)
+    return x * (1 + BF16_JITTER * torch.from_numpy(u)).to(x.device)
+
+
+@contextlib.contextmanager
+def planted_fault(name: str, scale: float):
+    """A planted card fault that a gate must reject: while the block runs,
+    ``ops.roi_align.<name>`` (a kernel's wrapper) returns its result times
+    ``scale``, every level of it."""
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    real = getattr(roi_align, name)
+
+    def faulty(*args, **kw):
+        out = real(*args, **kw)
+        return [o * scale for o in out] if isinstance(out, list) else out * scale
+
+    setattr(roi_align, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(roi_align, name, real)
+
+
+# each gate of the card against the CPU in bfloat16 must reject its planted
+# fault: K4's level gradients doubled in a step, K3's pooled values x 1.1 in
+# an eval, the cotangent of the FE trunk's last stage doubled
+K4_FAULT, K3_FAULT, FE_FAULT = 2.0, 1.1, 2.0
+
+
+def bf16_step_vs_cpu(label: str, make_model, ctl, batch: dict, n_gt: int, dev,
+                     seed: int) -> tuple[dict, list[str]]:
+    """One training step of ``make_model(dtype)`` from one set of float32
+    weights and one draw of sampler noise: in bfloat16 on the card and on the
+    CPU, and in float32 on the card; the CPU and the float32 step take the
+    card's bfloat16 proposals (``carried_proposals``: the CPU's own that
+    differ are counted); on ``BF16_DRAWS`` jittered copies of the batch the
+    CPU's bfloat16 step takes the card's float32 step's proposals. Each loss
+    term and every gradient of the card within twice bfloat16's own move of
+    the CPU's (``own_moves``) plus the float32 gates (``own_move_ratio``,
+    ``BF16_STEP_FLOOR``); a gradient that is 0 on both sides passes. The gate must reject a planted fault: the card's bfloat16
+    step again with K4's level gradients times ``K4_FAULT``. Returns the
+    record (with the card's bfloat16 step's launch counts) and the
+    failures."""
+    import torch
+    from pets_face_recognition_tpu_torch import kernels
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    model32 = init_random_(make_model(torch.float32), seed)
+    sd = model32.state_dict()
+    B, image = batch["images"].shape[:2]
+    n_anchors = model32.num_anchors * sum((-(-image // st)) ** 2 for st in (4, 8, 16, 32, 64))
+    noise = model32.draw_sampler_noise(B, n_anchors, n_gt, torch.Generator().manual_seed(seed))
+    del model32
+    runs = {}
+    # (name, dtype, device, batch, proposals recorded into, proposals forced from)
+    plan = [("card", torch.bfloat16, dev, batch, "card", None),
+            ("card_f32", torch.float32, dev, batch, None, "card"),
+            ("cpu", torch.bfloat16, "cpu", batch, None, "card"),
+            ("fault", torch.bfloat16, dev, batch, None, "card")]
+    for r in range(1, BF16_DRAWS + 1):
+        b = dict(batch, images=jittered(batch["images"], seed + r))
+        plan += [(f"card_f32_{r}", torch.float32, dev, b, f"card_f32_{r}", None),
+                 (f"cpu_{r}", torch.bfloat16, "cpu", b, None, f"card_f32_{r}")]
+    proposals = {}
+    for name, dtype, device, b, record, force in plan:
+        model = make_model(dtype)
+        model.load_state_dict(sd)
+        state = ctl.init_state(0, device, model=model)
+        moved = proposals.setdefault(record, []) if record else []
+        kernels.reset_launch_counts()
+        with carried_proposals(moved, proposals[force] if force else None), (
+                planted_fault("multilevel_roi_align_backward_cuda", K4_FAULT)
+                if name == "fault" else contextlib.nullcontext()):
+            t = time.perf_counter()
+            losses = ctl.train_step(state, b, sampler_noise=noise)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+        if name == "card":
+            launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        runs[name] = (losses, {n: p.grad.detach().float().cpu()
+                               for n, p in model.named_parameters()},
+                      time.perf_counter() - t, moved)
+        del state, model
+    (l_g, g_g, t_g, _), (l_c, g_c, t_c, moved) = runs["card"], runs["cpu"]
+    pairs = [(runs["cpu"], runs["card_f32"])] + [
+        (runs[f"cpu_{r}"], runs[f"card_f32_{r}"]) for r in range(1, BF16_DRAWS + 1)]
+    loss_move = own_moves([(c[0], f[0]) for c, f in pairs])
+    grad_move = own_moves([(c[1], f[1]) for c, f in pairs])
+
+    def ratios(losses, grads):
+        return ({k: own_move_ratio(losses[k], l_c[k], loss_move[k], BF16_STEP_FLOOR["loss_rel"])
+                 for k in l_c},
+                {n: own_move_ratio(grads[n], g_c[n], grad_move[n],
+                                   BF16_STEP_FLOOR["grad_rel_norm"])
+                 for n in g_c if float(grads[n].abs().max()) or float(g_c[n].abs().max())})
+
+    loss_ratio, grad_ratio = ratios(l_g, g_g)
+    worst = max(grad_ratio, key=grad_ratio.get)
+    fault_ratio = ratios(*runs["fault"][:2])[1]
+    fault_worst = max(fault_ratio, key=fault_ratio.get)
+    rec = dict(label=label, batch=int(B), image=int(image), losses_card=l_g, losses_cpu=l_c,
+               losses_card_f32=runs["card_f32"][0], loss_own_move=loss_move,
+               loss_ratio=loss_ratio, grad_ratio_max=grad_ratio[worst],
+               grad_ratio_worst=worst,
+               grad_ratio_median=statistics.median(grad_ratio.values()),
+               grad_tensors=len(grad_ratio), cpu_proposals_moved=moved, card_launches=launches,
+               planted_fault=dict(fault=f"K4 level gradients x {K4_FAULT}",
+                                  grad_ratio_max=fault_ratio[fault_worst],
+                                  grad_ratio_worst=fault_worst,
+                                  tensors_rejected=sum(v > 1.0 for v in fault_ratio.values())),
+               step_s_card=t_g, step_s_cpu=t_c)
+    failures = [f"{label}: loss {k} {v} x the bound" for k, v in loss_ratio.items()
+                if not v <= 1.0]
+    if not grad_ratio[worst] <= 1.0:
+        failures.append(f"{label}: gradient {worst} {grad_ratio[worst]} x the bound")
+    if not fault_ratio[fault_worst] > 1.0:
+        failures.append(f"{label}: the gate misses K4's gradients x {K4_FAULT}")
+    return rec, failures
+
+
+def bf16_full_steps(ctl, batch: dict, dev, kernels_mod) -> tuple[object, dict, dict]:
+    """``BF16_TRAIN_STEPS`` full-width steps of ``ctl``'s model from seeded
+    weights, its launch counts from 0 and its peak memory. Returns the state,
+    the record and the launch counts; raises on a non-finite loss or launches other than
+    ``BF16_TRAIN_LAUNCHES`` a step."""
+    import torch
+
+    state = ctl.init_state(seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launch_counts()
+    steps = []
+    with tf32_watch(state.model) as flags:
+        for _ in range(BF16_TRAIN_STEPS):
+            t = time.perf_counter()
+            metrics = ctl.train_step(state, batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t, metrics))
+    launches = kernels_mod.launch_counts()
+    want = {k: v * BF16_TRAIN_STEPS for k, v in BF16_TRAIN_LAUNCHES.items()}
+    rec = dict(steps=len(steps), warmup_steps=1,
+               step_ms=statistics.median(t * 1e3 for t, _ in steps[1:]),
+               step_ms_all=[t * 1e3 for t, _ in steps],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses=[m for _, m in steps], launches={k: v for k, v in launches.items() if v},
+               tf32_flags=flags, parameters_dtype=sorted({str(p.dtype) for p in
+                                                          state.model.parameters()}))
+    bad = [i for i, (_, m) in enumerate(steps) if not all(math.isfinite(v) for v in m.values())]
+    if bad:
+        raise AssertionError(f"bf16_train: non-finite losses at steps {bad}")
+    if rec["launches"] != want:
+        raise AssertionError(f"bf16_train: launches {rec['launches']}, expected {want}")
+    if rec["parameters_dtype"] != ["torch.float32"]:
+        raise AssertionError(f"bf16_train: parameters {rec['parameters_dtype']}")
+    return state, rec, launches
+
+
+def bf16_train_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase bf16_train: the keypoint R-CNN (B = 16 x 640 x 640) and the Mask
+    R-CNN (B = 8 on the miniature's first batch) ResNet-50-FPN training steps
+    of their configs with the model built at ``dtype=bfloat16`` (JAX's
+    training bench: trunk, FPN, RPN and heads in bfloat16; losses,
+    parameters and SGD in float32), 1 warm-up and 3 timed steps each: losses
+    finite, launches a step K2 1, K3-bf16 2, K4-bf16 2, pre-pass 2, step ms
+    and peak memory beside the float32 steps of ``train`` and ``mask_train``
+    from the same run. Then a reduced step of each (B = 2 at 256 x 256, the
+    budgets of ``train_vs_cpu``) on the card against the CPU
+    (``bf16_step_vs_cpu``). Last, fault 2 on the bfloat16 keypoint step:
+    the gradients that differ bitwise between two steps from one state, by
+    default and under deterministic cuDNN, reported and not held."""
+    from functools import partial
+
+    import torch
+    from pets_face_recognition_tpu_torch.data import synthetic_keypoint_batch
+    from pets_face_recognition_tpu_torch.engine.detector_controller import (
+        DetectionController, KeyPointsController, keypoint_model, mask_model)
+    from pets_face_recognition_tpu_torch.models.rcnn import (keypointrcnn_resnet50_fpn,
+                                                             maskrcnn_resnet50_fpn)
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    paths, failures = {}, []
+    kp_ctl = KeyPointsController(model_fn=partial(keypoint_model, "resnet50", bf16))
+    kp_batch = synthetic_keypoint_batch(B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, MAX_BOXES, seed=0)
+    kp_state, kp_rec, paths["bf16_train_keypoint"] = bf16_full_steps(kp_ctl, kp_batch, dev,
+                                                                     kernels_mod)
+    f32_ms, f32_peak = F32_STEPS.get("train", (None, None))
+    emit("bf16_train", model="keypointrcnn_resnet50_fpn", card=smi, batch=B_TRAIN,
+         image=IMAGE_TRAIN, dtype="bfloat16", **kp_rec, float32_step_ms=f32_ms,
+         float32_peak_mem_gib=f32_peak)
+    repro_phase(kp_ctl, kp_state, kp_batch, B_TRAIN, phase="bf16_train_repro",
+                modes=("default", "cudnn_deterministic"), rounds=0)
+    del kp_state, kp_batch
+    torch.cuda.empty_cache()
+    m_ctl = DetectionController(model_fn=partial(mask_model, bf16))
+    m_batch = mask_batch(B_MASK, IMAGE_TRAIN)
+    m_state, m_rec, paths["bf16_train_mask"] = bf16_full_steps(m_ctl, m_batch, dev, kernels_mod)
+    f32_ms, f32_peak = F32_STEPS.get("mask_train", (None, None))
+    emit("bf16_train", model="maskrcnn_resnet50_fpn", card=smi, batch=B_MASK,
+         image=IMAGE_TRAIN, dtype="bfloat16", **m_rec, float32_step_ms=f32_ms,
+         float32_peak_mem_gib=f32_peak)
+    del m_state, m_batch
+    torch.cuda.empty_cache()
+
+    budgets = dict(rpn_pre_nms_top_n_train=256, rpn_post_nms_top_n_train=128,
+                   box_batch_size_per_image=16)
+    for label, make, ctl, batch in (
+            ("keypoint", lambda dt: keypointrcnn_resnet50_fpn(dtype=dt, **budgets),
+             KeyPointsController(), synthetic_keypoint_batch(2, 256, 256, MAX_BOXES, seed=1)),
+            ("mask", lambda dt: maskrcnn_resnet50_fpn(dtype=dt, **budgets),
+             DetectionController(), mask_batch(2, 256))):
+        rec, bad = bf16_step_vs_cpu(label, make, ctl, batch, MAX_BOXES, dev, 1)
+        emit("bf16_train_vs_cpu", card=smi, budgets=budgets, **rec,
+             tolerances=dict(within=f"{BF16_SPREAD_FACTOR} x bfloat16's own move on the CPU",
+                             **BF16_STEP_FLOOR))
+        failures += bad
+    emit("bf16_train_done", seconds=time.perf_counter() - t0)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    torch.cuda.empty_cache()
+    return paths
+
+
+FE_DEFAULT_DTYPE = ""               # build_fe_config's own compute_dtype: "auto"
+
+
+def bf16_fe_phase(dev, smi: str) -> dict[str, dict]:
+    """Phase bf16_fe: the FE step through ``build_fe_config()``'s default
+    (``compute_dtype="auto"``: bfloat16 on the card) over ``fe_fit``'s
+    corpus, against the same config at ``compute_dtype="float32"``: the
+    trunk's compute dtype of each, float32
+    parameters, optimiser state and statistics, and ms a step at B = 64 x
+    224 x 224 (1 warm-up, then 3 paired rounds of one step each) and peak
+    memory of each. A reduced step (``fe_step_vs_cpu``'s shapes: B = 8 at 128
+    x 128, 64 classes) in bfloat16 on the card and on the CPU, and in float32
+    on the card: loss, gradients and running statistics within twice
+    bfloat16's own move on the CPU (``own_moves``, over the batch and
+    ``BF16_DRAWS`` jittered copies) plus the float32 gates, and the gate must
+    reject a planted fault (the card's bfloat16 step again with the
+    cotangent of the trunk's last stage doubled). Last, ``eval_fe`` on the
+    card from a checkpoint of one bfloat16 step of the default config: a
+    bfloat16 embedder, finite embeddings, float32 tensors in the checkpoint.
+    FE training launches no hand-written kernel: the launches are read and
+    must be 0."""
+    import copy
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch import eval_fe, kernels
+    from pets_face_recognition_tpu_torch.engine.checkpoint import save_checkpoint
+    from pets_face_recognition_tpu_torch.engine.controller import Controller
+    from pets_face_recognition_tpu_torch.losses import SoftmaxBasedMetricLearning
+    from pets_face_recognition_tpu_torch.models.embedder import resnet50_embedder
+    from pets_face_recognition_tpu_torch.utils import DictWrapper
+    from pets_face_recognition_tpu_torch.utils.optim import fe_sgd_optimizer
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    t0 = time.perf_counter()
+    root = FE_OUT / "fit"
+    cfg_path, config16 = fe_config(root, "bf16", 1, "sgd", FE_DEFAULT_DTYPE)
+    _, config32 = fe_config(root, "f32", 1, "sgd")
+    kernels.reset_launch_counts()
+    rng = np.random.RandomState(4)
+    batch = {"x": rng.rand(B_FE, CROP, CROP, 3).astype(np.float32),
+             "label": rng.randint(0, config16.num_classes, B_FE), "index": np.arange(B_FE)}
+    runs, dtypes = {}, {}
+    for label, cfg in (("bf16", config16), ("f32", config32)):
+        ctl = Controller(cfg)
+        state = ctl.init_state(0, dev)
+        ctl.train_step(state, batch)                    # warm-up
+        model = state.model.model
+        dtypes[label] = dict(
+            trunk=str(model.conv1.compute_dtype), fc=str(model.fc.compute_dtype),
+            tensors=sorted({str(t.dtype) for t in list(state.model.parameters())
+                            + list(state.model.buffers())
+                            + [v for s in state.optimizer.state.values() for v in s.values()
+                               if torch.is_tensor(v)]}))
+        runs[label] = (ctl, state)
+    peak, step_ms = {}, {"bf16": [], "f32": []}
+    for r in range(3):
+        for label in (("f32", "bf16") if r % 2 == 0 else ("bf16", "f32")):
+            ctl, state = runs[label]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            m = ctl.train_step(state, batch)            # floats: synchronised
+            step_ms[label].append((time.perf_counter() - t) * 1e3)
+            peak[label] = max(peak.get(label, 0.0), torch.cuda.max_memory_allocated() / 2 ** 30)
+            if not math.isfinite(m["loss"]):
+                raise AssertionError(f"bf16_fe: non-finite {label} loss {m}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # the reduced step, card and CPU in bfloat16, the card in float32
+    B, image, C = 8, 128, 64
+    rng = np.random.RandomState(2)
+    small = {"x": rng.rand(B, image, image, 3).astype(np.float32),
+             "label": rng.randint(0, C, B), "index": np.arange(B)}
+    base = init_random_(SoftmaxBasedMetricLearning(resnet50_embedder(512), 512, C), 3)
+    ctl = Controller(DictWrapper({"optimizer": lambda c: partial(fe_sgd_optimizer, lr=1e-2)}))
+    out = {}
+
+    def fe_fault(mod, inp, y):
+        """The planted fault: the cotangent of the trunk's last stage scaled."""
+        if y.requires_grad:
+            y.register_hook(lambda g: g * FE_FAULT)
+
+    plan = [("card", torch.bfloat16, dev, small), ("card_f32", torch.float32, dev, small),
+            ("cpu", torch.bfloat16, "cpu", small), ("fault", torch.bfloat16, dev, small)]
+    for r in range(1, BF16_DRAWS + 1):
+        b = dict(small, x=jittered(small["x"], 2 + r))
+        plan += [(f"card_f32_{r}", torch.float32, dev, b), (f"cpu_{r}", torch.bfloat16, "cpu", b)]
+    for name, dtype, device, b in plan:
+        model = SoftmaxBasedMetricLearning(resnet50_embedder(512, dtype=dtype), 512, C)
+        model.load_state_dict(copy.deepcopy(base.state_dict()))
+        state = ctl.init_state(0, device, model=model)
+        hook = (model.model.layer4.register_forward_hook(fe_fault) if name == "fault"
+                else None)
+        t = time.perf_counter()
+        m = ctl.train_step(state, b)
+        out[name] = (m, {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                     {n: v.detach().cpu() for n, v in model.named_buffers()},
+                     time.perf_counter() - t)
+        if hook is not None:
+            hook.remove()
+    (m_g, g_g, s_g, t_g), (m_c, g_c, s_c, t_c) = out["card"], out["cpu"]
+    pairs = [(out["cpu"], out["card_f32"])] + [
+        (out[f"cpu_{r}"], out[f"card_f32_{r}"]) for r in range(1, BF16_DRAWS + 1)]
+    m_32 = out["card_f32"][0]
+    loss_move = own_moves([({"loss": c[0]["loss"]}, {"loss": f[0]["loss"]}) for c, f in pairs])
+    grad_move, stat_move = (own_moves([(c[i], f[i]) for c, f in pairs]) for i in (1, 2))
+    loss_ratio = own_move_ratio(m_g["loss"], m_c["loss"], loss_move["loss"],
+                                BF16_STEP_FLOOR["loss_rel"])
+
+    def grad_ratios(grads):
+        return {n: own_move_ratio(grads[n], g_c[n], grad_move[n],
+                                  BF16_STEP_FLOOR["grad_rel_norm"]) for n in g_c}
+
+    grad_ratio, fault_ratio = grad_ratios(g_g), grad_ratios(out["fault"][1])
+    stat_ratio = {n: own_move_ratio(s_g[n], s_c[n], stat_move[n],
+                                    BF16_STEP_FLOOR["stats_rel_norm"]) for n in s_c}
+    g_worst, s_worst = max(grad_ratio, key=grad_ratio.get), max(stat_ratio, key=stat_ratio.get)
+    f_worst = max(fault_ratio, key=fault_ratio.get)
+
+    # eval_fe on the card from a checkpoint of one bfloat16 step
+    ctl16 = Controller(config16)
+    state = ctl16.init_state(0, dev)
+    ctl16.train_step(state, next(iter(config16.train_dataloader())))
+    ckpt = save_checkpoint(root / "bf16" / "ckpt", state, 0)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)["model"]
+    ckpt_dtypes = sorted({str(v.dtype) for v in saved.values() if v.is_floating_point()})
+    del state
+    t = time.perf_counter()
+    ectl, outputs = eval_fe.predict(cfg_path, ckpt, dev)
+    eval_s = time.perf_counter() - t
+    emb = np.concatenate([o["emb"] for o in outputs])
+    eval_dtype = str(ectl.build_model(dev).model.conv1.compute_dtype)
+    metrics = ectl.evaluate([outputs])["Val"]
+    launches = kernels.launch_counts()
+    emit("bf16_fe", card=smi, batch=B_FE, image=CROP, classes=config16.num_classes,
+         compute_dtype=dtypes, step_ms=step_ms,
+         step_ms_median={k: statistics.median(v) for k, v in step_ms.items()},
+         peak_mem_gib=peak,
+         step_vs_cpu=dict(batch=B, image=image, classes=C, loss_card=m_g["loss"],
+                          loss_cpu=m_c["loss"], loss_card_f32=m_32["loss"],
+                          loss_ratio=loss_ratio, grad_ratio_max=grad_ratio[g_worst],
+                          grad_ratio_worst=g_worst,
+                          grad_ratio_median=statistics.median(grad_ratio.values()),
+                          stats_ratio_max=stat_ratio[s_worst], stats_ratio_worst=s_worst,
+                          planted_fault=dict(
+                              fault=f"the trunk's layer4 cotangent x {FE_FAULT}",
+                              grad_ratio_max=fault_ratio[f_worst], grad_ratio_worst=f_worst,
+                              tensors_rejected=sum(v > 1.0 for v in fault_ratio.values())),
+                          train_acc=[m_g["train_acc"], m_c["train_acc"]],
+                          step_s_card=t_g, step_s_cpu=t_c),
+         eval_fe=dict(seconds=eval_s, embeddings=list(emb.shape),
+                      finite=bool(np.isfinite(emb).all()), embedder_dtype=eval_dtype,
+                      checkpoint_dtypes=ckpt_dtypes, metrics=metrics),
+         launches={k: v for k, v in launches.items() if v},
+         tolerances=dict(within=f"{BF16_SPREAD_FACTOR} x bfloat16's own move on the CPU",
+                         **BF16_STEP_FLOOR), seconds=time.perf_counter() - t0)
+    want_dtypes = {"bf16": "torch.bfloat16", "f32": "torch.float32"}
+    if any(dtypes[k]["trunk"] != v or dtypes[k]["fc"] != "torch.float32"
+           or dtypes[k]["tensors"] != ["torch.float32"] for k, v in want_dtypes.items()):
+        raise AssertionError(f"bf16_fe: compute dtypes {dtypes}")
+    if not (loss_ratio <= 1.0 and grad_ratio[g_worst] <= 1.0 and stat_ratio[s_worst] <= 1.0):
+        raise AssertionError(f"bf16_fe: the card's bfloat16 step differs from the CPU's: loss "
+                             f"{loss_ratio}, {g_worst} {grad_ratio[g_worst]}, {s_worst} "
+                             f"{stat_ratio[s_worst]} x the bound")
+    if not fault_ratio[f_worst] > 1.0:
+        raise AssertionError(f"bf16_fe: the gate misses the trunk's cotangent x {FE_FAULT}")
+    if eval_dtype != "torch.bfloat16" or ckpt_dtypes != ["torch.float32"] or not np.isfinite(
+            emb).all():
+        raise AssertionError(f"bf16_fe: eval_fe {eval_dtype}, checkpoint {ckpt_dtypes}")
+    if any(launches.values()):
+        raise AssertionError(f"bf16_fe launched a hand-written kernel: {launches}")
+    torch.cuda.empty_cache()
+    return {"bf16_fe": launches}
+
+
+def int8_bf16_serve_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase int8_bf16_serve: the bfloat16 service with the int8 twins at
+    JAX's bench components (the keypoint head, and the trunk and RPN at scope
+    ``rpn`` and the embedder trunk, as ``int8_serve`` quantizes them),
+    calibrated in bfloat16 on 4 seeded batches, then one B = 32 batch served
+    int8 through ``EmbeddingService`` at its default ``warp_dtype``: launches
+    K1-bf16 1, K2 1, K3-bf16 2. Crops/s beside the bfloat16 float service in
+    3 paired rounds, and the peak memory of one call of each. Then, at B = 2
+    over the card's carried state: every ``QuantConv``'s int32 sums of its
+    card input, computed on the card and on the CPU, bit-equal; the card
+    against the CPU (both in bfloat16) within twice bfloat16's own move (the
+    CPU's from the card's float32 int8 twin over the same state, the larger
+    over the batch and ``BF16_DRAWS`` jittered copies), for the
+    values behind each decision with the decisions forced to the CPU's
+    (``heads_on``: the pyramid, the RPN logits, the box logits and heatmaps on
+    the CPU's top boxes) and for the embeddings of shared crops; the gate
+    must reject a planted fault (the card's heads again with K3's pooled
+    values times ``K3_FAULT``). No speed is gated."""
+    import torch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.models import ptq
+    from pets_face_recognition_tpu_torch.models.quant import int8_conv2d_acc, set_quant_mode
+    from pets_face_recognition_tpu_torch.ops.homography import align_crop
+    from pets_face_recognition_tpu_torch.serving import (MIN_LANDMARK_DISTANCE,
+                                                         EmbeddingService, build_serving_models)
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    det, emb = int8_models(dev, bf16)
+    fn_det, fn_emb = ptq.PTQModelFn(det, "calibrate"), ptq.PTQModelFn(emb, "calibrate")
+    f_det, f_emb, base = build_serving_models(dev, 0, dtype=bf16)
+    service_q = EmbeddingService(fn_det, fn_emb, base, device=dev, score_thr=0.0)
+    service_f = EmbeddingService(f_det, f_emb, base, device=dev, score_thr=0.0)
+    g = torch.Generator().manual_seed(37)
+    with torch.inference_mode(), float32_matmuls():
+        for _ in range(INT8_CALIB_BATCHES):
+            x = torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
+                              dtype=torch.uint8).to(dev).float() / 255.0
+            d = det.calibrate(x)
+            kps = torch.round(d["keypoints"][:, 0, :, :2])
+            crops = align_crop(x, kps, base, (CROP, CROP))
+            keep = d["valid"][:, 0] & (torch.cdist(kps, kps) + torch.eye(3, device=dev)
+                                       * 1e9).amin((1, 2)).gt(MIN_LANDMARK_DISTANCE)
+            keep &= torch.isfinite(crops).flatten(1).all(1)
+            if bool(keep.any()):
+                emb.calibrate(crops[keep])
+    fn_det.mode = fn_emb.mode = "int8"
+    imgs = torch.randint(0, 256, (B_TIMED, IMAGE, IMAGE, 3), generator=g,
+                         dtype=torch.uint8).to(dev)
+    ok = torch.ones(B_TIMED, dtype=torch.bool, device=dev)
+    service_q.embed_batch(imgs, ok)                   # warm-up
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    e8, v8 = service_q.embed_batch(imgs, ok)
+    torch.cuda.synchronize()
+    launches = kernels_mod.launch_counts()
+
+    def timed(service):
+        t = time.perf_counter()
+        service.embed_batch(imgs, ok)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    peak = {}
+    for label, service in (("bf16", service_f), ("int8_bf16", service_q)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed(service)
+        peak[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = {"bf16": [], "int8_bf16": []}
+    for r in range(3):
+        for label in (("bf16", "int8_bf16") if r % 2 == 0 else ("int8_bf16", "bf16")):
+            ms[label].append(timed(service_f if label == "bf16" else service_q))
+
+    # B = 2 over the card's carried state: the card's float32 int8 twin, the
+    # CPU's bfloat16 one
+    state_det, state_emb = det.quant_numpy(), emb.quant_numpy()
+    twins = {}
+    for label, device, dtype in (("f32", dev, torch.float32), ("cpu", "cpu", bf16)):
+        d_t, e_t = int8_models(device, dtype)
+        d_t.load_quant(state_det)
+        e_t.load_quant(state_emb)
+        twins[label] = (set_quant_mode(d_t.model, "int8"), set_quant_mode(e_t.model, "int8"))
+    x2 = imgs[:2].float() / 255.0
+    xc = x2.cpu()
+    with quant_records(det.model, "QuantConv") as rec_det, quant_records(
+            emb.model, "QuantConv") as rec_emb:
+        d_card = det.serve(x2)
+        lms = similarity_landmarks(torch.Generator().manual_seed(2), 2, base.cpu(), IMAGE)
+        crops_c = align_crop(xc, lms, base.cpu(), (CROP, CROP))
+        emb.serve(crops_c.to(dev))
+    sums, sums_differ = 0, 0
+    for (name, _), (mod, inp) in list(rec_det.items()) + list(rec_emb.items()):
+        xq = inp[0]
+        a = int8_conv2d_acc(xq, mod.weight_q, mod.stride, mod.padding)
+        b = int8_conv2d_acc(xq.cpu(), mod.weight_q.cpu(), mod.stride, mod.padding)
+        sums += 1
+        sums_differ += int((a.cpu() != b).sum())
+    del rec_det, rec_emb
+
+    def rel(a, b) -> float:
+        return max_err(a.cpu(), b.cpu()) / float(b.float().abs().max())
+
+    with torch.inference_mode(), float32_matmuls():
+        d_cpu = twins["cpu"][0](xc)
+        moved = moved_detections(d_card, d_cpu)
+        boxes = d_cpu["boxes"][:, 0].contiguous()
+        forced = {"card": heads_on(det.model, x2, boxes.to(dev)),
+                  "cpu": heads_on(twins["cpu"][0], xc, boxes),
+                  "f32": heads_on(twins["f32"][0], x2, boxes.to(dev))}
+        with planted_fault("multilevel_roi_align_cuda", K3_FAULT):
+            forced["fault"] = heads_on(det.model, x2, boxes.to(dev))
+        forced["card"]["embedding_rel_err"] = emb.model(crops_c.to(dev))
+        forced["cpu"]["embedding_rel_err"] = twins["cpu"][1](crops_c)
+        forced["f32"]["embedding_rel_err"] = twins["f32"][1](crops_c.to(dev))
+        # bfloat16's own move on the CPU, also over jittered copies
+        draws = [(forced["cpu"], forced["f32"])]
+        for r in range(1, BF16_DRAWS + 1):
+            xr, cr = jittered(xc, 40 + r), jittered(crops_c, 50 + r)
+            cpu_r = heads_on(twins["cpu"][0], xr, boxes)
+            f32_r = heads_on(twins["f32"][0], xr.to(dev), boxes.to(dev))
+            cpu_r["embedding_rel_err"] = twins["cpu"][1](cr)
+            f32_r["embedding_rel_err"] = twins["f32"][1](cr.to(dev))
+            draws.append((cpu_r, f32_r))
+    checks = {k: rel(forced["card"][k], forced["cpu"][k]) for k in forced["cpu"]}
+    spread = {k: max(rel(f[k], c[k]) for c, f in draws) for k in forced["cpu"]}
+    fault = {k: rel(forced["fault"][k], forced["cpu"][k]) for k in forced["fault"]}
+    rejected = [k for k, v in fault.items() if not v <= BF16_SPREAD_FACTOR * spread[k]]
+    emit("int8_bf16_serve", card=smi, batch=B_TIMED, dtype="bfloat16", warp_dtype="bfloat16",
+         components=dict(detector="trunk and RPN (scope rpn)", kp_head=True, embedder=True),
+         launches={k: v for k, v in launches.items() if v},
+         ms=ms, crops_per_s={k: B_TIMED * 1e3 / statistics.median(v) for k, v in ms.items()},
+         peak_mem_gib=peak, rows_kept=int(v8.sum()),
+         finite_kept=int((v8 & torch.isfinite(e8).all(1)).sum()),
+         int32_sums=dict(convolutions=sums, elements_differ=sums_differ),
+         card_vs_cpu=dict(batch=2, moved_decisions=sum(moved), moved=moved, **checks),
+         tolerances=dict(within=f"{BF16_SPREAD_FACTOR} x bfloat16's own move on the CPU "
+                         "from the card's float32 int8 twin", bfloat16_own_move=spread),
+         planted_fault=dict(fault=f"K3 pooled values x {K3_FAULT}", card_vs_cpu=fault,
+                            rejected_by=rejected),
+         seconds=time.perf_counter() - t0)
+    if {k: v for k, v in launches.items() if v} != BF16_SERVE_LAUNCHES:
+        raise AssertionError(f"int8_bf16_serve launches {launches}, expected "
+                             f"{BF16_SERVE_LAUNCHES}")
+    if sums_differ:
+        raise AssertionError(f"int8_bf16_serve: int32 sums differ card against CPU in "
+                             f"{sums_differ} elements")
+    for name, value in checks.items():
+        if not value <= BF16_SPREAD_FACTOR * spread[name]:
+            raise AssertionError(f"int8_bf16_serve {name} {value} > {BF16_SPREAD_FACTOR} x "
+                                 f"bfloat16's own move {spread[name]}")
+    if not rejected:
+        raise AssertionError(f"int8_bf16_serve: the gate misses K3's values x {K3_FAULT}")
+    del det, emb, f_det, f_emb, service_q, service_f, twins
+    torch.cuda.empty_cache()
+    return {"int8_bf16_serve": launches}
+
+
+ALT_BF16 = (("swin_tiny_keypoint_rcnn", 224), ("convnext_tiny_keypoint_rcnn", 224))
+
+
+def alt_bf16_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
+    """Phase alt_bf16: the Swin-T and ConvNeXt-T keypoint R-CNNs built at
+    ``dtype=bfloat16`` (the factories' trunk, FPN and model, as JAX's
+    ``clone(dtype=...)``), full width, B = 2 at 224 x 224, the drive tool's
+    small budgets, seeded weights: one eval forward on the card (launches K2
+    1, K3-bf16 2) against the CPU's in bfloat16, the values behind each
+    decision with the decisions forced to the CPU's (``heads_on``) within
+    twice bfloat16's own move (the CPU's from the card's float32 model, over
+    the input and ``BF16_DRAWS`` jittered copies), a
+    planted fault rejected (K3's pooled values times ``K3_FAULT``); and one
+    training step (launches a step as ``bf16_train``) against the CPU's
+    (``bf16_step_vs_cpu``)."""
+    import numpy as np
+    import torch
+    from pets_face_recognition_tpu_torch.data import synthetic_keypoint_batch
+    from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.drive_alt_factories import SMALL
+    from pets_face_recognition_tpu_torch.engine.detector_controller import KeyPointsController
+    from pets_face_recognition_tpu_torch.models import rcnn
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    paths, failures = {}, []
+    for i, (name, size) in enumerate(ALT_BF16):
+        t0 = time.perf_counter()
+
+        def make(dtype, name=name):
+            return getattr(rcnn, name)(dtype=dtype, **SMALL)
+
+        sd = init_random_(make(torch.float32), 30 + i).state_dict()
+        models = {}
+        for label, dtype, device in (("card", torch.bfloat16, dev),
+                                     ("f32", torch.float32, dev), ("cpu", torch.bfloat16, "cpu")):
+            m = make(dtype)
+            m.load_state_dict(sd)
+            models[label] = m.eval().requires_grad_(False).to(device)
+        x = torch.from_numpy(np.random.RandomState(40 + i).rand(2, size, size, 3)
+                             .astype(np.float32))
+        with torch.no_grad(), float32_matmuls():
+            models["card"](x.to(dev))                       # warm-up
+            torch.cuda.synchronize()
+            kernels_mod.reset_launch_counts()
+            t = time.perf_counter()
+            d_card = models["card"](x.to(dev))
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - t) * 1e3
+            eval_launches = {k: v for k, v in kernels_mod.launch_counts().items() if v}
+            d_cpu = models["cpu"](x)
+            moved = moved_detections(d_card, d_cpu)
+            boxes = d_cpu["boxes"][:, 0].contiguous()
+            forced = {"card": heads_on(models["card"], x.to(dev), boxes.to(dev)),
+                      "cpu": heads_on(models["cpu"], x, boxes),
+                      "f32": heads_on(models["f32"], x.to(dev), boxes.to(dev))}
+            with planted_fault("multilevel_roi_align_cuda", K3_FAULT):
+                forced["fault"] = heads_on(models["card"], x.to(dev), boxes.to(dev))
+            # bfloat16's own move on the CPU, also over jittered copies
+            draws = [(forced["cpu"], forced["f32"])] + [
+                (heads_on(models["cpu"], xr, boxes),
+                 heads_on(models["f32"], xr.to(dev), boxes.to(dev)))
+                for xr in (jittered(x, 40 + i + r) for r in range(1, BF16_DRAWS + 1))]
+
+        def rel(a, b) -> float:
+            return max_err(a.cpu(), b.cpu()) / float(b.float().abs().max())
+
+        checks = {k: rel(forced["card"][k], forced["cpu"][k]) for k in forced["cpu"]}
+        spread = {k: max(rel(f[k], c[k]) for c, f in draws) for k in forced["cpu"]}
+        fault = {k: rel(forced["fault"][k], forced["cpu"][k]) for k in forced["cpu"]}
+        rejected = [k for k, v in fault.items() if not v <= BF16_SPREAD_FACTOR * spread[k]]
+        del models, forced, draws
+        torch.cuda.empty_cache()
+        ctl = KeyPointsController()
+        batch = synthetic_keypoint_batch(2, size, size, 2, seed=50 + i)
+        rec, bad = bf16_step_vs_cpu(name, make, ctl, batch, 2, dev, 60 + i)
+        step_launches = rec["card_launches"]
+        paths[f"alt_bf16_{name}"] = {k: eval_launches.get(k, 0) + step_launches.get(k, 0)
+                                     for k in kernels_mod.KERNELS}
+        emit("alt_bf16", factory=name, card=smi, image=size, batch=2, dtype="bfloat16",
+             eval_ms=eval_ms, eval_launches=eval_launches,
+             eval_vs_cpu=dict(moved_decisions=sum(moved), moved=moved, **checks),
+             eval_own_move=spread, eval_planted_fault=dict(
+                 fault=f"K3 pooled values x {K3_FAULT}", card_vs_cpu=fault,
+                 rejected_by=rejected), step_launches=step_launches, step_vs_cpu=rec,
+             tolerances=dict(within=f"{BF16_SPREAD_FACTOR} x bfloat16's own move on the CPU",
+                             **BF16_STEP_FLOOR), seconds=time.perf_counter() - t0)
+        if eval_launches != BF16_EVAL_LAUNCHES:
+            failures.append(f"{name}: eval launches {eval_launches}, expected "
+                            f"{BF16_EVAL_LAUNCHES}")
+        if step_launches != BF16_TRAIN_LAUNCHES:
+            failures.append(f"{name}: step launches {step_launches}, expected "
+                            f"{BF16_TRAIN_LAUNCHES}")
+        failures += [f"{name} eval {k} {v} > {BF16_SPREAD_FACTOR} x {spread[k]}"
+                     for k, v in checks.items() if not v <= BF16_SPREAD_FACTOR * spread[k]]
+        if not rejected:
+            failures.append(f"{name}: the eval gate misses K3's values x {K3_FAULT}")
+        failures += bad
+    if failures:
+        raise AssertionError("; ".join(failures))
+    torch.cuda.empty_cache()
+    return paths
+
+
 KERNEL_ROWS = (
     ("warp_perspective_batch", ("warp_perspective_batch",), "csrc/warp.cu",
      "pets_face_recognition_tpu/ops/pallas_warp.py:152"),
@@ -5509,6 +6426,9 @@ KERNEL_ROWS = (
     ("multilevel_roi_align", ("multilevel_roi_align",), "csrc/roi_align.cu",
      "pets_face_recognition_tpu/ops/pallas_roi_align.py:120"),
     ("multilevel_roi_align_backward", ("multilevel_roi_align_backward",),
+     "csrc/roi_align_backward.cu", "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
+    # K4 with bfloat16 operands: its launches are the bfloat16 training paths'
+    ("multilevel_roi_align_backward_bf16", ("multilevel_roi_align_backward_bf16",),
      "csrc/roi_align_backward.cu", "pets_face_recognition_tpu/ops/pallas_roi_align.py:362"),
     # K4's pre-pass (sort keys and footprints), part of the same port of _roi_backward
     ("roi_footprints", ("roi_footprints",), "csrc/roi_align_backward.cu",
@@ -5817,7 +6737,7 @@ def tuners_phase(dev, smi: str) -> None:
     from pets_face_recognition_tpu_torch.utils import DictWrapper, tuners
     from pets_face_recognition_tpu_torch.utils.optim import fe_sgd_optimizer
 
-    cfg = DictWrapper({"model": lambda: resnet50_embedder(512),
+    cfg = DictWrapper({"model": lambda device: resnet50_embedder(512),
                        "loss": lambda c, m: SoftmaxBasedMetricLearning(m, 512, FE_CLASSES),
                        "optimizer": lambda c: partial(fe_sgd_optimizer, lr=1e-2)})
     ctl = Controller(cfg)
@@ -5979,7 +6899,7 @@ def row_paths(name: str, paths: dict) -> list[str]:
     if name.endswith("_masktrain"):
         return ["mask_train"]
     if name.endswith("_alt"):
-        return [p for p in paths if p.startswith("alt_")]
+        return [p for p in paths if p.startswith("alt_") and not p.startswith("alt_bf16_")]
     if name.endswith("_mobile"):
         return [p for p in paths if p.startswith("mobile_")]
     if name.endswith("_mask"):
@@ -6015,6 +6935,7 @@ def main() -> int:
     rows = kernel_phase(dev)
     rows.update(reduced_kernel_rows(dev))  # K1-bf16, K1-int8, K3-bf16
     rows.update(train_kernel_phase(dev))   # K2 and K3 at the training shapes, K4, K5
+    rows.update(bf16_backward_kernel_row(dev))   # K4-bf16 at the training shapes
     rows.update(mobile_kernel_phase(dev))  # K3, K4 and the pre-pass on p4, p5
     edge_phase(dev)
     # each path's launch counts, set to 0 just before it and read just after
@@ -6040,9 +6961,11 @@ def main() -> int:
     paths.update(mask_paths)
     rows.update(mask_rows)
     paths.update(int8_phases(dev, kernels, smi))   # int8_conv, int8_serve, int8_chain
+    paths.update(int8_bf16_serve_phase(dev, kernels, smi))
     alt_paths, alt_rows = alt_rcnn_phase(dev, kernels, smi)   # the five alternate factories
     paths.update(alt_paths)
     rows.update(alt_rows)
+    paths.update(alt_bf16_phase(dev, kernels, smi))   # Swin-T, ConvNeXt-T in bfloat16
     paths.update(ddp_phase(dev, kernels, smi))    # ddp_fe, ddp_keypoint, ddp_mask, ddp_serve
     tuners_phase(dev, smi)
     paths["dog_fixture"] = dog_fixture_phase(dev, kernels, smi)

@@ -8,6 +8,7 @@ from functools import partial
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .data_loading import (CatLMDDataset, CatLMDSubset, ConcatDataset, DataLoader,
                            PairGenerator, RecDataset, RecSubset, SimpleDataset,
@@ -17,6 +18,21 @@ from .utils.optim import detection_sgd_optimizer, fe_adamw_optimizer, fe_sgd_opt
 from .utils.preprocs import FETrainAug, FEValAug
 
 DOG_FIXTURES = (("paths.pickle", "others.pickle"), ("paths2.pickle", "others2.pickle"))
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(compute_dtype: str, device: str | torch.device) -> torch.dtype:
+    """A config's ``compute_dtype`` for a model on ``device``: ``"auto"`` is
+    bfloat16 on a CUDA device and float32 on the CPU (the JAX package's
+    bfloat16 off its CPU backend), taken from the device the model runs on,
+    not from whether a card is present; ``"float32"`` and ``"bfloat16"`` as
+    given."""
+    if compute_dtype == "auto":
+        return torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: expected 'auto' or one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[compute_dtype]
 
 
 def build_fe_config(
@@ -35,6 +51,7 @@ def build_fe_config(
     run_name: str = "run",
     output: str = "results",
     num_workers: int = 8,
+    compute_dtype: str = "auto",
     n_pairs: int = 10000,
 ) -> dict:
     """The feature extractor's config (the JAX ``build_fe_config``, reference
@@ -49,11 +66,16 @@ def build_fe_config(
     focal loss (gamma 0); SGD in three groups at ``lr`` (1e-2) or AdamW
     (``optimizer_kind="adamw"``, 1e-4), the rate x 0.1 at epochs 35 and 45;
     ``thrs`` ``linspace(0.5, 0.99, 6)``, the ``far_thr`` list, ``k`` 5, 10,
-    100. The port trains in float32: the JAX ``compute_dtype`` (bfloat16 off
-    the CPU) of FE training is not ported yet (ROADMAP §1).
+    100. ``compute_dtype`` is the embedder trunk's compute dtype
+    (:func:`resolve_compute_dtype`): ``"auto"``, the default, trains and
+    evaluates in bfloat16 on the card and in float32 on the CPU; parameters,
+    optimiser state and BatchNorm statistics stay float32 either way, so a
+    checkpoint loads across dtypes.
 
-    ``optimizer(config)`` returns the factory ``model -> (optimizer,
-    schedule)`` the FE controller calls with the wrapper."""
+    ``model(device)`` builds the embedder for ``device`` (the FE controller
+    passes the one it trains or evaluates on); ``optimizer(config)`` returns
+    the factory ``model -> (optimizer, schedule)`` the controller calls with
+    the wrapper."""
     from .losses import SoftmaxBasedMetricLearning
     from .models.embedder import resnet50_embedder
 
@@ -86,8 +108,9 @@ def build_fe_config(
     num_classes = len(train_users) + n_extra_classes
     steps_per_epoch = max(len(train) // train_batch_size, 1)
 
-    def model():
-        return resnet50_embedder(embedding_dim=emb_size)
+    def model(device: str | torch.device = "cuda"):
+        return resnet50_embedder(embedding_dim=emb_size,
+                                 dtype=resolve_compute_dtype(compute_dtype, device))
 
     def loss(config, m):
         return SoftmaxBasedMetricLearning(model=m, emb_size=emb_size, num_classes=num_classes,
@@ -119,7 +142,7 @@ def build_fe_config(
     return dict(
         seed=seed, n_epochs=n_epochs,
         train_batch_size=train_batch_size, test_batch_size=test_batch_size,
-        emb_size=emb_size, num_classes=num_classes,
+        emb_size=emb_size, num_classes=num_classes, compute_dtype=compute_dtype,
         thrs=np.linspace(0.5, 0.99, 6),
         far_thr=[0.1, 0.05, 0.03, 0.01, 0.005, 0.001],
         k=[5, 10, 100],

@@ -71,9 +71,7 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using pfr_roi::round_bf16;
 
 __device__ __forceinline__ float4 madd4(float4 acc, float4 v, float w) {
   return make_float4(__fadd_rn(acc.x, __fmul_rn(v.x, w)), __fadd_rn(acc.y, __fmul_rn(v.y, w)),

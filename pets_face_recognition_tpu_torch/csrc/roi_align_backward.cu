@@ -45,6 +45,18 @@
 //   register cap, deeper unrolling, staging g in shared memory, an L2
 //   prefetch of the next RoI's g, or summing columns first (fewer products,
 //   more registers).
+//
+// kBF16 is the same kernel with the Pallas backward's bfloat16 operands
+// (_roi_backward with compute_dtype=bfloat16, its default): the cotangent of
+// each sample, g / S^2, and each sample's row and column weights are rounded
+// to bfloat16 (pallas_roi_align.py:399-403), and everything is summed in
+// float32. The tables then sum S rounded weights a bin, each load of g is
+// divided by S^2 (a product by 1 / S^2 where that is exact) and rounded
+// before it is used, and the result is written undivided; the wrapper
+// rounds the float32 level gradients to the levels' bfloat16, as the custom
+// VJP does (:477-483). The TPU form is the same two window matmuls, in
+// bfloat16 to fit VMEM; here the rounding costs a few instructions a load
+// and nothing in memory, so the bound is K4's.
 
 #include <cuda_runtime.h>
 
@@ -55,6 +67,7 @@
 namespace {
 
 using pfr_roi::kMaxLevels;
+using pfr_roi::round_bf16;
 
 constexpr int kTile = 8;                       // rows and columns of a tile
 constexpr int kSlice = 128;                    // channels of a block
@@ -124,7 +137,9 @@ __global__ void roi_footprints_kernel(const float* __restrict__ rois,
 
 // One lane per bin (lane < n_bins) fills column `bin` of `tab` for the tile
 // cells [t0, t0 + kTile) of an axis of length `limit`, and widens the bin range
-// of every tile cell it touches.
+// of every tile cell it touches; with kBF16 each sample's weight is rounded to
+// bfloat16 before it is added.
+template <bool kBF16>
 __device__ __forceinline__ void build_axis(float (*tab)[kMaxBins], int* lo, int* hi,
                                            int lane, int n_bins, float start,
                                            float bin, int S, int limit, int t0) {
@@ -142,13 +157,15 @@ __device__ __forceinline__ void build_axis(float (*tab)[kMaxBins], int* lo, int*
       if (a.oob) continue;
       const int rl = a.low - t0;
       const int rh = a.high - t0;
+      const float w_low = kBF16 ? round_bf16(a.w_low) : a.w_low;
+      const float w_high = kBF16 ? round_bf16(a.w_high) : a.w_high;
       if (rl >= 0 && rl < kTile) {
-        tab[rl][lane] = __fadd_rn(tab[rl][lane], a.w_low);
+        tab[rl][lane] = __fadd_rn(tab[rl][lane], w_low);
         atomicMin(lo + rl, lane);
         atomicMax(hi + rl, lane);
       }
       if (rh >= 0 && rh < kTile) {
-        tab[rh][lane] = __fadd_rn(tab[rh][lane], a.w_high);
+        tab[rh][lane] = __fadd_rn(tab[rh][lane], w_high);
         atomicMin(lo + rh, lane);
         atomicMax(hi + rh, lane);
       }
@@ -156,6 +173,7 @@ __device__ __forceinline__ void build_axis(float (*tab)[kMaxBins], int* lo, int*
   }
 }
 
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads) multilevel_roi_align_backward_kernel(
     const float* __restrict__ g, LevelGrads lg, pfr_roi::Pyramid pyr, TileGrid grid,
     int n_levels, int B, int C, const float* __restrict__ rois,
@@ -186,6 +204,11 @@ __global__ void __launch_bounds__(kThreads) multilevel_roi_align_backward_kernel
   const int r0 = (threadIdx.x / kSlice) * kRows;
   const bool live = c < C;
   const long long bin_stride = (long long)OW * C;
+  const float n_samples = (float)(S * S);
+  // with S * S a power of two (the models' S = 2) the bfloat16 instance's
+  // division by it is a product by its exact reciprocal, to the bit
+  const bool pow2_samples = ((S * S) & (S * S - 1)) == 0;
+  const float inv_samples = 1.0f / n_samples;
 
   float acc[kRows][kTile];
 #pragma unroll
@@ -226,11 +249,11 @@ __global__ void __launch_bounds__(kThreads) multilevel_roi_align_backward_kernel
       Tables& tb = tables[parity];
       parity ^= 1;
       if (warp == 0)
-        build_axis(tb.ay, tb.ph_lo, tb.ph_hi, lane, OH, hit_geom[h].y1, hit_geom[h].bin_h,
-                   S, H, y0);
+        build_axis<kBF16>(tb.ay, tb.ph_lo, tb.ph_hi, lane, OH, hit_geom[h].y1,
+                          hit_geom[h].bin_h, S, H, y0);
       else if (warp == 1)
-        build_axis(tb.ax, tb.pw_lo, tb.pw_hi, lane, OW, hit_geom[h].x1, hit_geom[h].bin_w,
-                   S, W, x0);
+        build_axis<kBF16>(tb.ax, tb.pw_lo, tb.pw_hi, lane, OW, hit_geom[h].x1,
+                          hit_geom[h].bin_w, S, W, x0);
       // the other buffer was last read before the previous RoI's barrier
       __syncthreads();
       if (!live) continue;
@@ -253,7 +276,9 @@ __global__ void __launch_bounds__(kThreads) multilevel_roi_align_backward_kernel
         const float* grow = gk + ph * bin_stride;
 #pragma unroll 4
         for (int pw = pw0; pw <= pw1; ++pw) {
-          const float v = __ldg(grow + (long long)pw * C);
+          float v = __ldg(grow + (long long)pw * C);
+          if (kBF16)
+            v = round_bf16(pow2_samples ? __fmul_rn(v, inv_samples) : __fdiv_rn(v, n_samples));
 #pragma unroll
           for (int q = 0; q < kTile; ++q) {
             const float wx = tb.ax[q][pw];
@@ -267,7 +292,6 @@ __global__ void __launch_bounds__(kThreads) multilevel_roi_align_backward_kernel
   }
 
   if (!live) return;
-  const float n_samples = (float)(S * S);
   float* f = lg.data[l] + (long long)b * H * W * C + c;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -276,7 +300,8 @@ __global__ void __launch_bounds__(kThreads) multilevel_roi_align_backward_kernel
 #pragma unroll
     for (int q = 0; q < kTile; ++q) {
       const int x = x0 + q;
-      if (x < W) f[((long long)y * W + x) * C] = __fdiv_rn(acc[r][q], n_samples);
+      if (x < W)
+        f[((long long)y * W + x) * C] = kBF16 ? acc[r][q] : __fdiv_rn(acc[r][q], n_samples);
     }
   }
 }
@@ -307,7 +332,10 @@ extern "C" int pfr_roi_footprints(const float* rois, const int* batch_idx, const
   return (int)cudaGetLastError();
 }
 
-extern "C" int pfr_multilevel_roi_align_backward(
+namespace {
+
+template <bool kBF16>
+int roi_align_backward(
     const float* g, float* d0, float* d1, float* d2, float* d3,
     int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
     int stride0, int stride1, int stride2, int stride3, int n_levels, int B, int C,
@@ -330,8 +358,33 @@ extern "C" int pfr_multilevel_roi_align_backward(
   if (n_tiles == 0 || C == 0) return 0;
   const pfr_roi::Pyramid pyr = pfr_roi::make_pyramid(hs, ws, st);
   const dim3 blocks((unsigned int)n_tiles, (unsigned int)((C + kSlice - 1) / kSlice));
-  multilevel_roi_align_backward_kernel<<<blocks, kThreads, 0, stream>>>(
+  multilevel_roi_align_backward_kernel<kBF16><<<blocks, kThreads, 0, stream>>>(
       g, lg, pyr, grid, n_levels, B, C, rois, order,
       reinterpret_cast<const int4*>(footprint), group_start, OH, OW, sampling_ratio);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pfr_multilevel_roi_align_backward(
+    const float* g, float* d0, float* d1, float* d2, float* d3,
+    int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
+    int stride0, int stride1, int stride2, int stride3, int n_levels, int B, int C,
+    const float* rois, const long long* order, const int* footprint, const int* group_start,
+    int OH, int OW, int sampling_ratio, cudaStream_t stream) {
+  return roi_align_backward<false>(g, d0, d1, d2, d3, h0, h1, h2, h3, w0, w1, w2, w3, stride0,
+                                   stride1, stride2, stride3, n_levels, B, C, rois, order,
+                                   footprint, group_start, OH, OW, sampling_ratio, stream);
+}
+
+// K4 with bfloat16 operands: the same arguments, float32 level gradients.
+extern "C" int pfr_multilevel_roi_align_backward_bf16(
+    const float* g, float* d0, float* d1, float* d2, float* d3,
+    int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
+    int stride0, int stride1, int stride2, int stride3, int n_levels, int B, int C,
+    const float* rois, const long long* order, const int* footprint, const int* group_start,
+    int OH, int OW, int sampling_ratio, cudaStream_t stream) {
+  return roi_align_backward<true>(g, d0, d1, d2, d3, h0, h1, h2, h3, w0, w1, w2, w3, stride0,
+                                  stride1, stride2, stride3, n_levels, B, C, rois, order,
+                                  footprint, group_start, OH, OW, sampling_ratio, stream);
 }

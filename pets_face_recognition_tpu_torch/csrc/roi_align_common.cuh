@@ -14,6 +14,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace pfr_roi {
@@ -34,6 +35,12 @@ inline Pyramid make_pyramid(const int* hs, const int* ws, const int* strides) {
     pyr.scale[i] = strides[i] > 0 ? (float)(1.0 / (double)strides[i]) : 0.0f;
   }
   return pyr;
+}
+
+// v rounded to bfloat16 (to nearest even) and back: the bfloat16 instances'
+// weights, and K4's bfloat16 cotangent.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The two taps of one axis: weight w_low on index low, w_high on index high.

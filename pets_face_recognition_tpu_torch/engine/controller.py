@@ -2,8 +2,9 @@
 ``engine/controller.py::Controller``), against the interface the port's
 ``Trainer`` calls.
 
-From the config (``config_presets.build_fe_config``): ``model()`` builds the
-embedder, ``loss(config, model)`` wraps it in ``SoftmaxBasedMetricLearning``
+From the config (``config_presets.build_fe_config``): ``model(device)`` builds
+the embedder for the device it will run on (in its ``compute_dtype``),
+``loss(config, model)`` wraps it in ``SoftmaxBasedMetricLearning``
 (the head ``add_margin``), ``optimizer(config)`` returns the factory
 ``model -> (optimizer, schedule)``, and the loaders, ``pair_generator(i)``,
 ``similarity_f``, ``thrs``, ``far_thr``, ``frr_thr`` and ``k`` come from it too.
@@ -29,7 +30,9 @@ BatchNorm over the whole batch, averages the gradients over the ranks before
 ``run_eval_batch`` takes the global batch, embeds this rank's rows and
 gathers the embeddings in rank order.
 
-Every step runs in float32 (TF32 off inside). Where the JAX ``evaluate``
+Every step runs under ``float32_matmuls`` (TF32 off, bfloat16 products summed
+in float32): the embedder's trunk in its compute dtype, ``fc``, the margin
+head and the loss in float32, parameters and optimiser state float32. Where the JAX ``evaluate``
 draws a confusion-matrix PNG and a ROC PNG into the config's ``img_dir``
 with matplotlib, which the card does not have, the port writes the same
 numbers as ``eval_<epoch>.json`` there: the confusion counts at ``Opt thr``
@@ -66,8 +69,9 @@ class Controller:
         self.accumulate_grad_batches = accumulate_grad_batches
         self.mesh = mesh
 
-    def build_model(self) -> SoftmaxBasedMetricLearning:
-        return self.config.loss(self.config, self.config.model())
+    def build_model(self, device: str | torch.device = "cuda") -> SoftmaxBasedMetricLearning:
+        """The config's wrapper over its embedder, built for ``device``."""
+        return self.config.loss(self.config, self.config.model(device))
 
     def init_state(self, seed: int = 0, device: str | torch.device = "cuda",
                    model: SoftmaxBasedMetricLearning | None = None) -> TrainState:
@@ -75,7 +79,7 @@ class Controller:
         ``train()`` on ``device``, its optimiser, step 0."""
         dev = resolve_device(device)
         if model is None:
-            model = init_random_(self.build_model(), seed)
+            model = init_random_(self.build_model(dev), seed)
         model = model.to(dev).train()
         parallel.broadcast_module(model, self.mesh)
         optimizer, schedule = self.config.optimizer(self.config)(model)
@@ -102,7 +106,8 @@ class Controller:
 
     def make_eval_step(self) -> Callable:
         """``eval_step(state, x) -> embeddings``: the wrapper in ``eval()``
-        under ``torch.no_grad()`` in float32, back in ``train()`` after."""
+        under ``torch.no_grad()`` (float32 embeddings from a trunk in its
+        compute dtype), back in ``train()`` after."""
 
         @float32_matmuls()
         @torch.no_grad()

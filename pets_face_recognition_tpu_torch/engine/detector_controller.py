@@ -14,7 +14,11 @@ such mini-steps before one update (``optax.MultiSteps``); the update clips if
 asked and steps the optimiser at the scheduled rate of its count of updates.
 The keypoint controller's ``arch`` picks the model as the JAX keypoint config
 does: ``resnet50`` (frozen trunk statistics) or ``mobile`` (MobileNetV3 with
-live BatchNorm, whose running statistics every mini-step moves).
+live BatchNorm, whose running statistics every mini-step moves). A model
+built with ``dtype=torch.bfloat16`` (``keypoint_model(arch, dtype)``,
+``mask_model(dtype)``) trains in it as JAX's training bench does: trunk,
+FPN, RPN and heads in bfloat16, its RoIs pooled by K3's and differentiated
+by K4's bfloat16 instances, the losses, parameters and SGD in float32.
 
 The eval step runs the model in ``eval()`` (a live-BN trunk normalises with
 its running statistics) without gradients, in float32, and puts it back in
@@ -57,23 +61,28 @@ from .detection_metrics import detection_metrics, unpad_detections, unpad_target
 from .train_state import TrainState, finish_step, step_generator
 
 
-def keypoint_model(arch: str = "resnet50") -> GeneralizedRCNN:
+def keypoint_model(arch: str = "resnet50", dtype: torch.dtype = torch.float32
+                   ) -> GeneralizedRCNN:
     """The keypoint config's model (JAX ``config_presets.build_keypoint_config
     (arch=...).model()``): the ResNet-50-FPN keypoint R-CNN, or for
     ``"mobile"`` the MobileNetV3-Large one with live BatchNorm at flax
     momentum 0.9 (from-scratch training has no pretrained statistics to
-    freeze; the serving twin freezes what it learned, ``rcnn.frozen_twin``)."""
+    freeze; the serving twin freezes what it learned, ``rcnn.frozen_twin``).
+    ``dtype`` is its compute dtype (JAX's training bench clones the model to
+    bfloat16, ``tools/bench_train.py:110-112``); parameters stay float32."""
     if arch == "resnet50":
-        return keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3)
+        return keypointrcnn_resnet50_fpn(num_classes=2, num_keypoints=3, dtype=dtype)
     if arch == "mobile":
-        return mobile_net_v3_large_keypoint_rcnn(frozen_stats=False, bn_momentum=0.9)
+        return mobile_net_v3_large_keypoint_rcnn(frozen_stats=False, bn_momentum=0.9,
+                                                 dtype=dtype)
     raise ValueError(f"keypoint arch {arch!r}: expected one of {KEYPOINT_ARCHS}")
 
 
-def mask_model() -> GeneralizedRCNN:
+def mask_model(dtype: torch.dtype = torch.float32) -> GeneralizedRCNN:
     """The Mask R-CNN config's model (JAX ``config_presets.build_mask_config
-    ().model()``): ResNet-50-FPN, 2 classes, 3 detections an image."""
-    return maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3)
+    ().model()``): ResNet-50-FPN, 2 classes, 3 detections an image, computing
+    in ``dtype``."""
+    return maskrcnn_resnet50_fpn(num_classes=2, box_detections_per_img=3, dtype=dtype)
 
 
 class DetectionController:
@@ -135,8 +144,10 @@ class DetectionController:
     @float32_matmuls()
     def train_step(self, state: TrainState, batch: dict,
                    sampler_noise: dict | None = None) -> dict[str, float]:
-        """One mini-step in float32 (TF32 off inside, the caller's flags back
-        after); returns the loss and each term as floats. The samplers' noise
+        """One mini-step under ``float32_matmuls`` (TF32 off, bfloat16 products
+        summed in float32, the caller's flags back after), the model in its
+        compute dtype, the losses in float32; returns the loss and each term
+        as floats. The samplers' noise
         is ``sampler_noise`` or drawn from ``step_generator(state.seed,
         state.step)``. The model runs in ``train()``, so a live-BN trunk
         normalises with batch statistics and moves its running statistics in

@@ -5,7 +5,9 @@ checkpoint without the margin head ``add_margin`` loads; the newest
 ``epoch=*-step=*`` when ``--ckpt`` is a folder) and evaluate it as
 ``Trainer.test`` does over the config's test (else validation) loader: ROC
 AUC, accuracy at the optimal threshold, Recall@K and the rest of
-``verification_metrics``.
+``verification_metrics``. The embedder computes in the config's
+``compute_dtype`` for the device (``"auto"``: bfloat16 on the card); a
+checkpoint holds float32 tensors whatever dtype trained it.
 
     python -m pets_face_recognition_tpu_torch.eval_fe --species cat|dog \\
         --ckpt <run>/checkpoints [--config <config>] [--device cpu]

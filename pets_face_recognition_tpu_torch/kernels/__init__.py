@@ -15,11 +15,13 @@ from ._build import build, library
 
 # K1 and K3 count each compute mode under its own name: ``warp_perspective_batch``
 # is K1 in float32, ``_bf16`` and ``_int8`` its reduced-precision modes;
-# ``multilevel_roi_align_bf16`` is K3 on bfloat16 levels
+# ``multilevel_roi_align_bf16`` is K3 on bfloat16 levels and
+# ``multilevel_roi_align_backward_bf16`` K4 with bfloat16 operands
 KERNELS = ("warp_perspective_batch", "warp_perspective_batch_bf16",
            "warp_perspective_batch_int8", "nms_keep_sorted_batch", "nms_keep_sorted",
            "nms_keep_sorted_grid", "multilevel_roi_align", "multilevel_roi_align_bf16",
-           "roi_footprints", "multilevel_roi_align_backward")
+           "roi_footprints", "multilevel_roi_align_backward",
+           "multilevel_roi_align_backward_bf16")
 
 _launches = {name: 0 for name in KERNELS}
 

@@ -132,6 +132,10 @@ _SIGNATURES = {
     "pfr_multilevel_roi_align_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                           _P, _P, _I, _I, _I, _P),
+    # the same arguments: K4 with bfloat16 operands, float32 level gradients
+    "pfr_multilevel_roi_align_backward_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                               _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -3,7 +3,9 @@ timestamped run directory under the config's ``output`` with a copy of the
 config, the metrics logger, then ``configure_trainer(config, logger).fit``.
 ``--device`` defaults to ``cuda`` and raises without a card; pass ``cpu`` to
 run the plain path. Without a controller it trains the feature extractor, as
-the JAX ``main.py`` does:
+the JAX ``main.py`` does, in its config's ``compute_dtype``
+(``build_fe_config``'s ``"auto"``: bfloat16 on the card, float32 with
+``--device cpu``):
 
     python -m pets_face_recognition_tpu_torch.main \
         --config pets_face_recognition_tpu_torch/configs/fe_smoke.py [--device cpu]

@@ -13,6 +13,14 @@ between stages; ``convnext_tiny`` and ``convnext_small`` are the JAX presets.
 ``head_fc``; ``pwconv1``/``pwconv2`` are ``Linear`` layers over channels-last
 pixels, as flax's ``Dense``.
 
+``dtype`` (float32, the default, or bfloat16) is the JAX modules' compute
+``dtype``: the convolutions and the pointwise layers compute in it
+(``layers.Conv2d`` / ``layers.Linear``), every LayerNorm computes in float32
+and returns float32 (flax ``LayerNorm(dtype=float32)``), and the layer
+scale ``gamma`` (float32) brings each block's branch, and so the residual
+stream, to float32, as flax promotes it (JAX ``convnext.py:25-60``). The
+head's norm and ``head_fc`` stay float32; parameters stay float32.
+
 Where flax and torch differ: the stem and downsampling convolutions use
 flax's default ``SAME`` padding, which pads a size that is not a multiple of
 the stride (``pad // 2`` before, the rest after), mirrored by ``F.pad``;
@@ -28,20 +36,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, Linear
+
 LN_EPS = 1e-6          # the JAX model's LayerNorm epsilon
 
 
 class ChannelNorm(nn.LayerNorm):
-    """LayerNorm over the channels of an NCHW map (flax's LayerNorm on NHWC)."""
+    """LayerNorm over the channels of an NCHW map (flax's LayerNorm on NHWC),
+    in float32."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return super().forward(x.float().permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
-class SameConv(nn.Conv2d):
+class SameConv(Conv2d):
     """A ``kernel_size == stride`` convolution with ``SAME`` padding: each
     spatial size is padded up to a multiple of the stride, ``pad // 2``
     before and the rest after, as ``lax.padtype_to_pads`` does."""
@@ -55,16 +66,16 @@ class SameConv(nn.Conv2d):
 
 
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, dim: int, layer_scale: float = 1e-6):
+    def __init__(self, dim: int, layer_scale: float = 1e-6, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim, dtype=dtype)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.pwconv1 = nn.Linear(dim, 4 * dim)
-        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.pwconv1 = Linear(dim, 4 * dim, dtype=dtype)
+        self.pwconv2 = Linear(4 * dim, dim, dtype=dtype)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm(self.dwconv(x).permute(0, 2, 3, 1))
+        y = self.norm(self.dwconv(x).float().permute(0, 2, 3, 1))
         y = self.pwconv2(F.gelu(self.pwconv1(y), approximate="tanh")) * self.gamma
         return x + y.permute(0, 3, 1, 2)
 
@@ -74,18 +85,19 @@ class ConvNeXt(nn.Module):
 
     def __init__(self, depths: Sequence[int] = (3, 3, 9, 3),
                  dims: Sequence[int] = (96, 192, 384, 768), num_classes: int = 0,
-                 features_only: bool = False):
+                 features_only: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depths, self.features_only = tuple(depths), features_only
         self.out_channels = {f"c{s + 2}": d for s, d in enumerate(dims)}
-        self.stem_conv = SameConv(3, dims[0], 4, stride=4)
+        self.stem_conv = SameConv(3, dims[0], 4, stride=4, dtype=dtype)
         self.stem_norm = ChannelNorm(dims[0])
         for s in range(4):
             if s > 0:
                 setattr(self, f"downsample_norm{s}", ChannelNorm(dims[s - 1]))
-                setattr(self, f"downsample_conv{s}", SameConv(dims[s - 1], dims[s], 2, stride=2))
+                setattr(self, f"downsample_conv{s}",
+                        SameConv(dims[s - 1], dims[s], 2, stride=2, dtype=dtype))
             for b in range(depths[s]):
-                setattr(self, f"stage{s}_block{b}", ConvNeXtBlock(dims[s]))
+                setattr(self, f"stage{s}_block{b}", ConvNeXtBlock(dims[s], dtype=dtype))
         if not features_only:
             self.head_norm = nn.LayerNorm(dims[-1], eps=LN_EPS)
             self.head_fc = nn.Linear(dims[-1], num_classes) if num_classes else None
@@ -101,7 +113,7 @@ class ConvNeXt(nn.Module):
             feats[f"c{s + 2}"] = x
         if self.features_only:
             return feats
-        x = self.head_norm(x.mean(dim=(2, 3)))
+        x = self.head_norm(x.float().mean(dim=(2, 3)))
         return self.head_fc(x) if self.head_fc is not None else x
 
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, check_quant_dtype
+from .layers import Conv2d
 from .quant import ActQuant, QuantConv
 
 
@@ -31,10 +31,9 @@ class FPN(nn.Module):
                  add_p6: bool = True, quant: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_quant_dtype(quant, dtype)
         self.in_levels = tuple(in_levels)
         self.add_p6 = add_p6
-        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d if quant is None else partial(QuantConv, mode=quant), dtype=dtype)
         self.inner_blocks = nn.ModuleList(conv(c, out_channels, 1) for c in in_channels)
         self.layer_blocks = nn.ModuleList(
             conv(out_channels, out_channels, 3, padding=1) for _ in in_channels)

@@ -29,13 +29,6 @@ def check_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
-def check_quant_dtype(quant: str | None, dtype: torch.dtype) -> None:
-    """The int8 twins compute their epilogues in float32 only."""
-    if quant is not None and check_dtype(dtype) != torch.float32:
-        raise ValueError("the int8 twins (quant) compute in float32; dtype=bfloat16 "
-                         "with quant is not ported")
-
-
 def _bias_after(y: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype,
                 dim: int) -> torch.Tensor:
     if bias is None:

@@ -10,12 +10,14 @@ symmetric at scale 127 (no zero point): ``q = clip(round(x * (127 / s)),
   in ``"int8"`` mode it returns ``(int8(x), scale)``.
 - :class:`QuantConv`, an ``nn.Conv2d`` that keeps its float ``weight`` (and
   ``bias``), so every float ``state_dict`` and ``weights.py`` bridge still
-  loads. In ``"calibrate"`` mode it runs the float32 convolution and
-  snapshots ``weight_q`` (int8) and ``w_scale`` (per output channel); in
-  ``"int8"`` mode it takes ``(x_int8, s_x)``, multiplies int8 by int8 with
-  exact int32 accumulation (an im2col of the int8 input, then
-  ``torch._int_mm``, on the card cuBLASLt's int8 GEMM) and dequantizes in
-  float32 as the JAX package does.
+  loads. It computes in a ``dtype``, float32 or bfloat16 (JAX's default;
+  every model passes its own). In ``"calibrate"`` mode it runs the float
+  convolution in ``dtype`` and snapshots ``weight_q`` (int8) and ``w_scale``
+  (per output channel); in ``"int8"`` mode it takes ``(x_int8, s_x)``,
+  multiplies int8 by int8 with exact int32 accumulation (an im2col of the
+  int8 input, then ``torch._int_mm``, on the card cuBLASLt's int8 GEMM),
+  dequantizes in float32 and casts the result to ``dtype`` once, as the JAX
+  package does.
 
 The quant state lives in buffers that a float model lacks (``scale``,
 ``seen``, ``weight_q``, ``w_scale``), so a float ``state_dict`` loads into a
@@ -32,6 +34,7 @@ import torch
 from torch import nn
 
 from ..device import float32_matmuls
+from .layers import check_dtype
 
 QUANT_MODES = ("calibrate", "int8")
 # ``torch._int_mm`` on a CUDA device takes more than 16 rows and K and N that
@@ -144,21 +147,26 @@ def int8_conv2d_acc(xq: torch.Tensor, weight_q: torch.Tensor, stride, padding) -
 
 class QuantConv(nn.Conv2d):
     """``nn.Conv2d`` (float ``weight`` and ``bias``, torchvision names) with an
-    int8 execution path.
+    int8 execution path, computing in ``dtype`` (the JAX ``QuantConv.dtype``,
+    bfloat16 by default as there; parameters and quant state stay float32).
 
     ``"calibrate"``: ``w_scale = max(max|weight| per output channel, 1e-12)``
     and ``weight_q = quantize_symmetric(weight, w_scale)`` are snapshotted,
-    and the float32 convolution runs with TF32 off (the float model's own
-    op: the calibrate forward is the float forward). ``"int8"``: ``forward(x_int8,
-    s_x)`` computes the int32 accumulators ``yq`` (:func:`int8_conv2d_acc`),
-    then ``y = float(yq) * ((s_x * w_scale) * (1 / (127 * 127))) + bias`` in
-    float32, as the JAX ``QuantConv``. The output is NCHW with channels-last
-    strides, so that a following 1x1 convolution reads it without a copy.
+    and the float model's own op runs with TF32 off: the convolution of the
+    input and weight cast to ``dtype``, the bias added in ``dtype``
+    (``models/layers.py``; JAX ``quant.py:119-128``). ``"int8"``:
+    ``forward(x_int8, s_x)`` computes the int32 accumulators ``yq``
+    (:func:`int8_conv2d_acc`), then ``y = float(yq) * ((s_x * w_scale) * (1 /
+    (127 * 127))) + bias`` in float32, cast to ``dtype`` once (JAX
+    ``quant.py:136-143``). The output is NCHW with channels-last strides, so
+    that a following 1x1 convolution reads it without a copy.
     """
 
-    def __init__(self, *args, mode: str | None = None, **kwargs):
+    def __init__(self, *args, mode: str | None = None, dtype: torch.dtype = torch.bfloat16,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.mode = _check_mode(mode)
+        self.compute_dtype = check_dtype(dtype)
         self.register_buffer("weight_q", torch.zeros(self.weight.shape, dtype=torch.int8))
         self.register_buffer("w_scale", torch.ones(self.out_channels, dtype=torch.float32))
 
@@ -172,8 +180,12 @@ class QuantConv(nn.Conv2d):
     def forward(self, x: torch.Tensor, s_x: torch.Tensor | None = None) -> torch.Tensor:
         if self.mode == "calibrate":
             self.snapshot()
+            dt = self.compute_dtype
             with float32_matmuls():
-                return super().forward(x)
+                if dt == torch.float32:
+                    return super().forward(x.float())
+                y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+                return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
         if self.mode != "int8":
             raise RuntimeError("QuantConv: set a quant mode ('calibrate' or 'int8') first")
         if x.dtype != torch.int8 or s_x is None:
@@ -183,7 +195,7 @@ class QuantConv(nn.Conv2d):
         y = yq.float() * scale
         if self.bias is not None:
             y = y + self.bias
-        return y.permute(0, 3, 1, 2)
+        return y.to(self.compute_dtype).permute(0, 3, 1, 2)
 
 
 def quant_modules(model: nn.Module) -> Iterator[nn.Module]:

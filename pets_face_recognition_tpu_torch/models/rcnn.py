@@ -17,8 +17,8 @@ ResNet-50-FPN Faster R-CNN (100 detections), and the box-only MobileNetV3-Large
 and ConvNeXt-T ones over p4 and p5. The RPN's NMS is kernel K2, as is the box
 NMS when more than one detection is kept; the RoIAligns (box 7x7, keypoint and mask 14x14) run
 forward through kernel K3 and, in training, backward through kernel K4
-(``MultilevelRoIAlign``); their wrappers take the plain versions only for CPU
-tensors.
+(``MultilevelRoIAlign``), each in its bfloat16 instance when the levels are
+bfloat16; their wrappers take the plain versions only for CPU tensors.
 
 The two samplers take uniform noise, ``sampler_noise = {"rpn": (B, N_anchors),
 "box": (B, rpn_post_nms_top_n_train + G)}``, or draw it from ``generator``
@@ -119,8 +119,8 @@ class GeneralizedRCNN(nn.Module):
     backbone carries its own flags (JAX ``GeneralizedRCNN(quant, quant_kp)``).
     ``dtype`` is the compute dtype of the RPN and the RoI heads (JAX
     ``GeneralizedRCNN.dtype``); the backbone carries its own. With bfloat16
-    levels the RoIAligns run K3's bfloat16 instance; training (K4) takes
-    float32 levels only.
+    levels the RoIAligns run K3's bfloat16 instance forward and K4's backward
+    in training.
     """
 
     def __init__(self, backbone: BackboneWithFPN, cfg: RCNNConfig, quant: str | None = None,
@@ -379,16 +379,19 @@ _P4_P5 = dict(num_classes=2, anchor_sizes=((32, 64, 128, 256, 512),) * 3,
 
 
 def swin_tiny_keypoint_rcnn(num_classes: int = 2, num_keypoints: int = 3, window_size: int = 7,
+                            dtype: torch.dtype = torch.float32,
                             **overrides) -> GeneralizedRCNN:
     """Swin-T keypoint R-CNN (JAX ``swin_tiny_keypoint_rcnn``): a 4-level FPN
     over the Swin stages (widths 96, 192, 384, 768), 1 detection. Its input's
     sides must be multiples of ``window_size x 32`` (224 at window 7).
-    ``overrides`` set :class:`RCNNConfig` fields."""
+    ``overrides`` set :class:`RCNNConfig` fields; ``dtype`` is the compute
+    dtype of trunk, FPN and model, as JAX's ``clone(dtype=...)`` at the three
+    levels builds them."""
     cfg = RCNNConfig(num_classes=num_classes, num_keypoints=num_keypoints,
                      box_detections_per_img=1, **overrides)
     body = SwinTransformer(hidden_dim=96, layers=(2, 2, 6, 2), heads=(3, 6, 12, 24),
-                           window_size=window_size, features_only=True)
-    return GeneralizedRCNN(_fpn_over(body), cfg)
+                           window_size=window_size, features_only=True, dtype=dtype)
+    return GeneralizedRCNN(_fpn_over(body, dtype=dtype), cfg, dtype=dtype)
 
 
 def fasterrcnn_resnet50_fpn(num_classes: int = 2, dtype: torch.dtype = torch.float32,
@@ -418,24 +421,29 @@ def mobile_net_v3_large_rcnn(dtype: torch.dtype = torch.float32,
     return GeneralizedRCNN(_fpn_over(body, ("c4", "c5"), dtype), RCNNConfig(**kw), dtype=dtype)
 
 
-def convnetx_tiny_rcnn(**overrides) -> GeneralizedRCNN:
+def convnetx_tiny_rcnn(dtype: torch.dtype = torch.float32, **overrides) -> GeneralizedRCNN:
     """Box-only ConvNeXt-T Faster R-CNN (JAX ``convnetx_tiny_rcnn``, the
     reference's typo kept): a 2-level FPN over ``c4``/``c5`` (384, 768), the
     anchors of :func:`mobile_net_v3_large_rcnn` with ratios ``(10/14, 1,
-    14/10)``, 150/150 test proposals, 1 detection."""
+    14/10)``, 150/150 test proposals, 1 detection; ``dtype`` is the compute
+    dtype of every part."""
     kw = dict(_P4_P5, aspect_ratios=(10 / 14, 1.0, 14 / 10))
     kw.update(overrides)
-    body = ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), features_only=True)
-    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5")), RCNNConfig(**kw))
+    body = ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), features_only=True,
+                    dtype=dtype)
+    return GeneralizedRCNN(_fpn_over(body, ("c4", "c5"), dtype), RCNNConfig(**kw), dtype=dtype)
 
 
-def convnext_tiny_keypoint_rcnn(**overrides) -> GeneralizedRCNN:
+def convnext_tiny_keypoint_rcnn(dtype: torch.dtype = torch.float32,
+                                **overrides) -> GeneralizedRCNN:
     """ConvNeXt-T keypoint R-CNN over the 4-level pyramid (JAX
-    ``convnext_tiny_keypoint_rcnn``): 3 keypoints, 1 detection."""
+    ``convnext_tiny_keypoint_rcnn``): 3 keypoints, 1 detection; ``dtype`` is
+    the compute dtype of every part."""
     kw = dict(num_classes=2, num_keypoints=3, box_detections_per_img=1)
     kw.update(overrides)
-    body = ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), features_only=True)
-    return GeneralizedRCNN(_fpn_over(body), RCNNConfig(**kw))
+    body = ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), features_only=True,
+                    dtype=dtype)
+    return GeneralizedRCNN(_fpn_over(body, dtype=dtype), RCNNConfig(**kw), dtype=dtype)
 
 
 def frozen_twin(model: GeneralizedRCNN) -> GeneralizedRCNN:

@@ -18,7 +18,8 @@ and so do the norms where they read running statistics (flax's
 ``quant`` (``None``, ``"calibrate"`` or ``"int8"``) builds the serving int8
 twin (``models/quant.py``): every block's convolutions become
 :class:`~.quant.QuantConv` behind :class:`~.quant.ActQuant` points, under the
-same parameter names; the stem, the norms and the ReLUs stay float. A float
+same parameter names, computing in ``dtype`` (their int32 sums exact); the
+stem, the norms and the ReLUs stay float. A float
 ``state_dict`` loads into the twin with ``quant.load_float_state_dict`` (a
 non-strict load whose only missing keys are the quant buffers).
 """
@@ -32,7 +33,7 @@ import torch
 from torch import nn
 
 from .. import parallel
-from .layers import Conv2d, Linear, check_dtype, check_quant_dtype
+from .layers import Conv2d, Linear, check_dtype
 from .quant import ActQuant, QuantConv, dequantize
 
 
@@ -129,10 +130,11 @@ class Bottleneck(nn.Module):
 
     With ``quant`` (JAX ``Bottleneck(quant=...)``) the block input is
     quantized once (``in_q``) and read by ``conv1``, by the projection
-    shortcut and, dequantized as ``xq * (s_x / 127)``, by the identity
-    residual (in calibrate mode the identity residual is the float input);
-    ``q1`` and ``q2`` sit between the convolutions. ``dtype``: the
-    convolutions' compute dtype (``norm_layer`` carries the norms').
+    shortcut and, dequantized as ``xq * (s_x / 127)`` and rounded to
+    ``dtype`` (JAX ``_dequant``), by the identity residual (in calibrate mode
+    the identity residual is the input in ``dtype``); ``q1`` and ``q2`` sit
+    between the convolutions. ``dtype``: the convolutions' compute dtype,
+    the int8 twins' included (``norm_layer`` carries the norms').
     """
 
     expansion = 4
@@ -141,9 +143,8 @@ class Bottleneck(nn.Module):
                  norm_layer: Callable[[int], nn.Module], quant: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_quant_dtype(quant, dtype)
         out_ch = width * self.expansion
-        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d if quant is None else partial(QuantConv, mode=quant), dtype=dtype)
         self.conv1 = conv(in_ch, width, 1, bias=False)
         self.bn1 = norm_layer(width)
         self.conv2 = conv(width, width, 3, stride, 1, bias=False)
@@ -156,6 +157,7 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 conv(in_ch, out_ch, 1, stride, bias=False), norm_layer(out_ch))
         self.quant = quant is not None
+        self.dtype = dtype
         if self.quant:
             self.in_q, self.q1, self.q2 = (ActQuant(quant) for _ in range(3))
 
@@ -176,9 +178,9 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             residual = self.downsample[1](self.downsample[0](xq, s_x))
         elif self.in_q.mode == "int8":
-            residual = dequantize(xq, s_x)
+            residual = dequantize(xq, s_x).to(self.dtype)
         else:
-            residual = x
+            residual = x.to(self.dtype)
         return self.relu(y + residual)
 
 
@@ -187,8 +189,9 @@ class BasicBlock(nn.Module):
     needed. With ``quant`` the block input is quantized once (``in_q``) and
     read by ``conv1``, by the projection shortcut and, dequantized, by the
     identity residual (the float input in calibrate mode); ``q1`` sits between
-    the convolutions (JAX ``BasicBlock(quant=...)``). ``dtype``: the
-    convolutions' compute dtype (``norm_layer`` carries the norms')."""
+    the convolutions (JAX ``BasicBlock(quant=...)``); the dequantized residual
+    and the calibrate one in ``dtype``. ``dtype``: the convolutions' compute
+    dtype (``norm_layer`` carries the norms')."""
 
     expansion = 1
 
@@ -196,8 +199,7 @@ class BasicBlock(nn.Module):
                  norm_layer: Callable[[int], nn.Module], quant: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_quant_dtype(quant, dtype)
-        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d if quant is None else partial(QuantConv, mode=quant), dtype=dtype)
         self.conv1 = conv(in_ch, width, 3, stride, 1, bias=False)
         self.bn1 = norm_layer(width)
         self.conv2 = conv(width, width, 3, 1, 1, bias=False)
@@ -208,6 +210,7 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(
                 conv(in_ch, width, 1, stride, bias=False), norm_layer(width))
         self.quant = quant is not None
+        self.dtype = dtype
         if self.quant:
             self.in_q, self.q1 = ActQuant(quant), ActQuant(quant)
 
@@ -226,9 +229,9 @@ class BasicBlock(nn.Module):
         if self.downsample is not None:
             residual = self.downsample[1](self.downsample[0](xq, s_x))
         elif self.in_q.mode == "int8":
-            residual = dequantize(xq, s_x)
+            residual = dequantize(xq, s_x).to(self.dtype)
         else:
-            residual = x
+            residual = x.to(self.dtype)
         return self.relu(y + residual)
 
 
@@ -251,7 +254,6 @@ class ResNet(nn.Module):
                  quant: str | None = None, block: type[nn.Module] = Bottleneck,
                  dtype: torch.dtype = torch.float32, fc_dtype: torch.dtype | None = None):
         super().__init__()
-        check_quant_dtype(quant, dtype)
         norm_layer = partial(norm_layer, dtype=dtype)
         self.features_only = features_only
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, dtype=dtype)

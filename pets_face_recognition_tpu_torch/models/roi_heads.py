@@ -32,7 +32,7 @@ from .. import parallel
 from ..losses import cross_entropy, optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from ..ops.nms import nms_keep_sorted_batch_cuda
-from .layers import Conv2d, ConvTranspose2d, Linear, check_quant_dtype
+from .layers import Conv2d, ConvTranspose2d, Linear
 from .quant import ActQuant, QuantConv
 from .rpn import _top_k, batched_iou, sample_balanced
 
@@ -105,14 +105,14 @@ class KeypointHead(nn.Module):
 
     With ``quant`` each convolution is a :class:`~.quant.QuantConv` with its
     bias behind its own :class:`~.quant.ActQuant` (``kps_q.{i}``, the JAX
-    ``kps_q{i+1}`` -> ``kps_fcn{i+1}`` pairs); the ReLUs stay float.
+    ``kps_q{i+1}`` -> ``kps_fcn{i+1}`` pairs), its output in ``dtype``; the
+    ReLUs stay in it.
     """
 
     def __init__(self, in_channels: int, channels: int = 512, n_convs: int = 8,
                  quant: str | None = None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_quant_dtype(quant, dtype)
-        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d if quant is None else partial(QuantConv, mode=quant), dtype=dtype)
         self.n_convs = n_convs
         for i in range(n_convs):
             self.add_module(str(2 * i), conv(in_channels if i == 0 else channels, channels,

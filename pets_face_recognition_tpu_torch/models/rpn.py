@@ -22,7 +22,7 @@ from torch import nn
 from ..losses import optax_sigmoid_ce, smooth_l1
 from ..ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ..ops.nms import nms_keep_sorted_batch_cuda
-from .layers import Conv2d, check_quant_dtype
+from .layers import Conv2d
 from .quant import ActQuant, QuantConv
 
 
@@ -42,9 +42,8 @@ class RPNHead(nn.Module):
     def __init__(self, in_channels: int, num_anchors: int, quant: str | None = None,
                  num_levels: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_quant_dtype(quant, dtype)
         self.quant = quant is not None
-        conv = partial(Conv2d, dtype=dtype) if quant is None else partial(QuantConv, mode=quant)
+        conv = partial(Conv2d if quant is None else partial(QuantConv, mode=quant), dtype=dtype)
         self.conv = conv(in_channels, in_channels, 3, padding=1)
         self.cls_logits = Conv2d(in_channels, num_anchors, 1, dtype=dtype)
         self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1, dtype=dtype)

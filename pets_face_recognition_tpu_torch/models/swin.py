@@ -21,6 +21,17 @@ pos_embedding,to_out}``, ``...mlp_block.fn.norm``, ``...mlp_block.fn.fn.net.
 port computes them, and a load checks that incoming ones mask the same
 entries and drops them.
 
+``dtype`` (float32, the default, or bfloat16) is the JAX modules' compute
+``dtype``: every Dense layer (``to_qkv``, ``to_out``, the MLP, the patch
+merging) computes in it through ``layers.Linear``, so the token stream
+between the residual adds is in ``dtype``; every LayerNorm computes in
+float32 and returns float32 (flax ``LayerNorm(dtype=float32)``); attention
+takes the scores ``q k^T`` as float32 sums of the ``dtype`` operands, adds
+the float32 bias and masks, takes the softmax in float32, rounds it to the
+values' dtype and sums its product with ``v`` in float32 (JAX
+``swin.py:81-133``). The head's LayerNorm and ``head_fc`` stay float32.
+Parameters stay float32.
+
 Where flax and torch differ: flax ``nn.gelu`` is the tanh approximation,
 flax ``LayerNorm`` has eps 1e-6, and patch merging flattens each patch as
 ``(c fh fw)``, the channel order of ``F.pixel_unshuffle`` (used here) and of
@@ -36,6 +47,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Linear
 
 LN_EPS = 1e-6          # flax LayerNorm's default
 MASK = -1e9            # the JAX package's additive mask value
@@ -70,14 +83,14 @@ class WindowAttention(nn.Module):
     column ``left_right``, with windows ordered ``(nh nw)``."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, shifted: bool, window_size: int,
-                 relative_pos_embedding: bool = True):
+                 relative_pos_embedding: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         self.scale = head_dim ** -0.5
         self.window_size, self.shifted = window_size, shifted
         self.relative_pos_embedding = relative_pos_embedding
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.to_qkv = Linear(dim, inner * 3, bias=False, dtype=dtype)
         w = window_size
         if relative_pos_embedding:
             self.pos_embedding = nn.Parameter(torch.randn(2 * w - 1, 2 * w - 1))
@@ -86,7 +99,7 @@ class WindowAttention(nn.Module):
                                                                + idx[..., 1]), persistent=False)
         else:
             self.pos_embedding = nn.Parameter(torch.randn(w * w, w * w))
-        self.to_out = nn.Linear(inner, dim)
+        self.to_out = Linear(inner, dim, dtype=dtype)
         if shifted:
             ul, lr = shift_masks(w, w // 2)
             self.register_buffer("ul_mask", torch.from_numpy(ul), persistent=False)
@@ -121,13 +134,15 @@ class WindowAttention(nn.Module):
         # -> (3, B, heads, nh nw, wh ww, d)
         q, k, v = qkv.permute(5, 0, 6, 1, 3, 2, 4, 7).reshape(
             3, B, self.heads, nh * nw, w * w, self.head_dim).unbind(0)
-        dots = torch.matmul(q, k.transpose(-1, -2)) * self.scale + self.bias()
+        # float32 sums of the compute-dtype products (JAX's
+        # preferred_element_type=float32): the operands are exact in float32
+        dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.scale + self.bias()
         if self.shifted:
             win = torch.arange(nh * nw, device=x.device)
-            mask = ((win // nw == nh - 1).to(x.dtype)[:, None, None] * self.ul_mask
-                    + (win % nw == nw - 1).to(x.dtype)[:, None, None] * self.lr_mask)
+            mask = ((win // nw == nh - 1).float()[:, None, None] * self.ul_mask
+                    + (win % nw == nw - 1).float()[:, None, None] * self.lr_mask)
             dots = dots + mask
-        out = torch.matmul(dots.softmax(dim=-1), v)
+        out = torch.matmul(dots.softmax(dim=-1).to(v.dtype).float(), v.float())
         out = out.reshape(B, self.heads, nh, nw, w, w, self.head_dim).permute(
             0, 2, 4, 3, 5, 1, 6).reshape(B, H, W, self.heads * self.head_dim)
         out = self.to_out(out)
@@ -137,7 +152,8 @@ class WindowAttention(nn.Module):
 
 
 class _PreNorm(nn.Module):
-    """``fn(norm(x))``, named as the reference's ``PreNorm``."""
+    """``fn(norm(x))``, named as the reference's ``PreNorm``; the norm in
+    float32."""
 
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
@@ -145,7 +161,7 @@ class _PreNorm(nn.Module):
         self.fn = fn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn(self.norm(x))
+        return self.fn(self.norm(x.float()))
 
 
 class _Residual(nn.Module):
@@ -160,10 +176,10 @@ class _Residual(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(approximate="tanh"),
-                                 nn.Linear(hidden, dim))
+        self.net = nn.Sequential(Linear(dim, hidden, dtype=dtype), nn.GELU(approximate="tanh"),
+                                 Linear(hidden, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -173,11 +189,12 @@ class SwinBlock(nn.Module):
     """Pre-norm window attention and a 4x GELU MLP, each residual."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, mlp_dim: int, shifted: bool,
-                 window_size: int, relative_pos_embedding: bool = True):
+                 window_size: int, relative_pos_embedding: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attention_block = _Residual(_PreNorm(dim, WindowAttention(
-            dim, heads, head_dim, shifted, window_size, relative_pos_embedding)))
-        self.mlp_block = _Residual(_PreNorm(dim, _FeedForward(dim, mlp_dim)))
+            dim, heads, head_dim, shifted, window_size, relative_pos_embedding, dtype)))
+        self.mlp_block = _Residual(_PreNorm(dim, _FeedForward(dim, mlp_dim, dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mlp_block(self.attention_block(x))
@@ -187,10 +204,11 @@ class PatchMerging(nn.Module):
     """Space-to-depth by ``downscaling_factor`` and a linear projection:
     NCHW in, ``(B, H/f, W/f, out_channels)`` tokens out."""
 
-    def __init__(self, in_channels: int, out_channels: int, downscaling_factor: int):
+    def __init__(self, in_channels: int, out_channels: int, downscaling_factor: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.downscaling_factor = downscaling_factor
-        self.linear = nn.Linear(in_channels * downscaling_factor ** 2, out_channels)
+        self.linear = Linear(in_channels * downscaling_factor ** 2, out_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pixel_unshuffle(x, self.downscaling_factor)   # channels (c fh fw)
@@ -203,14 +221,14 @@ class StageModule(nn.Module):
 
     def __init__(self, in_channels: int, hidden_dim: int, layers: int,
                  downscaling_factor: int, num_heads: int, head_dim: int, window_size: int,
-                 relative_pos_embedding: bool = True):
+                 relative_pos_embedding: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         if layers % 2:
             raise ValueError(f"a stage holds pairs of blocks, not {layers}")
-        self.patch_partition = PatchMerging(in_channels, hidden_dim, downscaling_factor)
+        self.patch_partition = PatchMerging(in_channels, hidden_dim, downscaling_factor, dtype)
         self.layers = nn.ModuleList(
             nn.ModuleList(SwinBlock(hidden_dim, num_heads, head_dim, hidden_dim * 4, shifted,
-                                    window_size, relative_pos_embedding)
+                                    window_size, relative_pos_embedding, dtype)
                           for shifted in (False, True))
             for _ in range(layers // 2))
 
@@ -230,7 +248,7 @@ class SwinTransformer(nn.Module):
                  heads: Sequence[int] = (3, 6, 12, 24), head_dim: int = 32,
                  window_size: int = 7, downscaling_factors: Sequence[int] = (4, 2, 2, 2),
                  relative_pos_embedding: bool = True, num_classes: int = 0,
-                 features_only: bool = False):
+                 features_only: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.features_only = features_only
         self.divisor = window_size * math.prod(downscaling_factors)
@@ -239,7 +257,7 @@ class SwinTransformer(nn.Module):
         for s in range(4):
             setattr(self, f"stage{s + 1}", StageModule(
                 in_ch, hidden_dim * 2 ** s, layers[s], downscaling_factors[s], heads[s],
-                head_dim, window_size, relative_pos_embedding))
+                head_dim, window_size, relative_pos_embedding, dtype))
             in_ch = hidden_dim * 2 ** s
         if not features_only:
             head = [nn.LayerNorm(in_ch, eps=LN_EPS)]
@@ -258,7 +276,7 @@ class SwinTransformer(nn.Module):
             feats[f"c{s + 2}"] = x = x.permute(0, 3, 1, 2)
         if self.features_only:
             return feats
-        return self.mlp_head(x.mean(dim=(2, 3)))
+        return self.mlp_head(x.float().mean(dim=(2, 3)))
 
 
 def swin_t(**kw) -> SwinTransformer:

@@ -16,11 +16,14 @@ each can reach. ``MultilevelRoIAlign`` ties the two into one
 ``torch.autograd.Function``. Numerics: torchvision ``aligned=False`` with a
 fixed ``sampling_ratio``.
 
-K3 has a second instance for bfloat16 levels, which a detector computing in
-bfloat16 hands it: the JAX kernel's ``compute_dtype=bfloat16``, with the
-interpolation weights rounded to bfloat16, float32 sums and a float32
-result; ``multilevel_roi_align_bf16`` is its plain version, and the wrapper
-picks the instance from the levels' dtype. K4 takes float32 levels only.
+K3 and K4 each have a second instance for bfloat16 levels, which a detector
+computing in bfloat16 hands them: the JAX kernels' ``compute_dtype=bfloat16``.
+K3's rounds the interpolation weights to bfloat16 and sums in float32 into a
+float32 result (plain version ``multilevel_roi_align_bf16``); K4's rounds the
+weights and each sample's cotangent ``g / s^2`` to bfloat16, sums in float32
+and rounds the level gradients to the levels' bfloat16 (plain version
+``multilevel_roi_align_backward_bf16``). The wrappers pick the instance from
+the levels' dtype, so a float32 detector stays float32 throughout.
 """
 
 from __future__ import annotations
@@ -191,15 +194,45 @@ def multilevel_roi_align_backward(grad_out: torch.Tensor,
     scatter-adds the four weighted taps per sample into zeroed levels with
     ``index_add_``. Returns float32 levels of ``level_shapes``.
     """
+    return _backward(grad_out, level_shapes, rois, roi_batch_idx, output_size, strides,
+                     sampling_ratio, canonical_scale, canonical_level, min_level, max_level,
+                     bf16=False)
+
+
+def multilevel_roi_align_backward_bf16(grad_out: torch.Tensor,
+                                       level_shapes: list[tuple[int, int, int, int]],
+                                       rois: torch.Tensor, roi_batch_idx: torch.Tensor,
+                                       output_size: tuple[int, int], strides: tuple[int, ...],
+                                       sampling_ratio: int = 2, canonical_scale: float = 224.0,
+                                       canonical_level: int = 4, min_level: int = 2,
+                                       max_level: int = 5) -> list[torch.Tensor]:
+    """Plain K4 with bfloat16 operands, the JAX backward's default
+    ``compute_dtype=bfloat16`` (``pallas_roi_align.py:399-403``): each
+    sample's cotangent ``g / s^2`` and its row and column weights rounded to
+    bfloat16, the products and sums in float32. Returns float32 levels of
+    ``level_shapes``, as the kernel writes them (the wrapper rounds them to
+    the levels' dtype)."""
+    return _backward(grad_out, level_shapes, rois, roi_batch_idx, output_size, strides,
+                     sampling_ratio, canonical_scale, canonical_level, min_level, max_level,
+                     bf16=True)
+
+
+def _backward(grad_out, level_shapes, rois, roi_batch_idx, output_size, strides,
+              sampling_ratio, canonical_scale, canonical_level, min_level, max_level,
+              bf16: bool) -> list[torch.Tensor]:
     oh, ow = output_size
     s = sampling_ratio
     K, _, _, C = grad_out.shape
     B = level_shapes[0][0]
-    idx, wts, oob, P = _taps(level_shapes, rois, roi_batch_idx, output_size,
-                             strides, s, canonical_scale, canonical_level,
-                             min_level, max_level)
-    gs = (grad_out.float() / (s * s))[:, :, None, :, None, :].expand(
-        K, oh, s, ow, s, C).reshape(K, oh * s, ow * s, C)
+    idx, wts, oob, P, axis_w = _taps(level_shapes, rois, roi_batch_idx, output_size, strides,
+                                     s, canonical_scale, canonical_level, min_level, max_level,
+                                     axis_weights=True)
+    g = grad_out.float() / (s * s)
+    if bf16:
+        hy, ly, hx, lx = (w.to(torch.bfloat16).float() for w in axis_w)
+        wts = [hy * hx, hy * lx, ly * hx, ly * lx]
+        g = g.to(torch.bfloat16).float()
+    gs = g[:, :, None, :, None, :].expand(K, oh, s, ow, s, C).reshape(K, oh * s, ow * s, C)
     gs = torch.where(oob[..., None], torch.zeros((), device=gs.device), gs)
     # one buffer per tap, summed last tap first: the order in which autograd
     # through the plain forward accumulates, so the two agree to the bit
@@ -358,22 +391,32 @@ def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
                                        strides: tuple[int, ...], sampling_ratio: int = 2,
                                        canonical_scale: float = 224.0,
                                        canonical_level: int = 4, min_level: int = 2,
-                                       max_level: int = 5) -> list[torch.Tensor]:
+                                       max_level: int = 5,
+                                       dtype: torch.dtype = torch.float32,
+                                       out_dtype: torch.dtype | None = None
+                                       ) -> list[torch.Tensor]:
     """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
     Same arguments and result as :func:`multilevel_roi_align_backward`; at most
-    4 levels and 32 x 32 output cells. The RoIs are sorted by (level, image),
+    4 levels and 32 x 32 output cells. ``dtype`` is the levels' type:
+    ``torch.bfloat16`` takes the bfloat16 instance (plain version
+    :func:`multilevel_roi_align_backward_bf16`), whose float32 gradients are
+    then rounded to ``out_dtype`` (by default ``dtype``; ``torch.float32``
+    returns the sums as the kernel writes them). The RoIs are sorted by (level, image),
     stably, and given their :func:`roi_footprints`; the kernel writes every
     element of the level gradients once, summing in a fixed order, so its
     result is the same to the bit from launch to launch. It agrees with the
     plain version to float32 rounding of a short sum. A RoI whose batch index
     is outside ``[0, B)`` adds nothing.
     """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align_backward: levels float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
     if grad_out.device.type == "cpu":
-        return multilevel_roi_align_backward(grad_out, level_shapes, rois, roi_batch_idx,
-                                             output_size, strides, sampling_ratio,
-                                             canonical_scale, canonical_level,
-                                             min_level, max_level)
+        plain = multilevel_roi_align_backward_bf16 if bf16 else multilevel_roi_align_backward
+        grads = plain(grad_out, level_shapes, rois, roi_batch_idx, output_size, strides,
+                      sampling_ratio, canonical_scale, canonical_level, min_level, max_level)
+        return [d.to(out_dtype or dtype) for d in grads]
     hs, ws, sts = _level_args(level_shapes, strides, min_level, max_level)
     kernels.check_cuda_f32("roi_align_backward grad", grad_out, 4)
     _check_rois(rois, roi_batch_idx)
@@ -395,16 +438,18 @@ def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
         key, torch.arange(len(level_shapes) * B + 1, dtype=torch.int32, device=dev),
         out_int32=True)
     ptrs = [d.data_ptr() for d in grads] + [None] * (4 - len(grads))
-    kernels.launch("multilevel_roi_align_backward", "pfr_multilevel_roi_align_backward", dev,
+    name = "multilevel_roi_align_backward_bf16" if bf16 else "multilevel_roi_align_backward"
+    kernels.launch(name, f"pfr_{name}", dev,
                    grad_out.data_ptr(), *ptrs, *hs, *ws, *sts, len(grads), B, C,
                    rois.data_ptr(), order.data_ptr(), footprint.data_ptr(),
                    group_start.data_ptr(), oh, ow, sampling_ratio)
-    return grads
+    return [d.to(out_dtype or dtype) for d in grads]
 
 
 class MultilevelRoIAlign(torch.autograd.Function):
     """Differentiable multilevel RoIAlign: forward K3, backward K4 (their
-    plain versions for CPU tensors). Gradients reach the levels only; the RoIs
+    plain versions for CPU tensors), each in the instance of the levels'
+    dtype. Gradients reach the levels only, in the levels' dtype; the RoIs
     and batch indices get none, as in the JAX custom VJP and torchvision.
 
     ``apply(rois, roi_batch_idx, output_size, strides, sampling_ratio,
@@ -419,18 +464,16 @@ class MultilevelRoIAlign(torch.autograd.Function):
         ctx.save_for_backward(rois, roi_batch_idx)
         ctx.args = args
         ctx.level_shapes = [tuple(f.shape) for f in features]
-        ctx.bf16 = features[0].dtype == torch.bfloat16
+        ctx.dtype = features[0].dtype
         return multilevel_roi_align_cuda(list(features), rois, roi_batch_idx, *args)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        if ctx.bf16:
-            raise NotImplementedError("RoIAlign backward (K4) over bfloat16 levels is not "
-                                      "ported; train the detector in float32")
         rois, roi_batch_idx = ctx.saved_tensors
         grads = multilevel_roi_align_backward_cuda(
-            grad_out.contiguous(), ctx.level_shapes, rois, roi_batch_idx, *ctx.args)
+            grad_out.float().contiguous(), ctx.level_shapes, rois, roi_batch_idx, *ctx.args,
+            dtype=ctx.dtype)
         return (None,) * 9 + tuple(grads)
 
 

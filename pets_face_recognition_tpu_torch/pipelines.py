@@ -24,8 +24,10 @@ component that a factory does not support falls back to float with JAX's
 message. :func:`keypoint_detector` binds the dataset-version checkpoints of
 ``KEYPOINT_VARIANTS`` (``Preproc7``-``13``).
 
-Every factory takes the model's compute ``dtype`` (float32 by default; the
-int8 twins compute in float32 only, and their models refuse another). ``PFR_INPUT_DTYPE=bfloat16`` rounds
+Every factory takes the model's compute ``dtype`` (float32 by default), the
+int8 twins' included: in bfloat16 they calibrate in bfloat16 and serve their
+exact int32 sums dequantized in float32 and cast to bfloat16 once, as JAX's
+bench serves the int8 keypoint head on its bfloat16 detector. ``PFR_INPUT_DTYPE=bfloat16`` rounds
 each embedder's input crop to bfloat16, as the JAX ``retrieval_common.py``
 does, and the detector's batch in ``Preproc3``/``Preproc4``.
 """

@@ -84,7 +84,7 @@ def serving_detector(device: str | torch.device = "cuda", seed: int = 0,
     ``seed``; ``quant`` (the ResNet-50 trunk and RPN, scope ``rpn``) and
     ``quant_kp`` (the keypoint head) build its int8 twin over those weights
     (the MobileNetV3 trunk has no int8 path: ``quant`` is refused there);
-    ``dtype`` is its compute dtype (float32 only with an int8 twin)."""
+    ``dtype`` is its compute dtype, the int8 twin's too."""
     dev = resolve_device(device)
     budgets = dict(rpn_pre_nms_top_n_test=RPN_PRE_NMS_TOP_N,
                    rpn_post_nms_top_n_test=RPN_POST_NMS_TOP_N)

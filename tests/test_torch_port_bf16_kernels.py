@@ -2,7 +2,9 @@
 the JAX package's Pallas kernels in interpret mode, on the CPU: K1's bfloat16
 and int8 compute modes and its bfloat16 output
 (``warp_affine_batch_pallas(..., compute_dtype=, out_dtype=)``), and K3 on
-bfloat16 levels (``multilevel_roi_align_pallas(..., compute_dtype=bfloat16)``).
+bfloat16 levels (``multilevel_roi_align_pallas(..., compute_dtype=bfloat16)``)
+and K4 with bfloat16 operands (the gradient of
+``multilevel_roi_align_pallas_diff(..., compute_dtype=bfloat16)``).
 The CUDA instances are held to these plain versions on the card
 (``chip_smoke.py``); here the wrappers' CPU dispatch is checked too.
 
@@ -26,10 +28,13 @@ float32 rounding of the 2 x 2 mean's order: 1e-5 of the value scale.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from pets_face_recognition_tpu.ops.homography import solve_homography
-from pets_face_recognition_tpu.ops.pallas_roi_align import multilevel_roi_align_pallas
+from pets_face_recognition_tpu.ops.pallas_roi_align import (_roi_backward,
+                                                             multilevel_roi_align_pallas,
+                                                             multilevel_roi_align_pallas_diff)
 from pets_face_recognition_tpu.ops.pallas_warp import warp_affine_batch_pallas
 from pets_face_recognition_tpu_torch.ops import homography, roi_align
 
@@ -141,13 +146,60 @@ def test_k3_bf16_matches_the_pallas_kernel(roi_case, out):
     assert np.abs(got.numpy() - f32.numpy()).max() <= 2.0 ** -6 * scale
 
 
-def test_k3_bf16_levels_have_no_backward(roi_case):
-    """K4 takes float32 levels only: the backward over bfloat16 levels raises
-    instead of running another route."""
+@pytest.mark.parametrize("out", [7, 14])
+def test_k4_bf16_matches_the_pallas_backward(roi_case, out):
+    """K4 with bfloat16 operands against the Pallas backward
+    (``compute_dtype=bfloat16``) in interpret mode: both round each sample's
+    cotangent and weights to bfloat16 and sum in float32, in other orders, so
+    the float32 sums (``_roi_backward``, before the custom VJP's cast) agree
+    to 1e-5 of the scale, where the float32 operands' sums lie further off;
+    the gradient through the custom VJP, rounded to the levels' bfloat16,
+    agrees to one bfloat16 step where a sum sits at a rounding boundary (at
+    most 2^-7 of the larger of the two)."""
     feats, rois, bidx = roi_case
+    strides = (4, 8, 16, 32)
+    g = np.random.RandomState(out).randn(len(rois), out, out, feats[0].shape[-1])
+    g = g.astype(np.float32)
+
+    def loss(levels):
+        pooled = multilevel_roi_align_pallas_diff(
+            list(levels), jnp.asarray(rois), jnp.asarray(bidx), (out, out), strides,
+            interpret=True, compute_dtype=jnp.bfloat16)
+        return jnp.sum(pooled * g)
+
+    want = jax.grad(loss)(tuple(f.astype(jnp.bfloat16) for f in feats))
+    shapes = [tuple(f.shape) for f in feats]
+    args = (torch.from_numpy(rois), torch.from_numpy(bidx), (out, out), strides)
+    got = roi_align.multilevel_roi_align_backward_bf16(torch.from_numpy(g), shapes, *args)
+    sums = _roi_backward(jnp.asarray(g), jnp.asarray(rois), shapes, (out, out), strides, 2,
+                         224.0, 4, 2, 5, True, jnp.bfloat16)
+    sums = [np.asarray(w, np.float64) for w in sums]
+    scale = max(float(np.abs(w).max()) for w in sums)
+    f32 = roi_align.multilevel_roi_align_backward(torch.from_numpy(g), shapes, *args)
+
+    def gap(levels):
+        return max(float(np.abs(d.double().numpy() - w).max()) for d, w in zip(levels, sums))
+
+    assert gap(got) <= 1e-5 * scale
+    # float32 operands sit beyond that, a few bfloat16 steps off
+    assert 1e-5 * scale < gap(f32) <= 2.0 ** -6 * scale
+    for d, w in zip(got, want):
+        assert d.dtype == torch.float32 and d.shape == w.shape and w.dtype == jnp.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        rounded = d.to(torch.bfloat16).float().numpy()
+        step = 2.0 ** -7 * np.maximum(np.abs(w), np.abs(rounded))
+        assert np.all(np.abs(rounded - w) <= step + 1e-5 * scale)
+    # the wrapper on CPU tensors and the autograd function over bfloat16 levels
+    # take this plain version and round its result to the levels' bfloat16
+    wrapped = roi_align.multilevel_roi_align_backward_cuda(torch.from_numpy(g), shapes, *args,
+                                                           dtype=torch.bfloat16)
+    sums_out = roi_align.multilevel_roi_align_backward_cuda(
+        torch.from_numpy(g), shapes, *args, dtype=torch.bfloat16, out_dtype=torch.float32)
+    assert all(torch.equal(a, d) for a, d in zip(sums_out, got))
     levels = [torch.from_numpy(np.array(f)).to(torch.bfloat16).requires_grad_(True)
               for f in feats]
-    out = roi_align.multilevel_roi_align_diff(levels, torch.from_numpy(rois),
-                                              torch.from_numpy(bidx), (7, 7), (4, 8, 16, 32))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        out.sum().backward()
+    pooled = roi_align.multilevel_roi_align_diff(levels, *args)
+    (pooled * torch.from_numpy(g)).sum().backward()
+    for d, wr, lv in zip(got, wrapped, levels):
+        assert wr.dtype == lv.grad.dtype == torch.bfloat16
+        assert torch.equal(wr, d.to(torch.bfloat16)) and torch.equal(lv.grad, wr)

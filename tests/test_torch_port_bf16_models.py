@@ -36,6 +36,7 @@ from pets_face_recognition_tpu_torch import weights
 from pets_face_recognition_tpu_torch.models import (embedder, fpn, layers, rcnn, resnet,
                                                     roi_heads, rpn)
 from pets_face_recognition_tpu_torch.models.mobilenet_v3 import MobileNetV3Large
+from pets_face_recognition_tpu_torch.models.quant import QuantConv
 
 from test_torch_port_models import load, randomize
 
@@ -285,14 +286,21 @@ def test_live_batchnorm_rounds_only_in_eval():
 
 
 def test_unknown_dtype_and_bf16_quant_twins_are_refused():
+    """A dtype other than float32 and bfloat16 is refused by every layer, the
+    int8 twins' included. The int8 twins themselves now compute in bfloat16
+    too (their ``QuantConv`` in the model's dtype, as JAX's pass
+    ``dtype=self.dtype``); at the float32 default they stay float32, as JAX's
+    serving configs build them."""
     with pytest.raises(ValueError, match="model dtype"):
         layers.Conv2d(3, 4, 1, dtype=torch.float16)
-    with pytest.raises(ValueError, match="int8 twins"):
-        resnet.ResNet(STAGES, features_only=True, quant="int8", dtype=T_BF)
-    # the int8 twins still build at the float32 default, as JAX's serving
-    # configs build them
-    assert rcnn.keypointrcnn_resnet50_fpn(stage_sizes=STAGES, quant="calibrate",
-                                          quant_kp="calibrate").dtype == torch.float32
+    with pytest.raises(ValueError, match="model dtype"):
+        resnet.ResNet(STAGES, features_only=True, quant="int8", dtype=torch.float16)
+    twin = resnet.ResNet(STAGES, features_only=True, quant="int8", dtype=T_BF)
+    assert {m.compute_dtype for m in twin.modules() if isinstance(m, QuantConv)} == {T_BF}
+    det = rcnn.keypointrcnn_resnet50_fpn(stage_sizes=STAGES, quant="calibrate",
+                                         quant_kp="calibrate")
+    assert det.dtype == torch.float32
+    assert {m.compute_dtype for m in det.modules() if isinstance(m, QuantConv)} == {torch.float32}
 
 
 def _plain_twin(model: torch.nn.Module) -> torch.nn.Module:

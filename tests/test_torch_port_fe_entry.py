@@ -36,7 +36,7 @@ globals().update(build_fe_config(dataset_dir={data!r}, n_epochs={epochs}, train_
 img_dir = {img!r}
 
 
-def model():
+def model(device="cuda"):
     return resnet50_embedder(512, stage_sizes=(1, 1, 1, 1))
 """
 

@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
         "models.quant", "models.ptq", "near_tie", "score_detection", "score_landmark",
         "models.swin", "models.convnext", "drive_alt_factories", "parallel",
         "parallel.distributed", "parallel.mesh", "utils.tuners", "data_loading.human",
-        "models.layers")]
+        "models.layers", "models.resnet", "models.fpn", "models.rpn", "models.roi_heads",
+        "kernels._build")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -291,6 +292,16 @@ DTYPE_KNOBS = (
     ("ops.pallas_warp", "warp_affine_batch_pallas", "out_dtype", "ops.homography",
      "warp_perspective_batch_cuda", "out_dtype"),
     ("serving", "EmbeddingService", "warp_dtype", "serving", "EmbeddingService", "warp_dtype"),
+    ("config_presets", "build_fe_config", "compute_dtype", "config_presets", "build_fe_config",
+     "compute_dtype"),
+    ("models.quant", "QuantConv", "dtype", "models.quant", "QuantConv", "dtype"),
+    ("models.swin", "WindowAttention", "dtype", "models.swin", "WindowAttention", "dtype"),
+    ("models.swin", "SwinBlock", "dtype", "models.swin", "SwinBlock", "dtype"),
+    ("models.swin", "PatchMerging", "dtype", "models.swin", "PatchMerging", "dtype"),
+    ("models.swin", "StageModule", "dtype", "models.swin", "StageModule", "dtype"),
+    ("models.swin", "SwinTransformer", "dtype", "models.swin", "SwinTransformer", "dtype"),
+    ("models.convnext", "ConvNeXtBlock", "dtype", "models.convnext", "ConvNeXtBlock", "dtype"),
+    ("models.convnext", "ConvNeXt", "dtype", "models.convnext", "ConvNeXt", "dtype"),
 )
 
 
@@ -316,8 +327,10 @@ def _jax_default(module: str, name: str, arg: str) -> str:
 
 def test_reduced_precision_knobs_have_port_counterparts():
     """Each JAX dtype knob has its port counterpart under the same name with
-    the same default (``jnp.bfloat16`` is ``torch.bfloat16``), and
+    the same default (``jnp.bfloat16`` is ``torch.bfloat16``; a string, such
+    as ``build_fe_config``'s ``"auto"``, is the same string), and
     ``PFR_INPUT_DTYPE`` is read by both preprocessors."""
+    import ast
     import importlib
     import inspect
 
@@ -326,7 +339,9 @@ def test_reduced_precision_knobs_have_port_counterparts():
     src = (REPO / "pets_face_recognition_tpu" / "preprocessor" / "__init__.py").read_text()
     assert '"PFR_INPUT_DTYPE"' in src and "PFR_INPUT_DTYPE" in inspect.getsource(input_dtype)
     for j_mod, j_name, j_arg, p_mod, p_name, p_arg in DTYPE_KNOBS:
-        want = getattr(torch, _jax_default(j_mod, j_name, j_arg).split(".")[-1])
+        src = _jax_default(j_mod, j_name, j_arg)
+        want = (ast.literal_eval(src) if src[0] in "'\"" else
+                getattr(torch, src.split(".")[-1]))
         port = getattr(importlib.import_module(f"pets_face_recognition_tpu_torch.{p_mod}"),
                        p_name)
         got = inspect.signature(port).parameters[p_arg].default

@@ -103,7 +103,8 @@ def test_quant_conv_calibrate_and_int8_match_jax(cin, cout, k, stride, pad, bias
         cal.init(jax.random.PRNGKey(0), x_nhwc)["params"])
     y_cal, mut = cal.apply({"params": params}, x_nhwc, mutable=["quant"])
 
-    port = tq.QuantConv(cin, cout, k, stride, pad, bias=bias, mode="calibrate")
+    port = tq.QuantConv(cin, cout, k, stride, pad, bias=bias, mode="calibrate",
+                        dtype=torch.float32)
     sd = {"weight": weights._conv(params["kernel"])}
     if bias:
         sd["bias"] = np.asarray(params["bias"])
