@@ -377,6 +377,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12        # H100 SXM bfloat16 on the tensor cores, dense
 B_KERNELS = 8                      # batch of the kernel phase
 B_TIMED = 32                       # batch of the end-to-end timing
 B_BENCH = 128                      # the JAX bench.py's --batch-size default
@@ -497,24 +498,20 @@ def warp_read_bytes(images, Hs) -> int:
 
 
 def host_us(fn, iters: int = 200) -> float:
-    """Host time per call of ``fn()`` in us, back to back after warm-up, without
-    waiting for the device inside the loop."""
-    import torch
+    """``kernel_ab.host_us``: host time per call of ``fn()`` in us, back to
+    back after warm-up, without waiting for the device inside the loop."""
+    from pets_face_recognition_tpu_torch.kernel_ab import host_us as timed
 
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    elapsed = time.perf_counter() - t
-    torch.cuda.synchronize()
-    return elapsed / iters * 1e6
+    return timed(fn, iters, warmup=10)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float, n_tc_flops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take: the bytes over the memory rate, or
+    the operations over the peak rate of their type (``n_flops`` float32 on
+    the CUDA cores, ``n_tc_flops`` bfloat16 on the tensor cores, which issue
+    at the same time), whichever is longest."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOP_PER_S * 1e3
+    t_ops = max(n_flops / F32_FLOP_PER_S, n_tc_flops / BF16_TC_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -688,7 +685,13 @@ def reduced_kernel_rows(dev) -> dict[str, dict]:
     version on the card (bit-equal expected: the plain versions round at the
     kernels' points and sum in their order; held to 1e-5 for K1 and 1e-4 of the
     value scale for K3) and timed beside it, its bound and, for K1-bf16,
-    ``grid_sample`` on bfloat16 images and grid (the library row)."""
+    ``grid_sample`` on bfloat16 images and grid (the library row). K3-bf16
+    also: its bfloat16 output (``out_dtype``) equal to its float32 output
+    rounded, bit for bit, and within the same 1e-4 of the scale (plus one
+    bfloat16 step of it) of the plain version's bfloat16 output; the wrapper's
+    host time a call; and the levels that K3 and K4's pre-pass map in the
+    kernel equal to ``roi_levels`` on the card, on RoIs whose sides sit
+    within a few float32 steps of each level boundary (``boundary_rois``)."""
     import torch
     from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
     from pets_face_recognition_tpu_torch.ops import homography, roi_align
@@ -749,12 +752,20 @@ def reduced_kernel_rows(dev) -> dict[str, dict]:
         args = (levels, rois, bidx, (out, out), strides)
         got = roi_align.multilevel_roi_align_cuda(*args)
         want = roi_align.multilevel_roi_align_bf16(*args)
+        got_b = roi_align.multilevel_roi_align_cuda(*args, out_dtype=torch.bfloat16)
+        want_b = roi_align.multilevel_roi_align_bf16(*args, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         scale = float(want.abs().max())
         err, tol = max_err(got, want), 1e-4 * scale
-        ms = cuda_ms(lambda: roi_align.multilevel_roi_align_cuda(*args))
-        us = kernel_us(lambda: roi_align.multilevel_roi_align_cuda(*args),
-                       "multilevel_roi_align_kernel")
+        err_b, tol_b = max_err(got_b, want_b), tol + 2.0 ** -8 * scale
+        rounded = bool(torch.equal(got_b.view(torch.int16),
+                                   got.to(torch.bfloat16).view(torch.int16)))
+        k3 = lambda: roi_align.multilevel_roi_align_cuda(*args)  # noqa: E731
+        k3_b = lambda: roi_align.multilevel_roi_align_cuda(  # noqa: E731
+            *args, out_dtype=torch.bfloat16)
+        ms, ms_b = cuda_ms(k3), cuda_ms(k3_b)
+        us = kernel_us(k3, "multilevel_roi_align_kernel")
+        us_b = kernel_us(k3_b, "multilevel_roi_align_kernel")
         plain = cuda_ms(lambda: roi_align.multilevel_roi_align_bf16(*args))
         cells = touched_cells(levels, rois, bidx, (out, out), strides)
         n_bytes = cells * C * 2 + rois.numel() * 4 + bidx.numel() * 4 + got.numel() * 4
@@ -762,10 +773,17 @@ def reduced_kernel_rows(dev) -> dict[str, dict]:
         b, by = bound_ms(n_bytes, n_flops)
         emit("kernel", name=f"K3 multilevel_roi_align_bf16 {out}x{out}", rois=rois.shape[0],
              max_abs_err=err, atol=tol, value_scale=scale, exact=err == 0.0, ms=ms,
-             kernel_device_us=us, plain_ms=plain, library_ms=None,
-             library="none (no torchvision)", bound_ms=b, bound_by=by, touched_cells=cells)
+             kernel_device_us=us, host_us=host_us(k3), plain_ms=plain, library_ms=None,
+             library="none (no torchvision)", bound_ms=b, bound_by=by, touched_cells=cells,
+             bf16_out_ms=ms_b, bf16_out_kernel_device_us=us_b, bf16_out_host_us=host_us(k3_b),
+             bf16_out_max_abs_err=err_b, bf16_out_atol=tol_b,
+             bf16_out_is_float32_rounded=rounded,
+             bf16_out_bound_ms=bound_ms(n_bytes - got.numel() * 2, n_flops)[0])
         if not err <= tol:
             raise AssertionError(f"K3 bf16 {out}x{out} disagrees: {err} > {tol}")
+        if not (rounded and err_b <= tol_b):
+            raise AssertionError(f"K3 bf16 {out}x{out}: bfloat16 output off (rounded "
+                                 f"{rounded}, {err_b} > {tol_b})")
         tot = dict(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain,
                    bytes=tot["bytes"] + n_bytes, flops=tot["flops"] + n_flops,
                    err=max(tot["err"], err))
@@ -773,7 +791,59 @@ def reduced_kernel_rows(dev) -> dict[str, dict]:
     rows["multilevel_roi_align_bf16"] = dict(max_abs_err=tot["err"], ms=tot["ms"],
                                              plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
                                              library_ms=None)
+    level_map_check(dev, g, levels)
     return rows
+
+
+def boundary_rois(g, n_per: int = 48):
+    """RoIs whose sides sit within a few float32 steps of the canonical
+    mapper's level boundaries: sqrt(area) near 56, 112, 224 and 448 (the
+    edges of p2..p5 and below), and near each times 2^-1e-6, where the
+    mapper's +1e-6 moves the edge; each ``n_per`` of them 6e-8 apart
+    (about one float32 step), with aspect ratios in [1, 1.3] and random
+    corners, so that the rounding of the area, its square root and its log2
+    decide their level."""
+    import torch
+
+    sides = torch.tensor([c * (1 + i * 6e-8) for b in (56.0, 112.0, 224.0, 448.0)
+                          for c in (b, b * 2.0 ** -1e-6)
+                          for i in range(-n_per // 2, n_per // 2 + 1)])
+    n = len(sides)
+    aspect = (1 + 0.3 * torch.rand(n, generator=g)).sqrt()
+    x1, y1 = torch.rand(n, generator=g) * 100, torch.rand(n, generator=g) * 100
+    return torch.stack([x1, y1, x1 + sides * aspect, y1 + sides / aspect], 1)
+
+
+def level_map_check(dev, g, levels) -> None:
+    """The levels that K4's pre-pass maps in the kernel (its keys) against
+    ``roi_levels`` on the card over ``boundary_rois``, and K3, which maps them
+    with the same ``pfr_roi::roi_level``, on those RoIs against its plain
+    version (a wrong level pools another level's values); both sides of every
+    boundary must be met. Raises on any difference."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    rois = boundary_rois(g).to(dev)
+    n, B = rois.shape[0], levels[0].shape[0]
+    bidx = (torch.arange(n, device=dev) % B).to(torch.int32)
+    strides = (4, 8, 16, 32)
+    want = roi_align.roi_levels(rois, 2, 5)
+    got = roi_align.multilevel_roi_align_cuda(levels, rois, bidx, (7, 7), strides)
+    key, _ = roi_align.roi_footprints_cuda([tuple(f.shape) for f in levels], rois, bidx,
+                                           (7, 7), strides)
+    pre_levels = torch.div(key, B, rounding_mode="floor")
+    plain = roi_align.multilevel_roi_align_bf16(levels, rois, bidx, (7, 7), strides)
+    torch.cuda.synchronize()
+    per_level = torch.bincount(want.long(), minlength=4).tolist()
+    pre_diff = int((pre_levels != want).sum())
+    err, tol = max_err(got, plain), 1e-4 * float(plain.abs().max())
+    emit("kernel", name="K3 multilevel_roi_align_bf16 levels", rois=n,
+         rois_per_level=per_level,
+         prepass_levels_differ=pre_diff, k3_max_abs_err=err, k3_atol=tol,
+         cpu_levels_differ=int((roi_align.roi_levels(rois.cpu(), 2, 5) != want.cpu()).sum()))
+    if pre_diff or not err <= tol or min(per_level) == 0:
+        raise AssertionError(f"in-kernel levels differ from roi_levels: pre-pass {pre_diff} "
+                             f"of {n} ({per_level}); K3 {err} > {tol}")
 
 
 def train_kernel_phase(dev) -> dict[str, dict]:
@@ -875,8 +945,8 @@ def roi_kernel_rows(dev, g, strides, min_level: int, max_level: int, label: str 
         grad = torch.randn(n, out, out, C, generator=g).to(dev)
         bargs = (grad, shapes, rois, bidx, (out, out), strides)
         # K4's pre-pass kernel against its plain twin: the same integers
-        pargs = (shapes, rois, bidx, lvl, (out, out), strides)
-        key, fp = roi_align.roi_footprints_cuda(*pargs)
+        pargs = (shapes, rois, bidx, (out, out), strides)
+        key, fp = roi_align.roi_footprints_cuda(*pargs, **span)
         b64 = bidx.long()
         want_key = torch.where((b64 >= 0) & (b64 < batch), lvl.long() * batch + b64,
                                torch.full_like(b64, n_levels * batch))
@@ -885,7 +955,7 @@ def roi_kernel_rows(dev, g, strides, min_level: int, max_level: int, label: str 
         want_fp = plain_pre()[1]
         pre_diff = int((key != want_key).sum()) + int((fp != want_fp).sum())
         pre_err = max(max_err(key, want_key), max_err(fp, want_fp))
-        tp = dict(ms=cuda_ms(lambda: roi_align.roi_footprints_cuda(*pargs)),
+        tp = dict(ms=cuda_ms(lambda: roi_align.roi_footprints_cuda(*pargs, **span)),
                   plain=cuda_ms(plain_pre))
         p_bytes = n * (16 + 4 + 4 + 4 + 16)
         b, by = bound_ms(p_bytes, n * 2 * 12)
@@ -3683,13 +3753,13 @@ def mask_call_sites():
             return fn(boxes, valid, thr)
         return call
 
-    def pooled(self, pool, strides, boxes_flat, batch_idx, output_size):
+    def pooled(self, pool, strides, boxes_flat, batch_idx, output_size, *head):
         if boxes_flat.is_cuda:
             key = "k3_mask" if tuple(output_size) == (self.cfg.mask_roi_size,) * 2 else "k3_box"
             tally[key] += 1
             last[key] = ([f.clone() for f in pool[1]], boxes_flat.clone(), batch_idx.clone(),
                          tuple(strides[:len(pool[1])]))
-        return roi_align(self, pool, strides, boxes_flat, batch_idx, output_size)
+        return roi_align(self, pool, strides, boxes_flat, batch_idx, output_size, *head)
 
     rpn.nms_keep_sorted_batch_cuda = counted(rpn_nms, "k2_rpn")
     roi_heads.nms_keep_sorted_batch_cuda = counted(box_nms, "k2_box")
@@ -4319,7 +4389,7 @@ def mask_train_sites(kernels_mod):
     sites, k4_args = collections.Counter(), []
     wrapped = (("multilevel_roi_align_cuda", "multilevel_roi_align", 3),
                ("multilevel_roi_align_backward_cuda", "multilevel_roi_align_backward", 4),
-               ("roi_footprints_cuda", "roi_footprints", 4))
+               ("roi_footprints_cuda", "roi_footprints", 3))
     saved = {fn: getattr(roi_align, fn) for fn, _, _ in wrapped}
 
     def site(fn_name, kernel, pos):
@@ -5602,18 +5672,71 @@ BF16_DRAWS, BF16_JITTER = 1, 2.0 ** -9
 F32_STEPS: dict[str, tuple[float, float]] = {}
 
 
+def k4_bf16_work(shapes, rois, out: int, strides, s: int = 2) -> tuple[float, float]:
+    """The operations that K4-bf16's two contractions need on these RoIs,
+    ``(tensor-core flops, float32 flops)``: for each RoI on its level, the
+    first, ``T[y, pw, c] = sum_sy Wy[sy, y] G[sy, pw, c]``, costs 2 C flops
+    for each nonzero ``Wy`` entry (a sample row's in-bounds taps) and each
+    bin column with an in-bounds sample; the second, ``out[y, x, c] =
+    sum_pw Ax[x, pw] T[y, pw, c]``, 2 C for each footprint row and each
+    distinct nonzero (bin column, cell) entry of ``Ax``."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops.roi_align import _sample_offsets, roi_levels
+
+    lvl = roi_levels(rois, 2, len(shapes) + 1).long()
+    tc = fma = 0.0
+    for li, (_, H, W, C) in enumerate(shapes):
+        sel = lvl == li
+        if not sel.any():
+            continue
+        r = rois[sel] * (1.0 / strides[li])
+        taps = []
+        for lo, hi, lim in ((r[:, 1], r[:, 3], H), (r[:, 0], r[:, 2], W)):
+            pos = lo[:, None] + _sample_offsets(out, s, rois.device)[None] * (
+                (hi - lo).clamp(min=1.0) / out)[:, None]
+            ok = (pos > -1) & (pos < lim)
+            c = pos.clamp(min=0)
+            low = c.floor().clamp(max=lim - 1)
+            high_live = ok & (low < lim - 1) & (c > low)
+            taps.append((ok, low, high_live))
+        (ok_y, low_y, hi_y), (ok_x, low_x, hi_x) = taps
+        n_wy = ok_y.sum(1) + hi_y.sum(1)
+        rows = torch.where(ok_y, low_y + hi_y.float(), -1.0).amax(1) - torch.where(
+            ok_y, low_y, float(H)).amin(1) + 1
+        pw = torch.arange(out, device=rois.device).repeat_interleave(s)[None].expand_as(low_x)
+        n = r.shape[0]
+        k = torch.arange(n, device=rois.device)[:, None].expand_as(low_x)
+        keys = torch.cat([((k * out + pw) * W + low_x.long())[ok_x],
+                          ((k * out + pw) * W + low_x.long() + 1)[hi_x]])
+        n_ax = torch.bincount(torch.unique(keys) // (out * W), minlength=n)
+        n_pw = ok_x.reshape(n, out, s).any(2).sum(1)
+        tc += float((2 * C * n_wy * n_pw).sum())
+        fma += float((2 * C * rows.clamp(min=0) * n_ax).sum())
+    return tc, fma
+
+
 def bf16_backward_kernel_row(dev) -> dict[str, dict]:
     """Kernel row ``multilevel_roi_align_backward_bf16``: K4 with bfloat16
     operands at the training step's shapes (p2..p5 of 16 images of 640 x 640,
     C = 256, bfloat16 levels; 8192 box RoIs at 7 x 7 and 2048 keypoint RoIs at
-    14 x 14), its float32 sums (before the wrapper's cast) against its plain
-    version's within 1e-5 of the scale (the two sum in other orders), where
-    K4 in float32 on the same inputs must lie beyond that (its operands are
-    not rounded to bfloat16); its result (rounded to the levels' bfloat16)
-    bit-identical across two launches. Timed with CUDA events
-    beside K4 in float32 on the same RoIs and cotangent, the plain version
-    and the byte bound (the cotangent and RoIs read, the bfloat16 level
-    gradients written once), with each kernel's device us."""
+    14 x 14), its float32 sums (the float32-output instance) against its plain
+    version's within 1e-5 of the scale (the two sum in other orders, the first
+    contraction on the tensor cores), where K4 in float32 on the same inputs
+    must lie beyond that (its operands are not rounded to bfloat16); its
+    bfloat16 result equal to those sums rounded, bit for bit, and
+    bit-identical across two launches; with a bfloat16 cotangent (the
+    float32 one rounded) equal to its result on that cotangent's float32
+    copy. The row's times and bound are those of the bfloat16 cotangent, the
+    one a bfloat16 training step gives it (the float32 cotangent's beside
+    them): timed with CUDA events beside K4 in float32 on the same RoIs (and
+    the float32 cotangent), the plain version and the bound (bytes: the
+    cotangent in its type and the RoIs read, the bfloat16 level gradients
+    written once; operations: ``k4_bf16_work``), with each kernel's device
+    us. ``odd_sampling_lines`` holds the instance for other sampling ratios
+    on a smaller pyramid. K3-bf16 at
+    the same shapes on the same RoIs (the step's forward) rides along:
+    against its plain version within 1e-4 of the scale, its bfloat16 output
+    equal to its float32 output rounded, timed beside its plain version."""
     import torch
     from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
     from pets_face_recognition_tpu_torch.ops import roi_align
@@ -5622,21 +5745,25 @@ def bf16_backward_kernel_row(dev) -> dict[str, dict]:
     C, strides, bf16 = 256, (4, 8, 16, 32), torch.bfloat16
     shapes = [(B_TRAIN, IMAGE_TRAIN // st, IMAGE_TRAIN // st, C) for st in strides]
     level_elems = sum(math.prod(s) for s in shapes)
-    acc = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, err=0.0)
+    levels = [torch.randn(*sh, generator=g).to(dev).to(bf16) for sh in shapes]
+    acc = dict(ms=0.0, plain=0.0, bytes=0.0, flops=0.0, tc_flops=0.0, err=0.0)
+    bits16 = lambda t: t.view(torch.int16)  # noqa: E731
     for n_per, out in ((512, 7), (128, 14)):
         n = B_TRAIN * n_per
         rois = random_rois(g, n, IMAGE_TRAIN, 5.0).to(dev)
         bidx = torch.arange(B_TRAIN, device=dev).repeat_interleave(n_per).to(torch.int32)
+        k3_train_line(levels, rois, bidx, out, strides)
         grad = torch.randn(n, out, out, C, generator=g).to(dev)
         args = (grad, shapes, rois, bidx, (out, out), strides)
         got = roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16)
         again = roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16)
-        torch.cuda.synchronize()
-        bit_diff = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
-                       for a, b in zip(got, again))
-        del got, again
         sums = roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16,
                                                             out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        bit_diff = sum(int((bits16(a) != bits16(b)).sum()) for a, b in zip(got, again))
+        round_diff = sum(int((bits16(a) != bits16(s_.to(bf16))).sum())
+                         for a, s_ in zip(got, sums))
+        del got, again
         want = roi_align.multilevel_roi_align_backward_bf16(*args)
         scale = max(float(w.abs().max()) for w in want)
         err = max(max_err(a, w) for a, w in zip(sums, want))
@@ -5644,42 +5771,143 @@ def bf16_backward_kernel_row(dev) -> dict[str, dict]:
         f32_gap = max(max_err(a, w) for a, w in zip(
             roi_align.multilevel_roi_align_backward_cuda(*args), want))
         del want
-        ms = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16),
-                     iters=10)
-        f32_ms = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*args), iters=10)
-        plain = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_bf16(*args), warmup=1,
-                        iters=3)
-        us = kernel_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16),
-                       "multilevel_roi_align_backward_kernel<true>", iters=5)
-        us32 = kernel_us(lambda: roi_align.multilevel_roi_align_backward_cuda(*args),
-                         "multilevel_roi_align_backward_kernel<false>", iters=5)
-        nb = grad.numel() * 4 + rois.numel() * 4 + bidx.numel() * 4 + level_elems * 2
-        nf = n * out * out * C * (8 * 4 + 1)
-        b, by = bound_ms(nb, nf)
+        # a bfloat16 cotangent, read as it comes: the same bits as its float32 copy
+        grad_b = grad.to(bf16)
+        bargs = (grad_b,) + args[1:]
+        cot_diff = sum(int((bits16(a) != bits16(b)).sum()) for a, b in zip(
+            roi_align.multilevel_roi_align_backward_cuda(*bargs, dtype=bf16),
+            roi_align.multilevel_roi_align_backward_cuda(grad_b.float(), *args[1:],
+                                                         dtype=bf16)))
+        k4 = lambda: roi_align.multilevel_roi_align_backward_cuda(*args, dtype=bf16)  # noqa
+        k4_b = lambda: roi_align.multilevel_roi_align_backward_cuda(  # noqa: E731
+            *bargs, dtype=bf16)
+        k4_32 = lambda: roi_align.multilevel_roi_align_backward_cuda(*args)  # noqa: E731
+        ms, ms_b, f32_ms = (cuda_ms(k4, iters=10), cuda_ms(k4_b, iters=10),
+                            cuda_ms(k4_32, iters=10))
+        plain = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_bf16(*bargs),
+                        warmup=1, iters=3)
+        mma = "multilevel_roi_align_backward_bf16_mma_kernel"
+        us, us_b = kernel_us(k4, mma, iters=5), kernel_us(k4_b, mma, iters=5)
+        us32 = kernel_us(k4_32, "multilevel_roi_align_backward_kernel", iters=5)
+        tc, nf = k4_bf16_work(shapes, rois, out, strides)
+        io = rois.numel() * 4 + bidx.numel() * 4 + level_elems * 2
+        nb = grad.numel() * 4 + io
+        b, by = bound_ms(nb, nf, tc)
+        b_b, by_b = bound_ms(grad.numel() * 2 + io, nf, tc)
         name = f"K4-bf16 multilevel_roi_align_backward_bf16 {out}x{out}"
         emit("kernel", name=name, rois=n, shape=[B_TRAIN, IMAGE_TRAIN, IMAGE_TRAIN, C],
-             levels=[2, 5], level_dtype="bfloat16", max_abs_err=err, grad_max_abs=scale,
-             atol=1e-5 * scale, float32_instance_max_abs_err=f32_gap,
-             second_launch_bits_differ=bit_diff, ms=ms,
-             kernel_device_us=us, float32_ms=f32_ms, float32_kernel_device_us=us32,
-             plain_ms=plain, library_ms=None, library="none (no torchvision)", bound_ms=b,
-             bound_by=by)
+             levels=[2, 5], level_dtype="bfloat16", kernel=mma, max_abs_err=err,
+             grad_max_abs=scale, atol=1e-5 * scale, float32_instance_max_abs_err=f32_gap,
+             second_launch_bits_differ=bit_diff, rounded_sums_bits_differ=round_diff,
+             bf16_cotangent_bits_differ=cot_diff, cotangent_dtype="bfloat16", ms=ms_b,
+             kernel_device_us=us_b, float32_cotangent_ms=ms, float32_cotangent_kernel_device_us=us,
+             float32_cotangent_bound_ms=b, float32_cotangent_bound_by=by, float32_ms=f32_ms,
+             float32_kernel_device_us=us32, plain_ms=plain, library_ms=None,
+             library="none (no torchvision)", bound_ms=b_b, bound_by=by_b,
+             tensor_core_flops=tc, float32_flops=nf)
         if not err <= 1e-5 * scale < f32_gap:
             raise AssertionError(f"{name}: float32 sums {err} from the plain version, K4 in "
                                  f"float32 {f32_gap}, the scale {scale}")
-        if bit_diff:
-            raise AssertionError(f"{name}: two launches differ in {bit_diff} elements")
-        acc["ms"] += ms
+        if bit_diff or round_diff or cot_diff:
+            raise AssertionError(f"{name}: {bit_diff} elements differ across two launches, "
+                                 f"{round_diff} from the float32 sums rounded, {cot_diff} "
+                                 "with a bfloat16 cotangent")
+        acc["ms"] += ms_b
         acc["plain"] += plain
-        acc["bytes"] += nb
+        acc["bytes"] += grad.numel() * 2 + io
         acc["flops"] += nf
+        acc["tc_flops"] += tc
         acc["err"] = max(acc["err"], err)
-        del grad
+        del grad, grad_b
+    del levels
     torch.cuda.empty_cache()
-    b, by = bound_ms(acc["bytes"], acc["flops"])
+    odd_sampling_lines(dev, g)
+    b, by = bound_ms(acc["bytes"], acc["flops"], acc["tc_flops"])
     return {"multilevel_roi_align_backward_bf16": dict(
         max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain"], bound_ms=b, bound_by=by,
         library_ms=None)}
+
+
+def odd_sampling_lines(dev, g) -> None:
+    """K4-bf16's instance for sampling ratios other than 2 (the models use 2):
+    S = 1 and 3 at 7 x 7 and S = 3 at 14 x 14 (42 sample rows, an odd first
+    sample row wherever the first bin that meets a tile is odd), on p2..p5 of
+    two 320 x 320 images, C = 256, bfloat16 levels: its float32 sums within
+    1e-5 of the scale of its plain version, its bfloat16 result those sums
+    rounded, bit for bit, and with a bfloat16 cotangent its result on that
+    cotangent's float32 copy. One line each; raises on a disagreement."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import random_rois
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    B, image, C, strides, bf16 = 2, 320, 256, (4, 8, 16, 32), torch.bfloat16
+    shapes = [(B, image // st, image // st, C) for st in strides]
+    bits16 = lambda t: t.view(torch.int16)  # noqa: E731
+    for s, out in ((1, 7), (3, 7), (3, 14)):
+        n = B * 128
+        rois = random_rois(g, n, image, 5.0).to(dev)
+        bidx = torch.arange(B, device=dev).repeat_interleave(n // B).to(torch.int32)
+        grad = torch.randn(n, out, out, C, generator=g).to(dev).to(bf16)
+        args = (grad, shapes, rois, bidx, (out, out), strides)
+        kw = dict(sampling_ratio=s, dtype=bf16)
+        got = roi_align.multilevel_roi_align_backward_cuda(*args, **kw)
+        sums = roi_align.multilevel_roi_align_backward_cuda(*args, **kw, out_dtype=torch.float32)
+        from_f32 = roi_align.multilevel_roi_align_backward_cuda(grad.float(), *args[1:], **kw)
+        want = roi_align.multilevel_roi_align_backward_bf16(*args, sampling_ratio=s)
+        torch.cuda.synchronize()
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(max_err(a, w) for a, w in zip(sums, want))
+        round_diff = sum(int((bits16(a) != bits16(b.to(bf16))).sum()) for a, b in zip(got, sums))
+        cot_diff = sum(int((bits16(a) != bits16(b)).sum()) for a, b in zip(got, from_f32))
+        name = f"K4-bf16 multilevel_roi_align_backward_bf16 {out}x{out} S={s}"
+        emit("kernel", name=name, rois=n, shape=[B, image, image, C], sampling_ratio=s,
+             max_abs_err=err, grad_max_abs=scale, atol=1e-5 * scale,
+             rounded_sums_bits_differ=round_diff, bf16_cotangent_bits_differ=cot_diff)
+        if not err <= 1e-5 * scale or round_diff or cot_diff:
+            raise AssertionError(f"{name}: float32 sums {err} from the plain version (scale "
+                                 f"{scale}), {round_diff} elements from the sums rounded, "
+                                 f"{cot_diff} with the float32 cotangent")
+
+
+def k3_train_line(levels, rois, bidx, out: int, strides) -> None:
+    """K3-bf16 at the training step's shapes (``bf16_backward_kernel_row``'s
+    levels and RoIs): its float32 output against its plain version within
+    1e-4 of the scale, its bfloat16 output equal to the float32 one rounded;
+    wrapper ms, device us and bound of each output, the plain version's ms.
+    One phase line; raises on a disagreement."""
+    import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    args = (levels, rois, bidx, (out, out), strides)
+    got = roi_align.multilevel_roi_align_cuda(*args)
+    got_b = roi_align.multilevel_roi_align_cuda(*args, out_dtype=torch.bfloat16)
+    want = roi_align.multilevel_roi_align_bf16(*args)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err, tol = max_err(got, want), 1e-4 * scale
+    del want
+    rounded = bool(torch.equal(got_b.view(torch.int16), got.to(torch.bfloat16).view(torch.int16)))
+    k3 = lambda: roi_align.multilevel_roi_align_cuda(*args)  # noqa: E731
+    k3_b = lambda: roi_align.multilevel_roi_align_cuda(*args, out_dtype=torch.bfloat16)  # noqa
+    plain = cuda_ms(lambda: roi_align.multilevel_roi_align_bf16(*args), warmup=1, iters=3)
+    C = levels[0].shape[3]
+    cells = touched_cells(levels, rois, bidx, (out, out), strides)
+    n_in = cells * C * 2 + rois.numel() * 4 + bidx.numel() * 4
+    n_flops = got.numel() * (6 * 4 + 1)
+    b, by = bound_ms(n_in + got.numel() * 4, n_flops)
+    b_b, by_b = bound_ms(n_in + got.numel() * 2, n_flops)
+    emit("kernel", name=f"K3-bf16 multilevel_roi_align_bf16 {out}x{out} train",
+         rois=rois.shape[0], shape=list(levels[0].shape), max_abs_err=err, atol=tol,
+         value_scale=scale, bf16_out_is_float32_rounded=rounded, ms=cuda_ms(k3, iters=10),
+         kernel_device_us=kernel_us(k3, "multilevel_roi_align_kernel", iters=5),
+         bf16_out_ms=cuda_ms(k3_b, iters=10),
+         bf16_out_kernel_device_us=kernel_us(k3_b, "multilevel_roi_align_kernel", iters=5),
+         plain_ms=plain, library_ms=None, library="none (no torchvision)", bound_ms=b,
+         bound_by=by, bf16_out_bound_ms=b_b, bf16_out_bound_by=by_b, touched_cells=cells)
+    if not (err <= tol and rounded):
+        raise AssertionError(f"K3-bf16 {out}x{out} train: {err} > {tol} or the bfloat16 "
+                             f"output is not the float32 one rounded ({rounded})")
 
 
 @contextlib.contextmanager

@@ -37,6 +37,35 @@ inline Pyramid make_pyramid(const int* hs, const int* ws, const int* strides) {
   return pyr;
 }
 
+// The canonical FPN level mapper (torchvision LevelMapper) as the kernels
+// apply it: inv_scale is 1 / canonical_scale rounded to float32, computed in
+// float32 on the host, because PyTorch's CUDA kernels divide by a Python
+// scalar as a product by that rounded reciprocal.
+struct LevelMap {
+  float inv_scale;
+  int canonical_level;
+  int min_level;
+  int n_levels;
+};
+
+inline LevelMap make_level_map(float canonical_scale, int canonical_level, int min_level,
+                               int n_levels) {
+  return {1.0f / canonical_scale, canonical_level, min_level, n_levels};
+}
+
+// 0-based level of RoI (x1, y1, x2, y2): roi_levels' ops on the card, each
+// rounded on its own: floor(k0 + log2(sqrt(w * h) * inv_scale) + 1e-6),
+// clamped to the levels. A zero-area box maps to the first level; a NaN box,
+// where torch's int cast is undefined, to the first level too.
+__device__ __forceinline__ int roi_level(const float* __restrict__ box, const LevelMap& m) {
+  const float w = fmaxf(__fsub_rn(box[2], box[0]), 0.0f);
+  const float h = fmaxf(__fsub_rn(box[3], box[1]), 0.0f);
+  const float r = __fmul_rn(__fsqrt_rn(__fmul_rn(w, h)), m.inv_scale);
+  float v = floorf(__fadd_rn(__fadd_rn(log2f(r), (float)m.canonical_level), 1e-6f));
+  v = fminf(fmaxf(v, (float)m.min_level), (float)(m.min_level + m.n_levels - 1));
+  return (int)v - m.min_level;
+}
+
 // v rounded to bfloat16 (to nearest even) and back: the bfloat16 instances'
 // weights, and K4's bfloat16 cotangent.
 __device__ __forceinline__ float round_bf16(float v) {

@@ -1,5 +1,6 @@
-"""Time kernels K2 (NMS) and K3 (RoIAlign forward) of one tree of the port on
-the GPU, so that two trees can be compared in one run on one card.
+"""Time kernels K2 (NMS), K3 (RoIAlign forward) and K4 (its backward) of one
+tree of the port on the GPU, so that two trees can be compared in one run on
+one card.
 
     python pets_face_recognition_tpu_torch/kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -10,24 +11,30 @@ random inputs at the shapes of ``chip_smoke.py``: K2 at 40 groups of 128 boxes
 first 1000 boxes of a group valid, as the step's padded small levels give; K3
 on p2-p5 of 320 x 320 images (B = 8: 128 RoIs at 7 x 7 and 8 at 14 x 14;
 B = 32: 512 and 32) and of 16 images of 640 x 640 (8192 RoIs at 7 x 7, 2048 at
-14 x 14), C = 256. Each is held against its plain version (keep-mask
-mismatches, largest absolute error) and timed: the wrapper's median
-CUDA-event time and its kernels' device time per call from ``torch.profiler``
-(for K2 also by kernel). K3's lines add the bytes that a kernel sharing no
-data between RoIs must move (each RoI's distinct tapped cells, and the
-output) and that over the device time. Prints one JSON line per shape.
-Compare trees only within one run, in turns (old, new, new, old). Needs a
-CUDA device. ``chip_smoke.py`` times its kernels with the same helpers
-(``cuda_ms``, ``device_us``) on the same RoIs (``random_rois``).
+14 x 14), C = 256, on float32 levels and on bfloat16 ones (K3-bf16, with a
+float32 output and, where the tree has ``out_dtype``, a bfloat16 one); K4 in
+float32 and with bfloat16 operands (K4-bf16: a float32 cotangent and, where
+the tree reads one, a bfloat16 one; bfloat16 gradients) at the 640 x 640
+shapes. Each is held against its plain version (keep-mask mismatches,
+largest absolute error) and timed: the wrapper's median CUDA-event time, its
+host time a call back to back, and its kernels' device time per call from
+``torch.profiler`` (for K2 also by kernel). K3's float32 lines add the bytes
+that a kernel sharing no data between RoIs must move (each RoI's distinct
+tapped cells, and the output) and that over the device time. Prints one JSON
+line per shape. Compare trees only within one run, in turns (old, new, new,
+old). Needs a CUDA device. ``chip_smoke.py`` times its kernels with the same
+helpers (``cuda_ms``, ``device_us``) on the same RoIs (``random_rois``).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -47,6 +54,22 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, iters: int = 100, warmup: int = 5) -> float:
+    """Host time per call of ``fn()`` in us, back to back after ``warmup``
+    calls, without waiting for the device inside the loop."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
 
 
 def device_us_by_kernel(fn, kernel_name: str, iters: int = 10, strict: bool = True,
@@ -135,6 +158,45 @@ def roi_distinct_cells(levels, rois, out: int, strides, s: int = 2) -> int:
     return total
 
 
+def k4_rows(g, dev, label: str, C: int, strides, bf16_cotangent: bool) -> None:
+    """K4 in float32 and K4-bf16 on 16 images of 640 x 640 (8192 RoIs at 7 x
+    7, 2048 at 14 x 14): error against the plain version, wrapper ms, host us
+    and the backward kernel's device us; K4-bf16 with a float32 cotangent and,
+    where ``bf16_cotangent``, a bfloat16 one."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops import roi_align
+
+    B, image, bf16 = 16, 640, torch.bfloat16
+    shapes = [(B, image // s, image // s, C) for s in strides]
+    for n_per, out in ((512, 7), (128, 14)):
+        n = B * n_per
+        rois = random_rois(g, n, image, 5.0).to(dev)
+        bidx = torch.arange(B, device=dev).repeat_interleave(n_per).to(torch.int32)
+        grad = torch.randn(n, out, out, C, generator=g).to(dev)
+        cases = [("K4", grad, torch.float32), ("K4-bf16", grad, bf16)]
+        if bf16_cotangent:
+            cases.append(("K4-bf16", grad.to(bf16), bf16))
+        for name, gr, dtype in cases:
+            args = (gr, shapes, rois, bidx, (out, out), strides)
+            fn = lambda: roi_align.multilevel_roi_align_backward_cuda(  # noqa: E731
+                *args, dtype=dtype)
+            plain = (roi_align.multilevel_roi_align_backward_bf16 if dtype == bf16
+                     else roi_align.multilevel_roi_align_backward)(*args)
+            err = max(float((a.float() - w.to(dtype).float()).abs().max())
+                      for a, w in zip(fn(), plain))
+            scale = max(float(w.abs().max()) for w in plain)
+            del plain
+            print(json.dumps({"tree": label, "kernel": name, "rois": n, "out": out,
+                              "cotangent": str(gr.dtype), "max_abs_err": err,
+                              "grad_max_abs": scale, "ms": cuda_ms(fn, iters=10),
+                              "host_us": host_us(fn, iters=20),
+                              "device_us": device_us(fn, "multilevel_roi_align_backward",
+                                                     strict=False, iters=5)}),
+                  flush=True)
+        del grad, cases
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
@@ -177,9 +239,12 @@ def main() -> int:
               flush=True)
 
     C, strides = 256, (4, 8, 16, 32)
+    bf16 = torch.bfloat16
+    has_out_dtype = "out_dtype" in inspect.signature(roi_align.multilevel_roi_align_cuda).parameters
     for B, image, counts in ((8, 320, ((16, 7), (1, 14))), (32, 320, ((16, 7), (1, 14))),
                              (16, 640, ((512, 7), (128, 14)))):
         levels = [torch.randn(B, image // s, image // s, C, generator=g).to(dev) for s in strides]
+        levels_b = [f.to(bf16) for f in levels]
         for n_per, out in counts:
             rois = random_rois(g, B * n_per, image, 5.0 if image == 640 else 4.5).to(dev)
             bidx = torch.arange(B, device=dev).repeat_interleave(n_per).to(torch.int32)
@@ -191,11 +256,27 @@ def main() -> int:
             per_roi_bytes = cells * C * 4 + rois.shape[0] * out * out * C * 4
             print(json.dumps({"tree": label, "kernel": "K3", "images": B, "image": image,
                               "rois": rois.shape[0], "out": out, "max_abs_err": err,
-                              "ms": cuda_ms(fn), "device_us": us,
+                              "ms": cuda_ms(fn), "host_us": host_us(fn), "device_us": us,
                               "per_roi_distinct_bytes": per_roi_bytes,
                               "per_roi_tb_per_s": per_roi_bytes / us / 1e6 if us else None}),
                   flush=True)
-        del levels
+            ab = (levels_b,) + a[1:]
+            want = roi_align.multilevel_roi_align_bf16(*ab)
+            for out_dtype in (torch.float32, bf16) if has_out_dtype else (torch.float32,):
+                kw = {"out_dtype": out_dtype} if has_out_dtype else {}
+                fn = lambda: roi_align.multilevel_roi_align_cuda(*ab, **kw)  # noqa: E731
+                err = float((fn().float() - want.to(out_dtype).float()).abs().max())
+                print(json.dumps({"tree": label, "kernel": "K3-bf16", "images": B,
+                                  "image": image, "rois": rois.shape[0], "out": out,
+                                  "out_dtype": str(out_dtype), "max_abs_err": err,
+                                  "value_scale": float(want.abs().max()), "ms": cuda_ms(fn),
+                                  "host_us": host_us(fn),
+                                  "device_us": device_us(fn, "multilevel_roi_align_kernel",
+                                                         strict=False)}),
+                      flush=True)
+            del want
+        del levels, levels_b
+    k4_rows(g, dev, label, C, strides, has_out_dtype)
     return 0
 
 

@@ -114,28 +114,30 @@ _SIGNATURES = {
     "pfr_warp_perspective_batch_int8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (boxes, valid, words, keep, G, K, iou_threshold, stream)
     "pfr_nms_keep_sorted_batch": (_P, _P, _P, _P, _I, _I, _F, _P),
-    # (p0..p3, H0..H3, W0..W3, stride0..stride3, n_levels, C,
-    #  rois, batch_idx, level, K, OH, OW, sampling_ratio, out, stream)
+    # (p0..p3, H0..H3, W0..W3, stride0..stride3, n_levels, C, rois, batch_idx, K,
+    #  OH, OW, sampling_ratio, canonical_scale, canonical_level, min_level, out,
+    #  stream)
     "pfr_multilevel_roi_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                                 _I, _I, _I, _P, _P),
-    # the same, over bfloat16 levels (float32 RoIs and output)
+                                 _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                 _I, _I, _F, _I, _I, _P, _P),
+    # the same over bfloat16 levels, with out_bf16 after out
     "pfr_multilevel_roi_align_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                                      _I, _I, _I, _P, _P),
-    # (rois, batch_idx, level, H0..H3, W0..W3, stride0..stride3, n_levels, B, K,
-    #  OH, OW, sampling_ratio, key, footprint, stream)
-    "pfr_roi_footprints": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _P, _P, _P),
+                                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                      _I, _I, _F, _I, _I, _P, _I, _P),
+    # (rois, batch_idx, H0..H3, W0..W3, stride0..stride3, n_levels, B, K,
+    #  OH, OW, sampling_ratio, canonical_scale, canonical_level, min_level,
+    #  key, footprint, stream)
+    "pfr_roi_footprints": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P),
     # (g, d0..d3, H0..H3, W0..W3, stride0..stride3, n_levels, B, C,
     #  rois, order, footprint, group_start, OH, OW, sampling_ratio, stream)
     "pfr_multilevel_roi_align_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                           _P, _P, _I, _I, _I, _P),
-    # the same arguments: K4 with bfloat16 operands, float32 level gradients
-    "pfr_multilevel_roi_align_backward_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                                               _P, _P, _I, _I, _I, _P),
+    # K4 with bfloat16 operands: (g, g_bf16, d0..d3, out_bf16, then as above)
+    "pfr_multilevel_roi_align_backward_bf16": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                               _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -18,7 +18,9 @@ and ConvNeXt-T ones over p4 and p5. The RPN's NMS is kernel K2, as is the box
 NMS when more than one detection is kept; the RoIAligns (box 7x7, keypoint and mask 14x14) run
 forward through kernel K3 and, in training, backward through kernel K4
 (``MultilevelRoIAlign``), each in its bfloat16 instance when the levels are
-bfloat16; their wrappers take the plain versions only for CPU tensors.
+bfloat16, pooling into bfloat16 where the head that reads the pooled values
+computes in it (``_roi_align``); their wrappers take the plain versions only
+for CPU tensors.
 
 The two samplers take uniform noise, ``sampler_noise = {"rpn": (B, N_anchors),
 "box": (B, rpn_post_nms_top_n_train + G)}``, or draw it from ``generator``
@@ -135,15 +137,24 @@ class GeneralizedRCNN(nn.Module):
                        num_levels=len(backbone.fpn.in_levels) + 1, dtype=dtype)
         self.roi_heads = RoIHeads(cfg, backbone.out_channels, quant_kp, dtype)
 
-    def _roi_align(self, pool, strides, boxes_flat, batch_idx, output_size):
+    def _roi_align(self, pool, strides, boxes_flat, batch_idx, output_size,
+                   head: nn.Module | None = None):
         """RoIAlign over the pooled levels ``pool = (names, NHWC maps)``; the
         level range comes from their names (``p4``, ``p5`` -> 4..5), as the
-        JAX ``_roi_align`` reads it, so the canonical mapper clamps to it."""
+        JAX ``_roi_align`` reads it, so the canonical mapper clamps to it.
+        The pooled values are float32, as JAX's, or bfloat16 where the levels
+        and ``head.input_dtype`` (the type in which the head that reads them
+        computes) are: that head would round them to bfloat16 first thing, so
+        nothing downstream changes by a bit, forward or backward."""
         names, feats = pool
         levels = [int(n[1:]) for n in names]
+        bf16 = torch.bfloat16
+        out_dtype = (bf16 if head is not None and head.input_dtype == bf16
+                     and feats[0].dtype == bf16 else torch.float32)
         return multilevel_roi_align_diff(
             feats, boxes_flat.contiguous(), batch_idx, output_size,
-            tuple(strides[: len(feats)]), min_level=min(levels), max_level=max(levels))
+            tuple(strides[: len(feats)]), min_level=min(levels), max_level=max(levels),
+            out_dtype=out_dtype)
 
     def forward(self, images: torch.Tensor, targets: dict | None = None,
                 sampler_noise: dict | None = None,
@@ -207,7 +218,7 @@ class GeneralizedRCNN(nn.Module):
         batch_idx = torch.arange(B, dtype=torch.int32, device=dev)
         heads = self.roi_heads
         pooled = self._roi_align(pool, strides, boxes_flat,
-                                 batch_idx.repeat_interleave(S), (7, 7))
+                                 batch_idx.repeat_interleave(S), (7, 7), heads.box_head)
         class_logits, box_deltas = heads.box_predictor(heads.box_head(pooled))
         matched = _take(targets["boxes"], gt_idx).reshape(B * S, 4)
         losses.update(rh.fastrcnn_loss(class_logits, box_deltas, boxes_flat,
@@ -231,7 +242,8 @@ class GeneralizedRCNN(nn.Module):
 
         if c.with_mask:
             r = c.mask_roi_size
-            pooled = self._roi_align(pool, strides, pos_boxes_flat, pos_bidx, (r, r))
+            pooled = self._roi_align(pool, strides, pos_boxes_flat, pos_bidx, (r, r),
+                                     heads.mask_head)
             mask_logits = heads.mask_predictor(heads.mask_head(pooled.permute(0, 3, 1, 2)))
             S_m = mask_logits.shape[1]
             gt_masks = rh.project_masks_on_boxes(targets["masks"], pos_boxes, pos_gt_idx, S_m)
@@ -240,7 +252,8 @@ class GeneralizedRCNN(nn.Module):
 
         if c.num_keypoints:
             r = c.keypoint_roi_size
-            pooled = self._roi_align(pool, strides, pos_boxes_flat, pos_bidx, (r, r))
+            pooled = self._roi_align(pool, strides, pos_boxes_flat, pos_bidx, (r, r),
+                                     heads.keypoint_head)
             kp_logits = heads.keypoint_predictor(heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
             gt_kps = _take(targets["keypoints"], pos_gt_idx)
             kp_targets, kp_valid = rh.keypoints_to_heatmap_targets(
@@ -258,9 +271,9 @@ class GeneralizedRCNN(nn.Module):
             c.rpn_post_nms_top_n_test, c.rpn_nms_thresh)
         S = proposals.shape[1]
         batch_idx = torch.arange(B, dtype=torch.int32, device=objectness.device)
-        pooled = self._roi_align(pool, strides, proposals.reshape(B * S, 4),
-                                 batch_idx.repeat_interleave(S), (7, 7))
         heads = self.roi_heads
+        pooled = self._roi_align(pool, strides, proposals.reshape(B * S, 4),
+                                 batch_idx.repeat_interleave(S), (7, 7), heads.box_head)
         class_logits, box_deltas = heads.box_predictor(heads.box_head(pooled))
         boxes, labels, scores, valid = rh.postprocess_detections_batch(
             class_logits.reshape(B, S, -1), box_deltas.reshape(B, S, -1, 4),
@@ -273,14 +286,15 @@ class GeneralizedRCNN(nn.Module):
         det_bidx = batch_idx.repeat_interleave(D)
         if c.with_mask:
             r = c.mask_roi_size
-            pooled = self._roi_align(pool, strides, det_flat, det_bidx, (r, r))
+            pooled = self._roi_align(pool, strides, det_flat, det_bidx, (r, r), heads.mask_head)
             logits = heads.mask_predictor(heads.mask_head(pooled.permute(0, 3, 1, 2)))
             own = torch.gather(logits, 3, labels.reshape(B * D, 1, 1, 1).expand(
                 B * D, *logits.shape[1:3], 1))[..., 0]
             out["masks"] = torch.sigmoid(own).reshape(B, D, *own.shape[1:])
         if c.num_keypoints:
             r = c.keypoint_roi_size
-            pooled = self._roi_align(pool, strides, det_flat, det_bidx, (r, r))
+            pooled = self._roi_align(pool, strides, det_flat, det_bidx, (r, r),
+                                     heads.keypoint_head)
             kp_logits = heads.keypoint_predictor(
                 heads.keypoint_head(pooled.permute(0, 3, 1, 2)))
             kps, kp_scores = rh.heatmaps_to_keypoints(kp_logits, det_flat)

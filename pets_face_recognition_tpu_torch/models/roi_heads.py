@@ -40,11 +40,13 @@ BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
 
 class TwoMLPHead(nn.Module):
-    """flatten -> fc6 -> relu -> fc7 -> relu."""
+    """flatten -> fc6 -> relu -> fc7 -> relu. ``input_dtype``: the type in
+    which ``fc6`` reads the pooled RoIs (its compute dtype)."""
 
     def __init__(self, in_features: int, representation_size: int = 1024,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.input_dtype = dtype
         self.fc6 = Linear(in_features, representation_size, dtype=dtype)
         self.fc7 = Linear(representation_size, representation_size, dtype=dtype)
 
@@ -69,10 +71,11 @@ class FastRCNNPredictor(nn.Module):
 
 class MaskHead(nn.Module):
     """4 x (conv3x3 + relu) at 256 channels (torchvision ``MaskRCNNHeads``,
-    0.12 names); NCHW in and out."""
+    0.12 names); NCHW in and out; ``input_dtype`` as :class:`TwoMLPHead`'s."""
 
     def __init__(self, in_channels: int, channels: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.input_dtype = dtype
         for i in range(1, 5):
             setattr(self, f"mask_fcn{i}", Conv2d(in_channels if i == 1 else channels,
                                                  channels, 3, padding=1, dtype=dtype))
@@ -106,7 +109,9 @@ class KeypointHead(nn.Module):
     With ``quant`` each convolution is a :class:`~.quant.QuantConv` with its
     bias behind its own :class:`~.quant.ActQuant` (``kps_q.{i}``, the JAX
     ``kps_q{i+1}`` -> ``kps_fcn{i+1}`` pairs), its output in ``dtype``; the
-    ReLUs stay in it.
+    ReLUs stay in it. ``input_dtype`` is the type in which the head reads the
+    pooled RoIs: ``dtype``, or float32 with ``quant``, whose first
+    ``ActQuant`` observes and quantizes the float32 values.
     """
 
     def __init__(self, in_channels: int, channels: int = 512, n_convs: int = 8,
@@ -121,6 +126,7 @@ class KeypointHead(nn.Module):
         self.quant = quant is not None
         if self.quant:
             self.kps_q = nn.ModuleList(ActQuant(quant) for _ in range(n_convs))
+        self.input_dtype = torch.float32 if self.quant else dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_convs):

@@ -11,19 +11,32 @@ same taps) is the plain version of kernel K4, the gradient with respect to the
 levels (counterpart of ``pallas_roi_align.py::_roi_backward``), and
 ``multilevel_roi_align_backward_cuda`` its wrapper over
 ``csrc/roi_align_backward.cu``, whose pre-pass (``roi_footprints_cuda``, plain
-twin ``roi_footprints``) sorts the RoIs by level and image and bounds the cells
-each can reach. ``MultilevelRoIAlign`` ties the two into one
+twin ``roi_levels`` then ``roi_footprints``) sorts the RoIs by level and image
+and bounds the cells each can reach. The kernels map each RoI to its level
+themselves, operation for operation as ``roi_levels`` does on the card, so a
+wrapper is one allocation and one launch (K4: the pre-pass, a sort and the
+launch). ``MultilevelRoIAlign`` ties the two into one
 ``torch.autograd.Function``. Numerics: torchvision ``aligned=False`` with a
 fixed ``sampling_ratio``.
 
 K3 and K4 each have a second instance for bfloat16 levels, which a detector
 computing in bfloat16 hands them: the JAX kernels' ``compute_dtype=bfloat16``.
-K3's rounds the interpolation weights to bfloat16 and sums in float32 into a
-float32 result (plain version ``multilevel_roi_align_bf16``); K4's rounds the
-weights and each sample's cotangent ``g / s^2`` to bfloat16, sums in float32
-and rounds the level gradients to the levels' bfloat16 (plain version
+K3's rounds the interpolation weights to bfloat16 and sums in float32 (plain
+version ``multilevel_roi_align_bf16``); K4's rounds the weights and each
+sample's cotangent ``g / s^2`` to bfloat16 and sums in float32, the first of
+its two contractions on the tensor cores (plain version
 ``multilevel_roi_align_backward_bf16``). The wrappers pick the instance from
 the levels' dtype, so a float32 detector stays float32 throughout.
+
+Output dtypes: K3's output is float32 by default, as JAX's; ``out_dtype`` may
+instead be the levels' bfloat16, the float32 result rounded to nearest even,
+which is what a caller whose next layer computes in bfloat16 would round it to
+(``models/rcnn.py`` asks for it there: the box head's ``fc6``, the mask and
+keypoint heads' first convolutions). K4's level gradients are in the levels'
+dtype (the custom VJP's cast), written so by the kernel; ``out_dtype=float32``
+returns the bfloat16 instance's float32 sums. K4 reads the cotangent as float32
+or bfloat16, whichever it is given (a bfloat16 output's cotangent is
+bfloat16).
 """
 
 from __future__ import annotations
@@ -153,11 +166,13 @@ def multilevel_roi_align_bf16(features: list[torch.Tensor], rois: torch.Tensor,
                               roi_batch_idx: torch.Tensor, output_size: tuple[int, int],
                               strides: tuple[int, ...], sampling_ratio: int = 2,
                               canonical_scale: float = 224.0, canonical_level: int = 4,
-                              min_level: int = 2, max_level: int = 5) -> torch.Tensor:
+                              min_level: int = 2, max_level: int = 5,
+                              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain K3 over bfloat16 levels, the JAX kernel's ``compute_dtype=bfloat16``:
     the taps and samples of :func:`multilevel_roi_align`, the row and column
     weights rounded to bfloat16, each column's two rows summed first and then
-    the two columns, in float32. Returns float32 ``(K, oh, ow, C)``."""
+    the two columns, in float32. Returns ``(K, oh, ow, C)`` in float32, or
+    rounded to ``out_dtype``."""
     oh, ow = output_size
     s = sampling_ratio
     B, _, _, C = features[0].shape
@@ -176,7 +191,7 @@ def multilevel_roi_align_bf16(features: list[torch.Tensor], rois: torch.Tensor,
     col_hi = take(idx[1]) * wy_lo + take(idx[3]) * wy_hi
     val = col_lo * wx_lo + col_hi * wx_hi
     val = torch.where(oob[..., None], torch.zeros((), device=rois.device), val)
-    return val.reshape(K, oh, s, ow, s, C).mean(dim=(2, 4))
+    return val.reshape(K, oh, s, ow, s, C).mean(dim=(2, 4)).to(out_dtype)
 
 
 def multilevel_roi_align_backward(grad_out: torch.Tensor,
@@ -210,8 +225,8 @@ def multilevel_roi_align_backward_bf16(grad_out: torch.Tensor,
     ``compute_dtype=bfloat16`` (``pallas_roi_align.py:399-403``): each
     sample's cotangent ``g / s^2`` and its row and column weights rounded to
     bfloat16, the products and sums in float32. Returns float32 levels of
-    ``level_shapes``, as the kernel writes them (the wrapper rounds them to
-    the levels' dtype)."""
+    ``level_shapes``: the sums that the kernel rounds to the levels' dtype
+    as it writes them."""
     return _backward(grad_out, level_shapes, rois, roi_batch_idx, output_size, strides,
                      sampling_ratio, canonical_scale, canonical_level, min_level, max_level,
                      bf16=True)
@@ -284,32 +299,36 @@ def roi_footprints(level_shapes: list[tuple[int, int, int, int]], rois: torch.Te
 
 
 def roi_footprints_cuda(level_shapes: list[tuple[int, int, int, int]], rois: torch.Tensor,
-                        roi_batch_idx: torch.Tensor, lvl: torch.Tensor,
-                        output_size: tuple[int, int], strides: tuple[int, ...],
-                        sampling_ratio: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+                        roi_batch_idx: torch.Tensor, output_size: tuple[int, int],
+                        strides: tuple[int, ...], sampling_ratio: int = 2,
+                        canonical_scale: float = 224.0, canonical_level: int = 4,
+                        min_level: int = 2, max_level: int = 5,
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4's pre-pass in one launch: ``(key (K,) int32, footprint (K, 4) int32)``,
-    where ``key`` is ``level * B + image`` (``n_levels * B`` for an image index
-    outside ``[0, B)``) and ``footprint`` is :func:`roi_footprints`, which the
-    kernel repeats operation for operation. Plain torch ops for CPU tensors.
+    where ``key`` is ``level * B + image`` with the level of :func:`roi_levels`
+    (``n_levels * B`` for an image index outside ``[0, B)``) and ``footprint``
+    is :func:`roi_footprints`; the kernel repeats both operation for
+    operation. Plain torch ops for CPU tensors.
     """
     B, n_levels = level_shapes[0][0], len(level_shapes)
     if rois.device.type == "cpu":
+        lvl = roi_levels(rois, min_level, max_level, canonical_scale, canonical_level)
         b = roi_batch_idx.long()
         key = torch.where((b >= 0) & (b < B), lvl.long() * B + b,
                           torch.full_like(b, n_levels * B)).to(torch.int32)
         return key, roi_footprints(level_shapes, rois, lvl, output_size, strides,
                                    sampling_ratio)
-    hs, ws, sts = _level_args(level_shapes, strides, 0, n_levels - 1)  # lvl is 0-based
+    hs, ws, sts = _level_args(level_shapes, strides, min_level, max_level)
     _check_rois(rois, roi_batch_idx)
     K = rois.shape[0]
     bidx = roi_batch_idx.to(torch.int32).contiguous()
-    lvl = lvl.to(torch.int32).contiguous()
     key = torch.empty(K, dtype=torch.int32, device=rois.device)
     footprint = torch.empty((K, 4), dtype=torch.int32, device=rois.device)
     if K:
         kernels.launch("roi_footprints", "pfr_roi_footprints", rois.device, rois.data_ptr(),
-                       bidx.data_ptr(), lvl.data_ptr(), *hs, *ws, *sts, n_levels, B, K,
-                       *output_size, sampling_ratio, key.data_ptr(), footprint.data_ptr())
+                       bidx.data_ptr(), *hs, *ws, *sts, n_levels, B, K,
+                       *output_size, sampling_ratio, canonical_scale, canonical_level,
+                       min_level, key.data_ptr(), footprint.data_ptr())
     return key, footprint
 
 
@@ -337,24 +356,34 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
                               output_size: tuple[int, int], strides: tuple[int, ...],
                               sampling_ratio: int = 2, canonical_scale: float = 224.0,
                               canonical_level: int = 4, min_level: int = 2,
-                              max_level: int = 5) -> torch.Tensor:
+                              max_level: int = 5,
+                              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
     Same arguments and result as :func:`multilevel_roi_align`; at most 4 levels,
-    ``C`` a multiple of 4 and levels aligned to 4 channels (the kernel moves 4
-    channels at a time). The level of each RoI comes from :func:`roi_levels`,
-    as in the plain version; the result is bit-equal to the plain version's.
+    ``C`` a multiple of the channels of one 16-byte load (4 float32, 8
+    bfloat16) and levels aligned to 16 bytes. The kernel maps each RoI to its
+    level as :func:`roi_levels` does, so the result is bit-equal to the plain
+    version's.
     bfloat16 levels (all of them) take the bfloat16 instance, whose plain
-    version is :func:`multilevel_roi_align_bf16`; the result is float32
-    either way. Not differentiable: :class:`MultilevelRoIAlign` is.
+    version is :func:`multilevel_roi_align_bf16`; the result is float32, or
+    for bfloat16 levels ``out_dtype=torch.bfloat16``, the float32 result
+    rounded to nearest even. Not differentiable: :class:`MultilevelRoIAlign`
+    is.
     """
-    bf16 = features[0].dtype == torch.bfloat16
+    f0 = features[0]
+    bf16 = f0.dtype == torch.bfloat16
+    if out_dtype not in (torch.float32, f0.dtype):
+        raise ValueError(f"roi_align: output float32 or the levels' {f0.dtype}, got {out_dtype}")
     if rois.device.type == "cpu":
-        plain = multilevel_roi_align_bf16 if bf16 else multilevel_roi_align
-        return plain(features, rois, roi_batch_idx, output_size, strides, sampling_ratio,
-                     canonical_scale, canonical_level, min_level, max_level)
+        args = (features, rois, roi_batch_idx, output_size, strides, sampling_ratio,
+                canonical_scale, canonical_level, min_level, max_level)
+        if bf16:
+            return multilevel_roi_align_bf16(*args, out_dtype=out_dtype)
+        return multilevel_roi_align(*args)
     hs, ws, sts = _level_args([f.shape for f in features], strides, min_level, max_level)
-    B, _, _, C = features[0].shape
+    B, _, _, C = f0.shape
+    vec = 8 if bf16 else 4
     for i, f in enumerate(features):
         # every level float32, or every level bfloat16 (the first's dtype)
         if bf16:
@@ -363,24 +392,24 @@ def multilevel_roi_align_cuda(features: list[torch.Tensor], rois: torch.Tensor,
             kernels.check_cuda_f32(f"roi_align level {i}", f, 4)
         if f.shape[0] != B or f.shape[3] != C or f.device != rois.device:
             raise ValueError("roi_align: levels must share B, C and the device")
-        if C % 4 or f.data_ptr() % (4 * f.element_size()):
-            raise ValueError("roi_align: the kernel reads 4 channels at once; needs C % 4 "
-                             f"== 0 and levels aligned to 4 channels (C = {C})")
+        if C % vec or f.data_ptr() % 16:
+            raise ValueError(f"roi_align: the kernel reads {vec} channels at once; needs "
+                             f"C % {vec} == 0 (C % 4 for float32, % 8 for bfloat16) and "
+                             f"levels aligned to 16 bytes (C = {C})")
     _check_rois(rois, roi_batch_idx)
     K = rois.shape[0]
     oh, ow = output_size
-    out = torch.empty((K, oh, ow, C), dtype=torch.float32, device=rois.device)
+    out = torch.empty((K, oh, ow, C), dtype=out_dtype, device=rois.device)
     if K == 0:
         return out
-    bidx = roi_batch_idx.to(torch.int32).contiguous()
-    lvl = roi_levels(rois, min_level, max_level, canonical_scale,
-                     canonical_level).contiguous()
+    bidx = roi_batch_idx.to(torch.int32).contiguous()  # no copy when it is one
     ptrs = [f.data_ptr() for f in features] + [None] * (4 - len(features))
+    tail = (out.data_ptr(), int(out_dtype == torch.bfloat16)) if bf16 else (out.data_ptr(),)
     name = "multilevel_roi_align_bf16" if bf16 else "multilevel_roi_align"
     kernels.launch(name, f"pfr_{name}", rois.device,
                    *ptrs, *hs, *ws, *sts, len(features), C, rois.data_ptr(),
-                   bidx.data_ptr(), lvl.data_ptr(), K, oh, ow, sampling_ratio,
-                   out.data_ptr())
+                   bidx.data_ptr(), K, oh, ow, sampling_ratio,
+                   canonical_scale, canonical_level, min_level, *tail)
     return out
 
 
@@ -400,25 +429,28 @@ def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
     Same arguments and result as :func:`multilevel_roi_align_backward`; at most
     4 levels and 32 x 32 output cells. ``dtype`` is the levels' type:
     ``torch.bfloat16`` takes the bfloat16 instance (plain version
-    :func:`multilevel_roi_align_backward_bf16`), whose float32 gradients are
-    then rounded to ``out_dtype`` (by default ``dtype``; ``torch.float32``
-    returns the sums as the kernel writes them). The RoIs are sorted by (level, image),
-    stably, and given their :func:`roi_footprints`; the kernel writes every
-    element of the level gradients once, summing in a fixed order, so its
-    result is the same to the bit from launch to launch. It agrees with the
-    plain version to float32 rounding of a short sum. A RoI whose batch index
-    is outside ``[0, B)`` adds nothing.
+    :func:`multilevel_roi_align_backward_bf16`; ``C`` a multiple of 8 and at
+    most 64 sample rows), which reads a float32 or bfloat16 cotangent and writes
+    its float32 sums rounded to ``out_dtype`` (by default ``dtype``;
+    ``torch.float32`` returns the sums themselves). The RoIs are sorted by
+    (level, image), stably, and given their :func:`roi_footprints`; the kernel
+    writes every element of the level gradients once, summing in a fixed
+    order, so its result is the same to the bit from launch to launch. It
+    agrees with the plain version to float32 rounding of a short sum. A RoI
+    whose batch index is outside ``[0, B)`` adds nothing.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"roi_align_backward: levels float32 or bfloat16, got {dtype}")
     bf16 = dtype == torch.bfloat16
+    out_dtype = out_dtype or dtype
     if grad_out.device.type == "cpu":
         plain = multilevel_roi_align_backward_bf16 if bf16 else multilevel_roi_align_backward
         grads = plain(grad_out, level_shapes, rois, roi_batch_idx, output_size, strides,
                       sampling_ratio, canonical_scale, canonical_level, min_level, max_level)
-        return [d.to(out_dtype or dtype) for d in grads]
+        return [d.to(out_dtype) for d in grads]
     hs, ws, sts = _level_args(level_shapes, strides, min_level, max_level)
-    kernels.check_cuda_f32("roi_align_backward grad", grad_out, 4)
+    kernels.check_cuda("roi_align_backward grad", grad_out, 4,
+                       (torch.float32, torch.bfloat16) if bf16 else (torch.float32,))
     _check_rois(rois, roi_batch_idx)
     K, oh, ow, C = grad_out.shape
     if K != rois.shape[0] or (oh, ow) != tuple(output_size) or grad_out.device != rois.device:
@@ -428,53 +460,70 @@ def multilevel_roi_align_backward_cuda(grad_out: torch.Tensor,
         raise ValueError("roi_align_backward: levels must share B and the grad's C")
     if max(oh, ow) > 32:
         raise ValueError(f"roi_align_backward: at most 32 x 32 output cells, got {oh} x {ow}")
+    if bf16 and (C % 8 or oh * sampling_ratio > 64 or
+                 out_dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError("roi_align_backward bfloat16: needs C % 8 == 0, at most 64 sample "
+                         f"rows and float32 or bfloat16 gradients (C = {C}, "
+                         f"{oh * sampling_ratio} rows, {out_dtype})")
     dev = rois.device
-    grads = [torch.empty(tuple(sh), dtype=torch.float32, device=dev) for sh in level_shapes]
-    lvl = roi_levels(rois, min_level, max_level, canonical_scale, canonical_level)
-    key, footprint = roi_footprints_cuda(level_shapes, rois, roi_batch_idx, lvl,
-                                         output_size, strides, sampling_ratio)
+    written = out_dtype if bf16 else torch.float32
+    grads = [torch.empty(tuple(sh), dtype=written, device=dev) for sh in level_shapes]
+    key, footprint = roi_footprints_cuda(level_shapes, rois, roi_batch_idx, output_size,
+                                         strides, sampling_ratio, canonical_scale,
+                                         canonical_level, min_level, max_level)
     key, order = torch.sort(key, stable=True)
     group_start = torch.searchsorted(
         key, torch.arange(len(level_shapes) * B + 1, dtype=torch.int32, device=dev),
         out_int32=True)
     ptrs = [d.data_ptr() for d in grads] + [None] * (4 - len(grads))
-    name = "multilevel_roi_align_backward_bf16" if bf16 else "multilevel_roi_align_backward"
-    kernels.launch(name, f"pfr_{name}", dev,
-                   grad_out.data_ptr(), *ptrs, *hs, *ws, *sts, len(grads), B, C,
-                   rois.data_ptr(), order.data_ptr(), footprint.data_ptr(),
-                   group_start.data_ptr(), oh, ow, sampling_ratio)
-    return [d.to(out_dtype or dtype) for d in grads]
+    tail = (len(grads), B, C, rois.data_ptr(), order.data_ptr(), footprint.data_ptr(),
+            group_start.data_ptr(), oh, ow, sampling_ratio)
+    if bf16:
+        kernels.launch("multilevel_roi_align_backward_bf16",
+                       "pfr_multilevel_roi_align_backward_bf16", dev, grad_out.data_ptr(),
+                       int(grad_out.dtype == torch.bfloat16), *ptrs,
+                       int(written == torch.bfloat16), *hs, *ws, *sts, *tail)
+        return grads
+    kernels.launch("multilevel_roi_align_backward", "pfr_multilevel_roi_align_backward", dev,
+                   grad_out.data_ptr(), *ptrs, *hs, *ws, *sts, *tail)
+    return [d.to(out_dtype) for d in grads]
 
 
 class MultilevelRoIAlign(torch.autograd.Function):
     """Differentiable multilevel RoIAlign: forward K3, backward K4 (their
     plain versions for CPU tensors), each in the instance of the levels'
-    dtype. Gradients reach the levels only, in the levels' dtype; the RoIs
-    and batch indices get none, as in the JAX custom VJP and torchvision.
+    dtype. The output is ``out_dtype`` (float32, or the levels' bfloat16);
+    gradients reach the levels only, in the levels' dtype; the RoIs and batch
+    indices get none, as in the JAX custom VJP and torchvision.
 
     ``apply(rois, roi_batch_idx, output_size, strides, sampling_ratio,
-    canonical_scale, canonical_level, min_level, max_level, *features)``.
+    canonical_scale, canonical_level, min_level, max_level, out_dtype,
+    *features)``.
     """
 
     @staticmethod
     def forward(ctx, rois, roi_batch_idx, output_size, strides, sampling_ratio,
-                canonical_scale, canonical_level, min_level, max_level, *features):
+                canonical_scale, canonical_level, min_level, max_level, out_dtype, *features):
         args = (output_size, strides, sampling_ratio, canonical_scale,
                 canonical_level, min_level, max_level)
         ctx.save_for_backward(rois, roi_batch_idx)
         ctx.args = args
         ctx.level_shapes = [tuple(f.shape) for f in features]
         ctx.dtype = features[0].dtype
-        return multilevel_roi_align_cuda(list(features), rois, roi_batch_idx, *args)
+        return multilevel_roi_align_cuda(list(features), rois, roi_batch_idx, *args,
+                                         out_dtype=out_dtype)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         rois, roi_batch_idx = ctx.saved_tensors
+        # K4-bf16 reads a bfloat16 cotangent as it comes; float32 K4 takes float32
+        if not (ctx.dtype == torch.bfloat16 and grad_out.dtype == torch.bfloat16):
+            grad_out = grad_out.float()
         grads = multilevel_roi_align_backward_cuda(
-            grad_out.float().contiguous(), ctx.level_shapes, rois, roi_batch_idx, *ctx.args,
+            grad_out.contiguous(), ctx.level_shapes, rois, roi_batch_idx, *ctx.args,
             dtype=ctx.dtype)
-        return (None,) * 9 + tuple(grads)
+        return (None,) * 10 + tuple(grads)
 
 
 def multilevel_roi_align_diff(features: list[torch.Tensor], rois: torch.Tensor,
@@ -482,8 +531,11 @@ def multilevel_roi_align_diff(features: list[torch.Tensor], rois: torch.Tensor,
                               output_size: tuple[int, int], strides: tuple[int, ...],
                               sampling_ratio: int = 2, canonical_scale: float = 224.0,
                               canonical_level: int = 4, min_level: int = 2,
-                              max_level: int = 5) -> torch.Tensor:
-    """:class:`MultilevelRoIAlign` with the arguments of :func:`multilevel_roi_align`."""
+                              max_level: int = 5,
+                              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:class:`MultilevelRoIAlign` with the arguments of :func:`multilevel_roi_align`
+    and ``out_dtype`` (float32, or the levels' bfloat16)."""
     return MultilevelRoIAlign.apply(rois, roi_batch_idx, tuple(output_size),
                                     tuple(strides), sampling_ratio, canonical_scale,
-                                    canonical_level, min_level, max_level, *features)
+                                    canonical_level, min_level, max_level, out_dtype,
+                                    *features)

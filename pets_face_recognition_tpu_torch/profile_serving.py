@@ -48,6 +48,7 @@ OWN_KERNELS = {"warp_perspective_kernel": "K1 warp",
                K2_PREFIX: "K2 nms",
                "multilevel_roi_align_kernel": "K3 roi_align",
                "multilevel_roi_align_backward_kernel": "K4 roi_align_backward",
+               "multilevel_roi_align_backward_bf16_mma_kernel": "K4-bf16 roi_align_backward",
                "roi_footprints_kernel": "K4 pre-pass roi_footprints"}
 
 

@@ -215,7 +215,7 @@ def test_footprint_keys_on_the_cpu_sort_by_level_and_image():
     rois, bidx = _footprint_rois(np.random.RandomState(3), B, 6, image)
     bidx[5] = B  # an image index outside [0, B) goes past every group
     lvl = roi_align.roi_levels(rois, 2, 5)
-    key, fp = roi_align.roi_footprints_cuda(shapes, rois, bidx, lvl, (7, 7), STRIDES)
+    key, fp = roi_align.roi_footprints_cuda(shapes, rois, bidx, (7, 7), STRIDES)
     want = lvl.long() * B + bidx.long()
     want[5] = len(shapes) * B
     assert key.dtype == torch.int32 and key.tolist() == want.tolist()
