@@ -23,8 +23,15 @@ Phases, each printing one JSON line (or one per kernel):
    their launches, as it now and then does: the reading gates nothing), K1
    also beside the library's whole route from the maps (inverse, grid, ``grid_sample``,
    permutes), and against ``grid_sample`` alone in paired rounds (the two
-   timed one after the other, in alternating order). K4 must give the same
-   bits in two launches on the same inputs, and its pre-pass the same
+   timed one after the other, in alternating order); K1's bfloat16 and int8
+   modes likewise at B = 8 and 32, each bit for bit equal to its plain
+   version, then on stress maps (rotations of 90 and 180 degrees, scales 0.25
+   and 4, a denominator changing sign, a NaN map, a crop off the image, C =
+   1, 2, 4, a 223 x 97 crop, a bfloat16 output, unaligned rows and base, a
+   shrunk int8 box) that together take each branch of the int8 instance's
+   tiles (staged boxes, pixels that miss the box, tiles that stage
+   nothing). K4 must give the same bits in two launches on the same inputs,
+   and its pre-pass the same
    integers as its plain twin; last, K2 and K3 at edge shapes (ragged and
    long groups, narrow channels, a non-square output, 2 levels, sampling
    ratios 1 and 3) against their plain versions;
@@ -337,8 +344,9 @@ second read, one step on it and one on a batch of dog items alone, finite
 losses, K2-K4 launched.
 
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass; K1's bfloat16 and
-int8 modes and K3 on bfloat16 levels, timed at the serving shapes in the
-kernel phase, each bit-equal to its plain version expected, their launches
+int8 modes at the served batch, B = 32, and K3 on bfloat16 levels at the
+serving shapes, timed in the kernel phase, each bit-equal to its plain
+version expected, their launches
 the reduced-precision serving paths'; and K3, K4 and the
 pre-pass again on the mobile pyramid, ``_mobile``, and K2 and K3 at Mask
 R-CNN's shapes, ``_mask``, and K4 on Mask R-CNN's training gradient,
@@ -375,7 +383,6 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12        # H100 SXM bfloat16 on the tensor cores, dense
 B_KERNELS = 8                      # batch of the kernel phase
@@ -430,29 +437,14 @@ def kernel_us(fn, kernel_name: str, **kw) -> float | None:
     return device_us(fn, kernel_name, strict=False, **kw)
 
 
-def grid_sample_grid(Hs, hw: tuple[int, int] = (IMAGE, IMAGE)):
-    """``grid_sample``'s ``(B, 224, 224, 2)`` grid (align_corners=True) from the
-    maps ``Hs`` on ``hw = (H, W)`` images: each output pixel's source position
-    ``H^-1 @ (x, y, 1)``."""
-    import torch
-
-    hinv = torch.linalg.inv(Hs)
-    gy, gx = torch.meshgrid(torch.arange(CROP, device=Hs.device, dtype=torch.float32),
-                            torch.arange(CROP, device=Hs.device, dtype=torch.float32),
-                            indexing="ij")
-    h = hinv[:, :, :, None, None]
-    den = h[:, 2, 0] * gx + h[:, 2, 1] * gy + h[:, 2, 2]
-    sx = (h[:, 0, 0] * gx + h[:, 0, 1] * gy + h[:, 0, 2]) / den
-    sy = (h[:, 1, 0] * gx + h[:, 1, 1] * gy + h[:, 1, 2]) / den
-    return torch.stack([2 * sx / (hw[1] - 1) - 1, 2 * sy / (hw[0] - 1) - 1], -1)
-
-
 def grid_sample_route(images, Hs):
     """The library's whole route for K1's function: NHWC images and maps in,
     NHWC crops out, through ``grid_sample``."""
     import torch
+    from pets_face_recognition_tpu_torch.kernel_ab import grid_sample_grid
 
-    out = torch.nn.functional.grid_sample(images.permute(0, 3, 1, 2), grid_sample_grid(Hs),
+    grid = grid_sample_grid(Hs, (IMAGE, IMAGE), (CROP, CROP))
+    out = torch.nn.functional.grid_sample(images.permute(0, 3, 1, 2), grid,
                                           padding_mode="zeros", align_corners=True)
     return out.permute(0, 2, 3, 1).contiguous()
 
@@ -474,29 +466,6 @@ def paired_ms(fn_a, fn_b, rounds: int = 7) -> list[tuple[float, float]]:
     return out
 
 
-def warp_read_bytes(images, Hs) -> int:
-    """Bytes that K1 must read from the source on these inputs: each image's
-    distinct pixels under the crop's bilinear taps that lie inside the image
-    and carry a nonzero weight (the plain version's sample positions), C
-    float32 values each."""
-    import torch
-    from pets_face_recognition_tpu_torch.ops.homography import (_sample_coords,
-                                                                invert_homographies)
-
-    B, H, W, C = images.shape
-    sx, sy = _sample_coords(invert_homographies(Hs), (CROP, CROP))
-    x0, y0 = sx.floor(), sy.floor()
-    fx, fy = sx - x0, sy - y0
-    b = torch.arange(B, device=images.device)[:, None, None]
-    keys = []
-    for yy, wy in ((y0, 1 - fy), (y0 + 1, fy)):
-        for xx, wx in ((x0, 1 - fx), (x0 + 1, fx)):
-            ok = (wy != 0) & (wx != 0) & (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
-            flat = (b * H + yy.clamp(0, H - 1).long()) * W + xx.clamp(0, W - 1).long()
-            keys.append(flat[ok])
-    return int(torch.unique(torch.cat(keys)).numel()) * C * 4
-
-
 def host_us(fn, iters: int = 200) -> float:
     """``kernel_ab.host_us``: host time per call of ``fn()`` in us, back to
     back after warm-up, without waiting for the device inside the loop."""
@@ -510,6 +479,8 @@ def bound_ms(n_bytes: float, n_flops: float, n_tc_flops: float = 0.0) -> tuple[f
     the operations over the peak rate of their type (``n_flops`` float32 on
     the CUDA cores, ``n_tc_flops`` bfloat16 on the tensor cores, which issue
     at the same time), whichever is longest."""
+    from pets_face_recognition_tpu_torch.kernel_ab import HBM_BYTES_PER_S
+
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(n_flops / F32_FLOP_PER_S, n_tc_flops / BF16_TC_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -519,23 +490,11 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def similarity_landmarks(g, B: int, base, image: int):
-    """Well-formed landmarks: seeded similarity transforms of the base points."""
-    import torch
-
-    scale = 0.6 + 0.8 * torch.rand(B, generator=g)
-    theta = (torch.rand(B, generator=g) - 0.5) * math.radians(30.0)
-    center = image / 2 + (torch.rand(B, 2, generator=g) - 0.5) * 80.0
-    rot = torch.stack([torch.stack([theta.cos(), -theta.sin()], -1),
-                       torch.stack([theta.sin(), theta.cos()], -1)], -2)
-    rel = base.cpu() - base.cpu().mean(0)
-    return (scale[:, None, None] * rel[None] @ rot.transpose(1, 2)) + center[:, None, :]
-
-
 def kernel_phase(dev) -> dict[str, dict]:
     """Phase 2, serving: K1-K3 against their plain versions at serving shapes."""
     import torch
-    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
+    from pets_face_recognition_tpu_torch.kernel_ab import (cuda_ms, grid_sample_grid, random_rois,
+                                                           similarity_landmarks, warp_read_bytes)
     from pets_face_recognition_tpu_torch.ops import homography, nms, roi_align
     from pets_face_recognition_tpu_torch.profile_serving import nms_work
 
@@ -564,7 +523,7 @@ def kernel_phase(dev) -> dict[str, dict]:
         route = lambda: grid_sample_route(images, Hs)  # noqa: E731
         lib_out = route()
         lib_err = max_err(lib_out, want)
-        grid = grid_sample_grid(Hs)
+        grid = grid_sample_grid(Hs, (IMAGE, IMAGE), (CROP, CROP))
         nchw = images.permute(0, 3, 1, 2)
         lib_call = lambda: torch.nn.functional.grid_sample(  # noqa: E731
             nchw, grid, padding_mode="zeros", align_corners=True)
@@ -580,7 +539,7 @@ def kernel_phase(dev) -> dict[str, dict]:
         lib_host = host_us(lib_call)
         route_ms = cuda_ms(route)
         # bytes: the source pixels the taps read, the maps, the crops
-        src_bytes = warp_read_bytes(images, Hs)
+        src_bytes = warp_read_bytes(images, Hs, (CROP, CROP))
         n_bytes = src_bytes + Hs.numel() * 4 + got.numel() * 4
         n_flops = B * CROP * CROP * (24 + 7 * 3)
         b, by = bound_ms(n_bytes, n_flops)
@@ -677,15 +636,130 @@ def kernel_phase(dev) -> dict[str, dict]:
 K1_MODE_DRIFT = {"bfloat16": 8e-3, "int8": 1.2e-2}
 
 
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits, NaN payloads aside (NaN where the
+    other is NaN)."""
+    import torch
+
+    nan = a.isnan()
+    if not torch.equal(nan, b.isnan()):
+        return False
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+
+
+def k1_stress_cases(dev):
+    """``(label, images, Hs, crop, kwargs)`` for K1's bfloat16 and int8
+    instances on maps and shapes that serving does not give them: rotations
+    of 90 and 180 degrees, scales 0.25 and 4 (source pixels a crop pixel), a
+    denominator that changes sign inside the crop, a NaN map, a crop wholly
+    off the image, C = 1, 2 and 4, a 223 x 97 crop, a bfloat16 output, an
+    image whose rows are not 16-byte aligned and one whose base is not, and
+    the served map with the int8 instance's boxes shrunk by 3 pixels
+    (``slack`` -3, set through the kernel's test hook, so that taps fall
+    outside their tile's box and read global memory). Each takes 2 images."""
+    import torch
+
+    def crop_map(scale, deg, shift=(0.0, 0.0), persp=(0.0, 0.0), crop=(CROP, CROP),
+                 hw=(IMAGE, IMAGE)):
+        # H^-1 takes crop pixels about the crop's centre to the image's centre
+        # plus shift, rotated by deg and scaled; persp is its third row's x, y
+        th = math.radians(deg)
+        a = torch.tensor([[math.cos(th), -math.sin(th)], [math.sin(th), math.cos(th)]],
+                         dtype=torch.float64) * scale
+        c = torch.tensor([(crop[1] - 1) / 2, (crop[0] - 1) / 2], dtype=torch.float64)
+        t = torch.tensor([(hw[1] - 1) / 2 + shift[0], (hw[0] - 1) / 2 + shift[1]],
+                         dtype=torch.float64) - a @ c
+        hinv = torch.eye(3, dtype=torch.float64)
+        hinv[:2, :2], hinv[:2, 2] = a, t
+        hinv[2, :2] = torch.tensor(persp, dtype=torch.float64)
+        return torch.linalg.inv(hinv).float().expand(2, 3, 3).contiguous().to(dev)
+
+    g = torch.Generator().manual_seed(7)
+
+    def imgs(C=3, hw=(IMAGE, IMAGE)):
+        return torch.rand(2, *hw, C, generator=g).to(dev)
+
+    served = crop_map(1.2, 12.0, (9.0, -14.0), (2e-4, -1e-4))
+    flat = torch.rand(2 * IMAGE * IMAGE * 3 + 1, generator=g).to(dev)
+    return [
+        ("rotation 90", imgs(), crop_map(1.0, 90.0), (CROP, CROP), {}),
+        ("rotation 180", imgs(), crop_map(1.0, 180.0), (CROP, CROP), {}),
+        ("scale 0.25", imgs(), crop_map(0.25, 7.0), (CROP, CROP), {}),
+        ("scale 4", imgs(), crop_map(4.0, 20.0), (CROP, CROP), {}),
+        ("sign change", imgs(), crop_map(1.0, 0.0, persp=(-1.0 / 101.5, 0.0)), (CROP, CROP), {}),
+        ("nan map", imgs(), torch.full((2, 3, 3), math.nan, device=dev), (CROP, CROP), {}),
+        ("off the image", imgs(), crop_map(1.0, 5.0, (900.0, 40.0)), (CROP, CROP), {}),
+        ("C = 1", imgs(1), served, (CROP, CROP), {}),
+        ("C = 2", imgs(2), served, (CROP, CROP), {}),
+        ("C = 4", imgs(4), served, (CROP, CROP), {}),
+        ("223 x 97 crop", imgs(), crop_map(0.9, -8.0, crop=(223, 97)), (223, 97), {}),
+        ("bfloat16 out", imgs(), served, (CROP, CROP), {"out_dtype": torch.bfloat16}),
+        ("rows unaligned", imgs(3, (301, 333)), crop_map(1.1, 9.0, hw=(301, 333)),
+         (CROP, CROP), {}),
+        ("base unaligned", flat[1:].view(2, IMAGE, IMAGE, 3), served, (CROP, CROP), {}),
+        ("box shrunk", imgs(), served, (CROP, CROP), {"slack": -3}),
+    ]
+
+
+def k1_stress_lines(dev) -> None:
+    """K1-bf16 and K1-int8 on ``k1_stress_cases``, each bit-equal to its plain
+    version (NaN where it is NaN), with where the int8 instance reads its taps
+    by ``homography.warp_tap_sources``; together the cases must take each of
+    its branches: staged boxes, taps outside a staged box read from global
+    memory, and tiles that stage nothing (a sign change or NaN, a box over
+    the budget). Raises on a difference or a branch not taken."""
+    import torch
+    from pets_face_recognition_tpu_torch import kernels
+    from pets_face_recognition_tpu_torch.ops import homography
+
+    set_slack = kernels.library().pfr_warp_int8_test_box_slack
+    totals, lines = {}, []
+    for label, images, Hs, crop, kw in k1_stress_cases(dev):
+        out_dtype = kw.get("out_dtype", torch.float32)
+        slack = kw.get("slack", homography.K1_BOX_SLACK)
+        line = {"case": label, "shape": list(images.shape), "crop": list(crop)}
+        for cd, mode in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            set_slack(slack if cd == torch.int8 else homography.K1_BOX_SLACK)
+            try:
+                got = homography.warp_perspective_batch_cuda(images, Hs, crop, cd, out_dtype)
+                want = homography.warp_perspective_batch(images, Hs, crop, cd, out_dtype)
+                torch.cuda.synchronize()
+            finally:
+                set_slack(homography.K1_BOX_SLACK)
+            line[mode] = dict(bits_equal=same_bits(got, want), nan=int(want.isnan().sum()))
+        tap = homography.warp_tap_sources(Hs, crop, tuple(images.shape[1:3]), slack)
+        for k, v in tap.items():
+            totals[k] = totals.get(k, 0) + v
+        line["int8"].update(tap)
+        lines.append(line)
+        emit("kernel", name="K1 reduced stress", **line)
+    bad = [(ln["case"], m) for ln in lines for m in ("bf16", "int8")
+           if not ln[m]["bits_equal"]]
+    missing = [k for k in ("staged_taps", "box_miss_taps", "tile_global_taps",
+                           "unsafe_tiles", "budget_tiles") if totals[k] == 0]
+    emit("kernel", name="K1-int8 stress branches", **totals, cases=len(lines),
+         differ=bad, branches_not_taken=missing)
+    if bad:
+        raise AssertionError(f"K1 reduced instances differ from their plain versions: {bad}")
+    if missing:
+        raise AssertionError(f"K1 stress maps take no {missing}")
+
+
 def reduced_kernel_rows(dev) -> dict[str, dict]:
     """Phase 2, the JAX package's reduced precision at the serving shapes:
-    K1's bfloat16 and int8 modes (B = 8, 320 x 320 -> 224 x 224, float32 out)
-    and K3 on bfloat16 levels (p2..p5 of a 320 image, C = 256, 16 box RoIs an
-    image at 7 x 7 and one keypoint RoI at 14 x 14), each against its plain
-    version on the card (bit-equal expected: the plain versions round at the
-    kernels' points and sum in their order; held to 1e-5 for K1 and 1e-4 of the
-    value scale for K3) and timed beside it, its bound and, for K1-bf16,
-    ``grid_sample`` on bfloat16 images and grid (the library row). K3-bf16
+    K1's bfloat16 and int8 modes (320 x 320 -> 224 x 224, float32 out) at
+    B = 8 and at the served batch, B = 32 (the ``kernels`` row), then on
+    ``k1_stress_lines``' maps, and K3 on bfloat16 levels (p2..p5 of a 320
+    image, C = 256, 16 box RoIs an image at 7 x 7 and one keypoint RoI at 14 x
+    14), each against its plain version on the card (bit-equal expected: the
+    plain versions round at the kernels' points and sum in their order; K1
+    held bit for bit, K3 to 1e-4 of the value scale) and timed beside it and
+    its bound. K1's modes are timed as K1's float32 row is (wrapper against
+    ``grid_sample`` in float32 on a grid built beforehand in 7 paired rounds,
+    device us, host us a call); ``grid_sample`` on bfloat16 images and grid
+    (not the mode's function: its bfloat16 grid moves crops by half a pixel)
+    is a side reading with its distance from float32. K3-bf16
     also: its bfloat16 output (``out_dtype``) equal to its float32 output
     rounded, bit for bit, and within the same 1e-4 of the scale (plus one
     bfloat16 step of it) of the plain version's bfloat16 output; the wrapper's
@@ -693,55 +767,71 @@ def reduced_kernel_rows(dev) -> dict[str, dict]:
     kernel equal to ``roi_levels`` on the card, on RoIs whose sides sit
     within a few float32 steps of each level boundary (``boundary_rois``)."""
     import torch
-    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms, random_rois
+    from pets_face_recognition_tpu_torch.kernel_ab import (cuda_ms, grid_sample_grid, random_rois,
+                                                           similarity_landmarks, warp_read_bytes)
     from pets_face_recognition_tpu_torch.ops import homography, roi_align
 
     g = torch.Generator().manual_seed(0)
     rows = {}
-    B = B_KERNELS
-    images = torch.rand(B, IMAGE, IMAGE, 3, generator=g).to(dev)
     base = torch.tensor([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]])
-    Hs = homography.alignment_homographies(similarity_landmarks(g, B, base, IMAGE).to(dev),
-                                           base.to(dev))
-    f32 = homography.warp_perspective_batch(images, Hs, (CROP, CROP))
-    for cd, label in ((torch.bfloat16, "bfloat16"), (torch.int8, "int8")):
-        k1 = lambda cd=cd: homography.warp_perspective_batch_cuda(  # noqa: E731
-            images, Hs, (CROP, CROP), cd)
-        got = k1()
-        want = homography.warp_perspective_batch(images, Hs, (CROP, CROP), cd)
-        torch.cuda.synchronize()
-        err, tol = max_err(got, want), 1e-5
-        drift = max_err(got, f32)
-        ms = cuda_ms(k1)
-        us = kernel_us(k1, "warp_perspective_kernel")
-        plain = cuda_ms(lambda cd=cd: homography.warp_perspective_batch(
-            images, Hs, (CROP, CROP), cd))
-        lib_ms = lib_err = None
-        if cd == torch.bfloat16:
-            nchw = images.permute(0, 3, 1, 2).to(torch.bfloat16)
-            grid = grid_sample_grid(Hs).to(torch.bfloat16)
-            lib_call = lambda: torch.nn.functional.grid_sample(  # noqa: E731
-                nchw, grid, padding_mode="zeros", align_corners=True)
-            lib_ms = cuda_ms(lib_call)
-            lib_err = max_err(lib_call().permute(0, 2, 3, 1), f32)
-        src_bytes = warp_read_bytes(images, Hs)
-        n_bytes = src_bytes + Hs.numel() * 4 + got.numel() * 4
-        b, by = bound_ms(n_bytes, B * CROP * CROP * (24 + 9 * 3))
-        name = f"warp_perspective_batch_{'bf16' if cd == torch.bfloat16 else 'int8'}"
-        emit("kernel", name=f"K1 {name}", shape=list(images.shape), max_abs_err=err, atol=tol,
-             exact=err == 0.0, distance_from_float32=drift,
-             distance_tolerance=K1_MODE_DRIFT[label], ms=ms, kernel_device_us=us,
-             plain_ms=plain, library_ms=lib_ms,
-             library="grid_sample(zeros, align_corners=True) on bfloat16 images and grid"
-             if lib_ms is not None else "none", library_distance_from_float32=lib_err,
-             bound_ms=b, bound_by=by)
-        if not err <= tol:
-            raise AssertionError(f"K1 {label} disagrees with its plain version: {err} > {tol}")
-        if not drift <= K1_MODE_DRIFT[label]:
-            raise AssertionError(f"K1 {label} moves crops by {drift} from float32")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                          library_ms=lib_ms)
+    for B in (B_KERNELS, B_TIMED):
+        gb = g if B == B_KERNELS else torch.Generator().manual_seed(5)
+        images = torch.rand(B, IMAGE, IMAGE, 3, generator=gb).to(dev)
+        Hs = homography.alignment_homographies(
+            similarity_landmarks(gb, B, base, IMAGE).to(dev), base.to(dev))
+        f32 = homography.warp_perspective_batch(images, Hs, (CROP, CROP))
+        nchw = images.permute(0, 3, 1, 2)
+        grid = grid_sample_grid(Hs, (IMAGE, IMAGE), (CROP, CROP))
+        lib_call = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            nchw, grid, padding_mode="zeros", align_corners=True)
+        lib_err = max_err(lib_call().permute(0, 2, 3, 1), f32)
+        lib_us, lib_host = kernel_us(lib_call, ""), host_us(lib_call)
+        nchw_b, grid_b = nchw.to(torch.bfloat16), grid.to(torch.bfloat16)
+        lib_b = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            nchw_b, grid_b, padding_mode="zeros", align_corners=True)
+        lib_b_ms, lib_b_err = cuda_ms(lib_b), max_err(lib_b().permute(0, 2, 3, 1), f32)
+        src_bytes = warp_read_bytes(images, Hs, (CROP, CROP))
+        for cd, label in ((torch.bfloat16, "bfloat16"), (torch.int8, "int8")):
+            k1 = lambda cd=cd: homography.warp_perspective_batch_cuda(  # noqa: E731
+                images, Hs, (CROP, CROP), cd)
+            got = k1()
+            want = homography.warp_perspective_batch(images, Hs, (CROP, CROP), cd)
+            torch.cuda.synchronize()
+            err, exact = max_err(got, want), same_bits(got, want)
+            drift = max_err(got, f32)
+            pairs = paired_ms(k1, lib_call)
+            ms = statistics.median(a for a, _ in pairs)
+            lib_ms = statistics.median(b for _, b in pairs)
+            us = kernel_us(k1, "warp_perspective_")
+            plain = cuda_ms(lambda cd=cd: homography.warp_perspective_batch(
+                images, Hs, (CROP, CROP), cd))
+            n_bytes = src_bytes + Hs.numel() * 4 + got.numel() * 4
+            b, by = bound_ms(n_bytes, B * CROP * CROP * (24 + 9 * 3))
+            name = f"warp_perspective_batch_{'bf16' if cd == torch.bfloat16 else 'int8'}"
+            side = dict(bf16_grid_library_ms=lib_b_ms,
+                        bf16_grid_library_distance_from_float32=lib_b_err) \
+                if cd == torch.bfloat16 else {}
+            emit("kernel", name=f"K1 {name}", shape=list(images.shape), max_abs_err=err,
+                 exact=exact, distance_from_float32=drift,
+                 distance_tolerance=K1_MODE_DRIFT[label], ms=ms, kernel_device_us=us,
+                 wrapper_host_us=host_us(k1), plain_ms=plain, library_ms=lib_ms,
+                 library_device_us=lib_us, library_host_us=lib_host,
+                 library="grid_sample(zeros, align_corners=True) in float32 alone, on a "
+                 "grid built beforehand", library_distance_from_float32=lib_err,
+                 paired_ms=pairs, rounds_k1_not_slower=sum(a <= b for a, b in pairs),
+                 bound_ms=b, bound_by=by, **side)
+            if not exact:
+                raise AssertionError(f"K1 {label} at B = {B} differs from its plain version "
+                                     f"({err})")
+            if not drift <= K1_MODE_DRIFT[label]:
+                raise AssertionError(f"K1 {label} moves crops by {drift} from float32")
+            if B == B_TIMED:
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                  bound_by=by, library_ms=lib_ms)
+        del images, nchw, nchw_b, grid, grid_b, f32
+    k1_stress_lines(dev)
 
+    B = B_KERNELS
     C, strides = 256, (4, 8, 16, 32)
     levels = [torch.randn(B, s_, s_, C, generator=g).to(dev).to(torch.bfloat16)
               for s_ in (80, 40, 20, 10)]
@@ -1146,6 +1236,7 @@ def e2e_phase(dev, kernels_mod, smi: str, kind: str = "resnet50", phase: str = "
     its launch counts and checks, then crops/s at each of ``timed_batches``."""
     import torch
     from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import similarity_landmarks
     from pets_face_recognition_tpu_torch.ops.homography import align_crop
     from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
 
@@ -1316,6 +1407,7 @@ def bf16_serve_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     import numpy as np
     import torch
     from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import similarity_landmarks
     from pets_face_recognition_tpu_torch.ops.homography import align_crop
     from pets_face_recognition_tpu_torch.preprocessor import Preproc3
     from pets_face_recognition_tpu_torch.serving import EmbeddingService, build_serving_models
@@ -1805,7 +1897,8 @@ def k1_photo_rows(dev, paths) -> list[dict]:
     in the kernel phase) and timed beside it and ``grid_sample``."""
     import torch
     from pets_face_recognition_tpu_torch import native
-    from pets_face_recognition_tpu_torch.kernel_ab import cuda_ms
+    from pets_face_recognition_tpu_torch.kernel_ab import (cuda_ms, grid_sample_grid,
+                                                           warp_read_bytes)
     from pets_face_recognition_tpu_torch.ops import homography
 
     base = torch.tensor([[70.0, 92.0], [154.0, 92.0], [112.0, 160.0]])
@@ -1823,13 +1916,13 @@ def k1_photo_rows(dev, paths) -> list[dict]:
         got = k1()
         want = homography.warp_perspective_batch(img, Hs, (CROP, CROP))
         err = max_err(got, want)
-        grid = grid_sample_grid(Hs, (H, W))
+        grid = grid_sample_grid(Hs, (H, W), (CROP, CROP))
         nchw = img.permute(0, 3, 1, 2)
         lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
             nchw, grid, padding_mode="zeros", align_corners=True)
         lib_err = max_err(lib().permute(0, 2, 3, 1), want)
         # as the K1 row: the source pixels the taps read, the map, the crop
-        b_ms, by = bound_ms(warp_read_bytes(img, Hs) + 9 * 4 + CROP * CROP * 3 * 4,
+        b_ms, by = bound_ms(warp_read_bytes(img, Hs, (CROP, CROP)) + 9 * 4 + CROP * CROP * 3 * 4,
                             CROP * CROP * (24 + 7 * 3))
         rows.append(dict(photo=f"{W}x{H}", max_abs_err=err, tolerance=1e-4,
                          grid_sample_abs_err=lib_err, ms=cuda_ms(k1),
@@ -5080,6 +5173,7 @@ def int8_serve_phase(dev, kernels_mod, smi: str) -> dict:
     on the same two images within 1e-5 relative."""
     import torch
     from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import similarity_landmarks
     from pets_face_recognition_tpu_torch.models import ptq
     from pets_face_recognition_tpu_torch.ops.homography import align_crop
     from pets_face_recognition_tpu_torch.serving import (MIN_LANDMARK_DISTANCE,
@@ -6397,6 +6491,7 @@ def int8_bf16_serve_phase(dev, kernels_mod, smi: str) -> dict[str, dict]:
     values times ``K3_FAULT``). No speed is gated."""
     import torch
     from pets_face_recognition_tpu_torch.device import float32_matmuls
+    from pets_face_recognition_tpu_torch.kernel_ab import similarity_landmarks
     from pets_face_recognition_tpu_torch.models import ptq
     from pets_face_recognition_tpu_torch.models.quant import int8_conv2d_acc, set_quant_mode
     from pets_face_recognition_tpu_torch.ops.homography import align_crop

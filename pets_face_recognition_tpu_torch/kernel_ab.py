@@ -1,12 +1,16 @@
-"""Time kernels K2 (NMS), K3 (RoIAlign forward) and K4 (its backward) of one
-tree of the port on the GPU, so that two trees can be compared in one run on
-one card.
+"""Time kernels K1 (warp), K2 (NMS), K3 (RoIAlign forward) and K4 (its
+backward) of one tree of the port on the GPU, so that two trees can be compared
+in one run on one card.
 
     python pets_face_recognition_tpu_torch/kernel_ab.py [--tree DIR] [--label NAME]
+        [--only k1]
 
 Imports ``pets_face_recognition_tpu_torch`` from ``--tree`` (default: the tree
 that holds this file), builds its kernels and runs each wrapper on seeded
-random inputs at the shapes of ``chip_smoke.py``: K2 at 40 groups of 128 boxes
+random inputs at the shapes of ``chip_smoke.py``: K1 in its three compute
+modes on 320 x 320 images to 224 x 224 crops at B = 8 and 32 (the served
+batch), beside ``grid_sample`` in float32 on a grid built beforehand
+(``--only k1`` runs these rows alone); K2 at 40 groups of 128 boxes
 (serving, B = 8) and 80 of 2000 (training), the latter also with only the
 first 1000 boxes of a group valid, as the step's padded small levels give; K3
 on p2-p5 of 320 x 320 images (B = 8: 128 RoIs at 7 x 7 and 8 at 14 x 14;
@@ -56,20 +60,24 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def host_us(fn, iters: int = 100, warmup: int = 5) -> float:
-    """Host time per call of ``fn()`` in us, back to back after ``warmup``
-    calls, without waiting for the device inside the loop."""
+def host_us(fn, iters: int = 100, warmup: int = 5, repeats: int = 5) -> float:
+    """Host time per call of ``fn()`` in us: the median over ``repeats`` runs
+    of ``iters`` calls back to back after ``warmup`` calls, without waiting
+    for the device inside a run (the host's own jitter moves one run by tens
+    of percent)."""
     import torch
 
     for _ in range(warmup):
         fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t) / iters * 1e6)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    elapsed = time.perf_counter() - t
-    torch.cuda.synchronize()
-    return elapsed / iters * 1e6
+    return statistics.median(runs)
 
 
 def device_us_by_kernel(fn, kernel_name: str, iters: int = 10, strict: bool = True,
@@ -158,6 +166,108 @@ def roi_distinct_cells(levels, rois, out: int, strides, s: int = 2) -> int:
     return total
 
 
+def similarity_landmarks(g, B: int, base, image: int):
+    """Well-formed landmarks: seeded similarity transforms of the base points
+    (scale 0.6-1.4, rotation within 15 degrees, centre within 40 px of the
+    image's)."""
+    import math
+
+    import torch
+
+    scale = 0.6 + 0.8 * torch.rand(B, generator=g)
+    theta = (torch.rand(B, generator=g) - 0.5) * math.radians(30.0)
+    center = image / 2 + (torch.rand(B, 2, generator=g) - 0.5) * 80.0
+    rot = torch.stack([torch.stack([theta.cos(), -theta.sin()], -1),
+                       torch.stack([theta.sin(), theta.cos()], -1)], -2)
+    rel = base.cpu() - base.cpu().mean(0)
+    return (scale[:, None, None] * rel[None] @ rot.transpose(1, 2)) + center[:, None, :]
+
+
+def grid_sample_grid(Hs, hw: tuple[int, int], crop: tuple[int, int]):
+    """``grid_sample``'s ``(B, out_h, out_w, 2)`` grid (align_corners=True) for
+    a ``crop = (out_h, out_w)`` from the maps ``Hs`` on ``hw = (H, W)`` images:
+    each output pixel's source position ``H^-1 @ (x, y, 1)``."""
+    import torch
+
+    hinv = torch.linalg.inv(Hs)
+    gy, gx = torch.meshgrid(torch.arange(crop[0], device=Hs.device, dtype=torch.float32),
+                            torch.arange(crop[1], device=Hs.device, dtype=torch.float32),
+                            indexing="ij")
+    h = hinv[:, :, :, None, None]
+    den = h[:, 2, 0] * gx + h[:, 2, 1] * gy + h[:, 2, 2]
+    sx = (h[:, 0, 0] * gx + h[:, 0, 1] * gy + h[:, 0, 2]) / den
+    sy = (h[:, 1, 0] * gx + h[:, 1, 1] * gy + h[:, 1, 2]) / den
+    return torch.stack([2 * sx / (hw[1] - 1) - 1, 2 * sy / (hw[0] - 1) - 1], -1)
+
+
+def warp_read_bytes(images, Hs, crop: tuple[int, int]) -> int:
+    """Bytes that K1 must read from the source on these inputs: each image's
+    distinct pixels under the crop's bilinear taps that lie inside the image
+    and carry a nonzero weight (the plain version's sample positions), C
+    float32 values each."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops.homography import (_sample_coords,
+                                                                invert_homographies)
+
+    B, H, W, C = images.shape
+    sx, sy = _sample_coords(invert_homographies(Hs), crop)
+    x0, y0 = sx.floor(), sy.floor()
+    fx, fy = sx - x0, sy - y0
+    b = torch.arange(B, device=images.device)[:, None, None]
+    keys = []
+    for yy, wy in ((y0, 1 - fy), (y0 + 1, fy)):
+        for xx, wx in ((x0, 1 - fx), (x0 + 1, fx)):
+            ok = (wy != 0) & (wx != 0) & (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+            flat = (b * H + yy.clamp(0, H - 1).long()) * W + xx.clamp(0, W - 1).long()
+            keys.append(flat[ok])
+    return int(torch.unique(torch.cat(keys)).numel()) * C * 4
+
+
+K1_IMAGE, K1_CROP = 320, 224
+K1_BASE = ((70.0, 92.0), (154.0, 92.0), (112.0, 160.0))   # serving.py's base points
+HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM, NVIDIA data sheet
+
+
+def k1_rows(g, dev, label: str) -> None:
+    """K1 in float32, bfloat16 and int8 at B = 8 and 32 on seeded alignment
+    maps (320 x 320 -> 224 x 224, C = 3, float32 out): bits against the plain
+    version, wrapper ms, host us a call and the kernel's device us, beside
+    ``grid_sample`` in float32 on a grid built beforehand (the same three
+    readings) and the byte bound (the source pixels the taps read, the maps,
+    the crops)."""
+    import torch
+    from pets_face_recognition_tpu_torch.ops import homography
+
+    crop = (K1_CROP, K1_CROP)
+    base = torch.tensor(K1_BASE)
+    for B in (8, 32):
+        images = torch.rand(B, K1_IMAGE, K1_IMAGE, 3, generator=g).to(dev)
+        Hs = homography.alignment_homographies(
+            similarity_landmarks(g, B, base, K1_IMAGE).to(dev), base.to(dev))
+        n_bytes = (warp_read_bytes(images, Hs, crop) + Hs.numel() * 4
+                   + B * K1_CROP * K1_CROP * 3 * 4)
+        nchw = images.permute(0, 3, 1, 2)
+        grid = grid_sample_grid(Hs, (K1_IMAGE, K1_IMAGE), crop)
+        lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+            nchw, grid, padding_mode="zeros", align_corners=True)
+        print(json.dumps({"tree": label, "kernel": "grid_sample", "images": B,
+                          "ms": cuda_ms(lib), "host_us": host_us(lib),
+                          "device_us": device_us(lib, "", strict=False)}),
+              flush=True)
+        for name, cd in (("K1", torch.float32), ("K1-bf16", torch.bfloat16),
+                         ("K1-int8", torch.int8)):
+            fn = lambda: homography.warp_perspective_batch_cuda(  # noqa: E731
+                images, Hs, crop, cd)
+            err = float((fn() - homography.warp_perspective_batch(images, Hs, crop, cd))
+                        .abs().max())
+            print(json.dumps({"tree": label, "kernel": name, "images": B,
+                              "max_abs_err": err, "ms": cuda_ms(fn), "host_us": host_us(fn),
+                              "device_us": device_us(fn, "warp_perspective", strict=False),
+                              "bound_us": n_bytes / HBM_BYTES_PER_S * 1e6}),
+                  flush=True)
+        del images, nchw, grid
+
+
 def k4_rows(g, dev, label: str, C: int, strides, bf16_cotangent: bool) -> None:
     """K4 in float32 and K4-bf16 on 16 images of 640 x 640 (8192 RoIs at 7 x
     7, 2048 at 14 x 14): error against the plain version, wrapper ms, host us
@@ -201,6 +311,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", choices=("k1",), default=None)
     args = ap.parse_args()
     # the tree, not this file's folder (python put it first), is where the
     # package comes from
@@ -222,6 +333,9 @@ def main() -> int:
     print(json.dumps({"tree": label, "package": kernels.__file__, "card": card}), flush=True)
     dev = torch.device("cuda", 0)
 
+    k1_rows(torch.Generator().manual_seed(0), dev, label)
+    if args.only == "k1":
+        return 0
     g = torch.Generator().manual_seed(0)
     for G, K, image, max_log2, n_valid in ((40, 128, 320, 3.0, 128), (80, 2000, 640, 4.0, 2000),
                                            (80, 2000, 640, 4.0, 1000)):

@@ -112,6 +112,8 @@ _SIGNATURES = {
     "pfr_warp_perspective_batch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pfr_warp_perspective_batch_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pfr_warp_perspective_batch_int8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (slack): a test hook, the int8 instance's box widening for later launches
+    "pfr_warp_int8_test_box_slack": (_I,),
     # (boxes, valid, words, keep, G, K, iou_threshold, stream)
     "pfr_nms_keep_sorted_batch": (_P, _P, _P, _P, _I, _I, _F, _P),
     # (p0..p3, H0..H3, W0..W3, stride0..stride3, n_levels, C, rois, batch_idx, K,

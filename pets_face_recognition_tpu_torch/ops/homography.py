@@ -14,6 +14,9 @@ K1 has the JAX kernel's three compute modes (``compute_dtype``, one of
 weights rounded to bfloat16 with float32 sums; int8, pixels and x-tent
 weights quantized at scale 127 with an exact integer row sum (see
 ``csrc/warp.cu``). ``out_dtype`` bfloat16 rounds the float32 result once.
+The int8 instance stages each tile's box of source pixels in shared memory;
+:func:`warp_tile_boxes` is its per-tile rule, and :func:`warp_tap_sources`
+counts where it reads each tap.
 """
 
 from __future__ import annotations
@@ -79,6 +82,16 @@ INV_127_SQ = 1.0 / (127.0 * 127.0)
 _K1 = {torch.float32: ("warp_perspective_batch", "pfr_warp_perspective_batch"),
        torch.bfloat16: ("warp_perspective_batch_bf16", "pfr_warp_perspective_batch_bf16"),
        torch.int8: ("warp_perspective_batch_int8", "pfr_warp_perspective_batch_int8")}
+# K1's int8 instance (csrc/warp.cu, whose kTileH, kTileW, kPx, kStagePixels
+# and kBoxSlack these repeat; a test holds them equal): a block owns a tile of
+# K1_TILE = (rows, columns) crop pixels, K1_PX adjacent pixels a thread, and
+# stages the tile's box of source pixels in shared memory where the box spans
+# at most K1_STAGE_PIXELS pixels (its rows times their pitch); the box is the
+# corners' taps widened by K1_BOX_SLACK pixels on every side.
+K1_TILE = (16, 32)
+K1_PX = 4
+K1_STAGE_PIXELS = 3072
+K1_BOX_SLACK = 1
 
 
 def _check_warp_dtypes(compute_dtype: torch.dtype, out_dtype: torch.dtype) -> None:
@@ -223,6 +236,95 @@ def warp_perspective_batch_cuda(images: torch.Tensor, Hs: torch.Tensor,
     kernels.launch(name, symbol, images.device, images.data_ptr(), Hs.data_ptr(),
                    out.data_ptr(), B, H, W, C, out_h, out_w, int(out_dtype == torch.bfloat16))
     return out
+
+
+def warp_tile_boxes(Hs: torch.Tensor, dsize: tuple[int, int], image_hw: tuple[int, int],
+                    box_slack: int = K1_BOX_SLACK) -> dict[str, torch.Tensor]:
+    """Plain counterpart of the tile boxes of K1's int8 instance, for
+    ``(B, 3, 3)`` maps and an ``(out_h, out_w)`` crop of ``(H, W)`` images.
+
+    Each ``K1_TILE`` tile of a crop evaluates its four corner pixels (the last
+    real pixel at a ragged edge) as the pixels do. It is ``safe`` where the
+    corners' denominators share one sign and every corner's position is
+    finite. Its box is the corners' taps widened by ``box_slack`` pixels and
+    clipped to the image and a ring of one pixel around it (staged as 0),
+    with columns widened to a multiple of 4 pixels from a multiple of 4; rows
+    are padded to an odd count of 4-pixel groups. The tile is ``staged``
+    where it is safe, the box is not empty, and its rows times their pitch
+    fit in ``K1_STAGE_PIXELS``. A ``box_slack`` other than ``K1_BOX_SLACK``
+    models what the kernel's test hook ``pfr_warp_int8_test_box_slack`` sets.
+    Returns ``safe``, ``inside`` (the box is not empty) and ``staged`` of
+    shape ``(B, tiles_y, tiles_x)`` and ``box``, ``(B, tiles_y, tiles_x, 4)``
+    as ``(x, y, w, h)`` of the staged region (zeros where nothing is staged).
+    """
+    th, tw = K1_TILE
+    out_h, out_w = dsize
+    H, W = image_hw
+    B = Hs.shape[0]
+    m = invert_homographies(Hs.cpu()).reshape(B, 9, 1, 1, 1)
+    ty = torch.arange(0, out_h, th)
+    tx = torch.arange(0, out_w, tw)
+    ys = torch.stack([ty, (ty + th).clamp(max=out_h) - 1], -1).float()   # (tiles_y, 2)
+    xs = torch.stack([tx, (tx + tw).clamp(max=out_w) - 1], -1).float()   # (tiles_x, 2)
+    gy = ys[:, None, :, None].expand(-1, len(tx), 2, 2).reshape(len(ty), len(tx), 4)
+    gx = xs[None, :, None, :].expand(len(ty), -1, 2, 2).reshape(len(ty), len(tx), 4)
+    den = m[:, 6] * gx + m[:, 7] * gy + m[:, 8]
+    d = torch.where(den.abs() < 1e-12, torch.full_like(den, 1e-12), den)
+    sx = (m[:, 0] * gx + m[:, 1] * gy + m[:, 2]) / d
+    sy = (m[:, 3] * gx + m[:, 4] * gy + m[:, 5]) / d
+    fin = sx.isfinite() & sy.isfinite()
+    safe = (fin & (den > 0)).all(-1) | (fin & (den < 0)).all(-1)
+    zero = torch.zeros(())
+    sx, sy = torch.where(fin, sx, zero), torch.where(fin, sy, zero)
+    xl = (sx.amin(-1).floor() - box_slack).clamp(min=-1.0)
+    xh = (sx.amax(-1).floor() + 1.0 + box_slack).clamp(max=float(W))
+    yl = (sy.amin(-1).floor() - box_slack).clamp(min=-1.0)
+    yh = (sy.amax(-1).floor() + 1.0 + box_slack).clamp(max=float(H))
+    inside = (xl <= xh) & (yl <= yh)
+    xl, xh = xl.clamp(max=W + 1).long(), xh.clamp(min=-2).long()
+    yl, yh = yl.clamp(max=H + 1).long(), yh.clamp(min=-2).long()
+    x0 = xl & ~3
+    w = (xh - x0 + 4) & ~3
+    pitch = ((w // 4) | 1) * 4
+    h = yh - yl + 1
+    staged = safe & inside & (h * pitch <= K1_STAGE_PIXELS)
+    box = torch.stack([x0, yl, w, h], -1) * staged[..., None]
+    return {"safe": safe, "inside": inside, "staged": staged, "box": box}
+
+
+def warp_tap_sources(Hs: torch.Tensor, dsize: tuple[int, int], image_hw: tuple[int, int],
+                     box_slack: int = K1_BOX_SLACK) -> dict[str, int]:
+    """Where K1's int8 instance reads the in-image taps on these maps
+    (:func:`warp_tile_boxes`). A pixel of a staged tile whose four taps lie in
+    the box reads them from shared memory (``staged_taps``); any other pixel
+    reads its taps from global memory, in a staged tile
+    (``box_miss_taps``) or in a tile that stages nothing
+    (``tile_global_taps``). Also the tiles by branch: ``staged_tiles``,
+    ``unsafe_tiles`` (sign or finiteness), ``budget_tiles`` (safe, with a box
+    larger than the budget) and ``outside_tiles`` (safe, with no box)."""
+    t = warp_tile_boxes(Hs, dsize, image_hw, box_slack)
+    H, W = image_hw
+    th, tw = K1_TILE
+    sx, sy = _sample_coords(invert_homographies(Hs.cpu()), dsize)
+    x0, y0 = sx.floor(), sy.floor()
+    rows = torch.arange(dsize[0]) // th
+    cols = torch.arange(dsize[1]) // tw
+    tile_staged = t["staged"][:, rows][:, :, cols]        # (B, out_h, out_w)
+    bx, by, bw, bh = t["box"][:, rows][:, :, cols].float().unbind(-1)
+    staged = (tile_staged & (x0 >= bx) & (x0 + 1 < bx + bw) & (y0 >= by)
+              & (y0 + 1 < by + bh))
+    counts = dict.fromkeys(("staged_taps", "box_miss_taps", "tile_global_taps"), 0)
+    for yy in (y0, y0 + 1):
+        for xx in (x0, x0 + 1):
+            inimg = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+            counts["staged_taps"] += int((inimg & staged).sum())
+            counts["box_miss_taps"] += int((inimg & tile_staged & ~staged).sum())
+            counts["tile_global_taps"] += int((inimg & ~tile_staged).sum())
+    safe, inside, st = t["safe"], t["inside"], t["staged"]
+    counts.update(staged_tiles=int(st.sum()), unsafe_tiles=int((~safe).sum()),
+                  budget_tiles=int((safe & inside & ~st).sum()),
+                  outside_tiles=int((safe & ~inside).sum()))
+    return counts
 
 
 def alignment_homographies(landmarks: torch.Tensor, base_pts: torch.Tensor) -> torch.Tensor:

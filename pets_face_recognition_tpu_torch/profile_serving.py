@@ -44,7 +44,8 @@ from .serving import EmbeddingService, build_serving_models
 
 # K2's kernels share the prefix "nms_keep_sorted_batch"
 K2_PREFIX = "nms_keep_sorted_batch"
-OWN_KERNELS = {"warp_perspective_kernel": "K1 warp",
+# K1's float32 kernel and its bfloat16 and int8 tiled one share the prefix
+OWN_KERNELS = {"warp_perspective_": "K1 warp",
                K2_PREFIX: "K2 nms",
                "multilevel_roi_align_kernel": "K3 roi_align",
                "multilevel_roi_align_backward_kernel": "K4 roi_align_backward",
