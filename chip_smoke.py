@@ -341,7 +341,17 @@ allocated, held under 256 MiB above where it started) and a 20-step
 seeded dog pickles over ``smoke_data.make_data25`` photos beside the CAT
 miniature, B = 16 x 640 without loader threads: its first batch equal to a
 second read, one step on it and one on a batch of dog items alone, finite
-losses, K2-K4 launched.
+losses, K2-K4 launched. quality: the quality instrument over
+``smoke_data.make_kashtanka_hard`` cut in depth to 16 identities (120
+photos; every model at full width) on a seeded keypoint R-CNN checkpoint
+(``PFR_KEYPOINT_CKPT``, RPN 1000 / 1000), the centred head embedders and,
+for the mobile row, ``configs/keypoint_mobile_smoke.py`` fitted for one
+epoch and recalibrated by ``recalibrate_bn``: five rows and an ensemble row
+in concurrent subprocesses, ``diff_tsv_ranks``, and one float pass in this
+process with its launches counted (path ``quality``; gates in
+``quality_phase``). ``python3 chip_smoke.py --quality-full`` runs only the
+build and the instrument's eight rows over the whole hard corpus (1272
+photos), one pass after another, printing each pass's seconds.
 
 Then a ``kernels`` JSON line (K1-K5 and K4's pre-pass; K1's bfloat16 and
 int8 modes at the served batch, B = 32, and K3 on bfloat16 levels at the
@@ -4072,7 +4082,7 @@ def run_body_chain(device, kernels_mod, label: str) -> dict:
                                 "--device", str(device)])
     if rc != 0:
         raise AssertionError(f"generate_tsv --body on {device} returned {rc}")
-    return dict(run, rows=retrieval._read_tsv(tsv), dump=retrieval.load_scores_dump(dump))
+    return dict(run, rows=retrieval.read_tsv(tsv), dump=retrieval.load_scores_dump(dump))
 
 
 def body_tsv_phase(dev, kernels_mod, smi: str) -> dict:
@@ -7214,6 +7224,320 @@ def dog_fixture_phase(dev, kernels_mod, smi: str) -> dict:
     return launches
 
 
+QUALITY_OUT = REPO / "smoke_out" / "quality"   # git-ignored; deleted after the phase
+# the hard corpus cut in depth only (the generator's defaults are 120
+# identities in 12 clusters, 180 distractors, 3 photos a card: 1272 photos);
+# every model runs at full width
+QUALITY_CORPUS = dict(n_ids=16, n_clusters=4, n_distractors=24, n_imgs=2)
+QUALITY_RECAL_REL = 1e-4     # card against CPU, of each statistic tensor's largest magnitude
+MOBILE_SMOKE = REPO / "pets_face_recognition_tpu_torch" / "configs" / "keypoint_mobile_smoke.py"
+
+
+def quality_checkpoints(dev, work: Path) -> dict[str, str]:
+    """The instrument's checkpoint variables: the seeded ResNet-50-FPN
+    keypoint R-CNN (``serving.serving_detector``'s weights) and a seeded Mask
+    R-CNN saved as port checkpoints, the centred head embedders
+    (``centred_embedder_ckpts``), the body embedders' variables set empty
+    (explicit, naming none: seeded weights) and the threshold at 0."""
+    import torch
+    from pets_face_recognition_tpu_torch.models.rcnn import maskrcnn_resnet50_fpn
+    from pets_face_recognition_tpu_torch.serving import serving_detector
+    from pets_face_recognition_tpu_torch.weights import init_random_
+
+    env = dict(PFR_RETRIEVAL_THR="0.0", PFR_DOG_BODY_FE_CKPT="", PFR_CAT_BODY_FE_CKPT="")
+    for var, name, model in (
+            ("PFR_KEYPOINT_CKPT", "keypoint", serving_detector("cpu", 0)),
+            ("PFR_MASK_CKPT", "mask", init_random_(maskrcnn_resnet50_fpn(
+                num_classes=2, box_detections_per_img=3), 3))):
+        folder = work / name
+        folder.mkdir(parents=True)
+        torch.save({"model": model.state_dict()}, folder / "epoch=0-step=0")
+        env[var] = str(folder)
+    env.update(centred_embedder_ckpts(dev, work / "fe"))
+    return env
+
+
+def quality_subprocess_env() -> dict[str, str]:
+    """The environment without any ``PFR_*`` variable, the checkout on the path."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PFR_")}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH"))
+                                        if p)
+    return env
+
+
+def recalibration_check(ckpt_dir: Path) -> dict:
+    """``recalibrate_bn``'s sibling of the fit's ``epoch=0-step=8`` against the
+    source and against the same 24 passes on the CPU
+    (``recalibrate_bn.recalibrated_stats``)."""
+    import torch
+    from pets_face_recognition_tpu_torch import recalibrate_bn
+    from pets_face_recognition_tpu_torch.engine.checkpoint import (latest_checkpoint,
+                                                                   load_checkpoint)
+
+    src = ckpt_dir / "epoch=0-step=8"
+    sibling = ckpt_dir / "epoch=0-step=9"
+    old, new = load_checkpoint(src)["model"], load_checkpoint(sibling)["model"]
+    stats = [k for k in new if k.endswith(recalibrate_bn.STATS)]
+    t = time.perf_counter()
+    cpu = recalibrate_bn.recalibrated_stats(old, recalibrate_bn.DEFAULT_DATA, device="cpu")
+    cpu_s = time.perf_counter() - t
+    rel = {k: ((new[k] - cpu[k]).abs().max() / cpu[k].abs().max().clamp_min(1e-30)).item()
+           for k in stats}
+    worst = max(rel, key=rel.get)
+    return dict(sibling=sibling.name, latest=latest_checkpoint(ckpt_dir).name,
+                n_stats=len(stats), same_keys=set(new) == set(old),
+                params_equal=all(torch.equal(new[k], old[k]) for k in old if k not in stats),
+                finite=all(bool(torch.isfinite(new[k]).all()) for k in stats),
+                moved=sum(not torch.equal(new[k], old[k]) for k in stats),
+                worst_rel_vs_cpu=rel[worst], worst_stat=worst, cpu_s=cpu_s,
+                gate=QUALITY_RECAL_REL)
+
+
+def quant_entries(path: Path) -> set[tuple[str, str]]:
+    """``(model, buffer)`` of a calibrated quant state file."""
+    import pickle
+
+    with open(path, "rb") as f:
+        return {(m, k) for m, d in pickle.load(f).items() for k in d}
+
+
+def quality_phase(dev, kernels_mod, smi: str) -> dict:
+    """Phase quality: the quality instrument over the hard corpus on the card.
+    ``smoke_data.make_kashtanka_hard`` at ``QUALITY_CORPUS`` (16 identities in
+    4 clusters, 24 distractors, 2 photos a card: 120 photos of 320 x 320;
+    the generator's defaults give 1272, so the cut is depth only and every
+    model runs at full width); the checkpoints of ``quality_checkpoints``;
+    ``main_keypoints`` on ``configs/keypoint_mobile_smoke.py`` (one epoch, 8
+    steps of B = 4) in a subprocess, then ``recalibrate_bn`` at its defaults
+    on its checkpoint. ``quality_instrument`` runs in concurrent
+    subprocesses at ``PFR_RETRIEVAL_THR=0``: ``float_resnet50_f32`` with
+    ``float_resnet50_bf16in``, ``int8ship_resnet50_f32``,
+    ``int8_resnet50_f32``, ``--ensemble`` ``float_resnet50_f32`` (the seeded
+    Mask R-CNN under ``PFR_MASK_CKPT``), and once the fit is recalibrated
+    ``float_mobile_f32`` (``--mobile-ckpt``); ``diff_tsv_ranks`` of the float
+    tsv against itself and against the int8ship one. One float pass also
+    runs in this process through ``generate_tsv.main``, its launch counts
+    read around it, before the subprocesses start (the mobile fit beside
+    it). Gates: every subprocess exits 0; each table has its rows, 16
+    queries, candR@1 <= @10 <= @100 in [0, 1]; the two int8 rows' quant
+    states differ in exactly the detector's trunk and RPN entries (scope
+    ``rpn``; pinned components, not inherited); the float tsv against itself
+    ``RANK-SAFE``; the in-process pass's detector holds the checkpoint's
+    ``state_dict`` at 1000 / 1000 proposals and launches K1, K2 and K3; the
+    fit's checkpoint exists, and its sibling ``epoch=0-step=9`` is the one
+    ``latest_checkpoint`` picks, with the parameters bit-equal, every running
+    statistic finite, at least one moved, and each within
+    ``QUALITY_RECAL_REL`` (1e-4) of the same 24 passes on the CPU, relative
+    to the tensor's largest magnitude. The float against the int8ship tsv is
+    reported, not gated: random weights cannot certify ranks. Returns the
+    in-process pass's launch counts."""
+    import json as _json
+    import shutil
+    from unittest import mock
+
+    import torch
+    from pets_face_recognition_tpu_torch import generate_tsv, smoke_data
+    from pets_face_recognition_tpu_torch.engine.checkpoint import load_params
+    from pets_face_recognition_tpu_torch.quality_instrument import photo_count
+
+    t0 = time.perf_counter()
+    shutil.rmtree(QUALITY_OUT, ignore_errors=True)
+    (QUALITY_OUT / "mobile").mkdir(parents=True)
+    base = quality_subprocess_env()
+    procs, runs = {}, {}
+    try:
+        with contextlib.ExitStack() as stack:
+            def start(label, args, cwd=QUALITY_OUT, env=None):
+                procs[label] = stack.enter_context(background(
+                    [sys.executable, "-m", *args], cwd, env or base))
+
+            def finish(label):
+                proc, seconds = procs.pop(label)()
+                runs[label] = dict(rc=proc.returncode, seconds=seconds,
+                                   stderr_tail=proc.stderr[-1500:] if proc.returncode else "")
+                return proc
+
+            start("mobile_fit", ["pets_face_recognition_tpu_torch.main_keypoints", "--config",
+                                 str(MOBILE_SMOKE), "--device", dev.type], QUALITY_OUT / "mobile")
+            data = smoke_data.make_kashtanka_hard(QUALITY_OUT / "corpus", **QUALITY_CORPUS)
+            gt = QUALITY_OUT / "corpus" / "hard_gt.json"
+            photos = photo_count(data)
+            pfr = quality_checkpoints(dev, QUALITY_OUT / "ckpt")
+            env = dict(base, **pfr)
+
+            # one float pass in this process, counted
+            built = []
+            real_build = generate_tsv.build_retrieval_models
+
+            def build(*args, **kw):
+                built.append(real_build(*args, **kw))
+                return built[-1]
+
+            tsv_here = QUALITY_OUT / "inprocess.tsv"
+            with mock.patch.dict(os.environ, pfr), mock.patch.object(
+                    generate_tsv, "build_retrieval_models", build):
+                for k in [k for k in os.environ if k.startswith("PFR_") and k not in pfr]:
+                    del os.environ[k]
+                torch.cuda.synchronize()
+                kernels_mod.reset_launch_counts()
+                t = time.perf_counter()
+                rc_here = generate_tsv.main(["--data", str(data), "--output", str(tsv_here),
+                                             "--stock-preds", str(QUALITY_OUT / "none.tsv"),
+                                             "--device", str(dev)])
+                torch.cuda.synchronize()
+                float_s = time.perf_counter() - t
+                launches = kernels_mod.launch_counts()
+            det = built[0][0]
+            want = load_params(Path(pfr["PFR_KEYPOINT_CKPT"]) / "epoch=0-step=0")
+            got = det.state_dict()
+            inprocess = dict(rc=rc_here, seconds=float_s, photos_per_s=photos / float_s,
+                             same_state_dict=set(got) == set(want) and all(
+                                 torch.equal(got[k].cpu(), v) for k, v in want.items()),
+                             budgets=[det.cfg.rpn_pre_nms_top_n_test,
+                                      det.cfg.rpn_post_nms_top_n_test,
+                                      det.cfg.box_detections_per_img],
+                             launches=launches, beside="the mobile fit's subprocess")
+            del built, det, got
+            torch.cuda.empty_cache()
+
+            def instrument(label, *args):
+                start(label, ["pets_face_recognition_tpu_torch.quality_instrument", "--data",
+                              str(data), "--gt", str(gt), "--out", str(QUALITY_OUT / label),
+                              "--device", dev.type, *args], env=env)
+
+            instrument("float", "--configs", "float_resnet50_f32", "float_resnet50_bf16in")
+            instrument("int8ship", "--configs", "int8ship_resnet50_f32")
+            instrument("int8", "--configs", "int8_resnet50_f32")
+            instrument("ensemble", "--ensemble", "--configs", "float_resnet50_f32")
+            finish("mobile_fit")
+            fit_dirs = sorted((QUALITY_OUT / "mobile").glob("results_smoke/*/checkpoints"))
+            fit_ckpts = sorted(p.name for d in fit_dirs for p in d.iterdir())
+            if runs["mobile_fit"]["rc"] != 0 or fit_ckpts != ["epoch=0-step=8"]:
+                raise AssertionError(f"quality: the mobile smoke fit failed: "
+                                     f"{runs['mobile_fit']} {fit_ckpts}")
+            start("recalibrate_bn", ["pets_face_recognition_tpu_torch.recalibrate_bn", "--ckpt",
+                                     str(fit_dirs[0]), "--device", dev.type])
+            finish("recalibrate_bn")
+            instrument("mobile", "--configs", "float_mobile_f32", "--mobile-ckpt",
+                       str(fit_dirs[0]))
+            recal = recalibration_check(fit_dirs[0]) if runs["recalibrate_bn"]["rc"] == 0 else {}
+            for label in ("float", "int8ship", "int8", "ensemble", "mobile"):
+                finish(label)
+            float_tsv = QUALITY_OUT / "float" / "tsv_float_resnet50_f32.tsv"
+            diff_out = {}
+            for label, other, tol in (("diff_self", float_tsv, "1e-6"), (
+                    "diff_int8ship", QUALITY_OUT / "int8ship" / "tsv_int8ship_resnet50_f32.tsv",
+                    "1e-3")):
+                start(label, ["pets_face_recognition_tpu_torch.diff_tsv_ranks", str(float_tsv),
+                              str(other), "--score-tol", tol])
+            for label in ("diff_self", "diff_int8ship"):
+                diff_out[label] = finish(label).stdout.splitlines()
+        tables, passes = {}, {}
+        for label in ("float", "int8ship", "int8", "ensemble", "mobile"):
+            for name, store in (("quality_table.json", tables), ("quality_passes.json", passes)):
+                path = QUALITY_OUT / label / name
+                store[label] = _json.loads(path.read_text()) if path.exists() else None
+        ship = quant_entries(QUALITY_OUT / "int8ship" / "quant_int8ship_resnet50_f32.pkl")
+        full = quant_entries(QUALITY_OUT / "int8" / "quant_int8_resnet50_f32.pkl")
+        same_tsv = float_tsv.read_bytes() == tsv_here.read_bytes()
+    finally:
+        shutil.rmtree(QUALITY_OUT, ignore_errors=True)
+        torch.cuda.empty_cache()
+    extra = full - ship
+    pinned = bool(extra) and ship <= full and all(
+        m == "det_keypoint_prod" and k.split(".", 1)[0] in ("backbone", "rpn")
+        for m, k in extra) and {k.split(".", 1)[0] for _, k in extra} == {"backbone", "rpn"}
+    expected = {"float": ["float_resnet50_f32", "float_resnet50_bf16in"],
+                "int8ship": ["int8ship_resnet50_f32"], "int8": ["int8_resnet50_f32"],
+                "ensemble": ["float_resnet50_f32"], "mobile": ["float_mobile_f32"]}
+    bad_rows = {label: tables[label] for label, names in expected.items()
+                if tables[label] is None or sorted(tables[label]) != sorted(names) or not all(
+                    r["queries_total"] == QUALITY_CORPUS["n_ids"]
+                    and 0.0 <= r["candR@1"] <= r["candR@10"] <= r["candR@100"] <= 1.0
+                    for r in tables[label].values())}
+    emit("quality", card=smi, corpus=dict(QUALITY_CORPUS, photos=photos), rows=tables,
+         passes=passes, invocations={k: {"rc": v["rc"], "seconds": v["seconds"]}
+                                     for k, v in runs.items()},
+         inprocess=dict(inprocess, same_tsv_as_subprocess=same_tsv),
+         quant_state=dict(int8_entries=len(full), int8ship_entries=len(ship),
+                          only_int8=len(extra), pinned=pinned,
+                          only_int8_tops=sorted({(m, k.split(".", 1)[0]) for m, k in extra})),
+         diff_self=diff_out["diff_self"][-1], diff_int8ship=diff_out["diff_int8ship"],
+         recalibrate_bn=recal, seconds=time.perf_counter() - t0)
+    # the float against the int8ship tsv is reported: its verdict is not a gate
+    failed = {k: v for k, v in runs.items() if v["rc"] != 0 and k != "diff_int8ship"}
+    if failed:
+        raise AssertionError(f"quality: subprocesses failed: {failed}")
+    if bad_rows:
+        raise AssertionError(f"quality: tables without their rows or out of order: {bad_rows}")
+    if not pinned:
+        raise AssertionError(f"quality: the int8 rows' quant states differ by {sorted(extra)[:8]}")
+    if diff_out["diff_self"][-1] != "RANK-SAFE":
+        raise AssertionError(f"quality: the float tsv against itself: {diff_out['diff_self']}")
+    if not (rc_here == 0 and inprocess["same_state_dict"]
+            and inprocess["budgets"] == [1000, 1000, 1]):
+        raise AssertionError(f"quality: the in-process pass's detector: {inprocess}")
+    missing = [k for k in ("warp_perspective_batch", "nms_keep_sorted_batch",
+                           "multilevel_roi_align") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"quality: kernels not launched in the float pass: {missing}")
+    if not (recal and recal["latest"] == recal["sibling"] == "epoch=0-step=9"
+            and recal["same_keys"] and recal["params_equal"] and recal["finite"]
+            and recal["moved"] and recal["worst_rel_vs_cpu"] <= QUALITY_RECAL_REL):
+        raise AssertionError(f"quality: recalibrate_bn: {recal}")
+    return launches
+
+
+def quality_full(dev, smi: str) -> None:
+    """``python3 chip_smoke.py --quality-full``: the quality instrument over
+    the whole hard corpus (``make_kashtanka_hard`` at its defaults, 1272
+    photos) on ``quality_phase``'s checkpoints, its four default ResNet-50
+    rows and, on the recalibrated mobile smoke fit, its two mobile rows, one
+    pass after another in one invocation; prints the table, each pass's
+    seconds and photos/s, and the card."""
+    import json as _json
+    import shutil
+
+    from pets_face_recognition_tpu_torch import smoke_data
+
+    work = QUALITY_OUT / "full"
+    shutil.rmtree(QUALITY_OUT, ignore_errors=True)
+    (work / "mobile").mkdir(parents=True)
+    base = quality_subprocess_env()
+    try:
+        t = time.perf_counter()
+        data = smoke_data.make_kashtanka_hard(work / "corpus")
+        env = dict(base, **quality_checkpoints(dev, work / "ckpt"))
+        subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.main_keypoints",
+                        "--config", str(MOBILE_SMOKE)], cwd=work / "mobile", env=base,
+                       check=True, capture_output=True, text=True, timeout=600)
+        ckpt = next((work / "mobile").glob("results_smoke/*/checkpoints"))
+        subprocess.run([sys.executable, "-m", "pets_face_recognition_tpu_torch.recalibrate_bn",
+                        "--ckpt", str(ckpt)], cwd=work, env=base, check=True,
+                       capture_output=True, text=True, timeout=600)
+        setup_s = time.perf_counter() - t
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pets_face_recognition_tpu_torch.quality_instrument",
+             "--data", str(data), "--gt", str(work / "corpus" / "hard_gt.json"), "--out",
+             str(work / "out"), "--mobile-ckpt", str(ckpt), "--device", "cuda"], cwd=work,
+            env=env, capture_output=True, text=True, timeout=3000)
+        seconds = time.perf_counter() - t
+        out = work / "out"
+        emit("quality_full", card=smi, rc=proc.returncode, setup_s=setup_s, seconds=seconds,
+             recalibrated=sorted(p.name for p in ckpt.iterdir()),
+             table=_json.loads((out / "quality_table.json").read_text())
+             if proc.returncode == 0 else None,
+             passes=_json.loads((out / "quality_passes.json").read_text())
+             if proc.returncode == 0 else None,
+             markdown=[ln for ln in proc.stdout.splitlines() if ln.startswith("|")],
+             stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+        if proc.returncode != 0:
+            raise AssertionError("quality_full: the instrument failed")
+    finally:
+        shutil.rmtree(QUALITY_OUT, ignore_errors=True)
+
+
 def row_paths(name: str, paths: dict) -> list[str]:
     """The paths whose launches a kernel row sums: the mobile paths for a
     ``_mobile`` row, the Mask R-CNN paths for a ``_mask`` row, mask_train for
@@ -7254,6 +7578,12 @@ def main() -> int:
     path = kernels.build()
     kernels.library()
     emit("build", seconds=time.perf_counter() - t, library=str(path))
+    if sys.argv[1:] == ["--quality-full"]:
+        faulthandler.dump_traceback_later(3300, exit=True)   # nine passes over 1272 photos
+        quality_full(dev, smi)
+        print(smi, flush=True)
+        faulthandler.cancel_dump_traceback_later()
+        return 0
 
     rows = kernel_phase(dev)
     rows.update(reduced_kernel_rows(dev))  # K1-bf16, K1-int8, K3-bf16
@@ -7292,6 +7622,7 @@ def main() -> int:
     paths.update(ddp_phase(dev, kernels, smi))    # ddp_fe, ddp_keypoint, ddp_mask, ddp_serve
     tuners_phase(dev, smi)
     paths["dog_fixture"] = dog_fixture_phase(dev, kernels, smi)
+    paths["quality"] = quality_phase(dev, kernels, smi)   # the instrument over the hard corpus
     table = []
     for name, counted, src, replaces in KERNEL_ROWS:
         table.append(dict(rows[name], name=name, route="cuda",

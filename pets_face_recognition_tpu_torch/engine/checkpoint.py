@@ -31,14 +31,18 @@ def save_checkpoint(ckpt_dir: str | Path, state: TrainState, epoch: int) -> Path
     renamed into place); returns the path."""
     ckpt_dir = Path(ckpt_dir).resolve()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    path = ckpt_dir / f"epoch={epoch}-step={state.step}"
-    payload = {
+    return write_payload(ckpt_dir / f"epoch={epoch}-step={state.step}", {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "accum": state.accum,
         "step": int(state.step),
         "epoch": int(epoch),
-    }
+    })
+
+
+def write_payload(path: Path, payload: dict[str, Any]) -> Path:
+    """``torch.save`` a checkpoint payload at ``path``, written whole, then
+    renamed into place; returns the path."""
     tmp = path.with_name(f".{path.name}.tmp{os.getpid()}")
     try:
         torch.save(payload, tmp)

@@ -16,9 +16,12 @@ the dog or cat ResNet-50) and, with ``--body``, also with the body pipeline
 every lost/found query card against its gallery by card centroids (the
 ensemble rule takes the body score where the head gives none), keeps the top
 100, backfills queries without a prediction from the stock tsv when it
-exists, and writes the tsv. The models are the serving detector, the body
-detector of ``pipelines.mask_detector`` (``PFR_MASK_CKPT``) and the embedders
-with weights random from ``--seed``: no trained torch weights exist. ``PFR_KEYPOINT_ARCH`` picks the
+exists, and writes the tsv. The models are those of
+``pipelines.build_retrieval_models``: the head detector from the port
+checkpoint that ``PFR_KEYPOINT_CKPT`` names (at the test budgets of 1000 and
+1000, one detection), the body detector from ``PFR_MASK_CKPT`` and the
+embedders from their ``PFR_*_FE_CKPT``, each with weights random from
+``--seed`` where no checkpoint is found. ``PFR_KEYPOINT_ARCH`` picks the
 detector, ``resnet50`` (default) or ``mobile`` (the MobileNetV3-Large keypoint
 R-CNN), as in the JAX ``configs/pipelines.py``. ``PFR_RETRIEVAL_THR`` sets the
 detection threshold (default 0.9); ``PFR_SCORES_DUMP=<path.npz>`` also

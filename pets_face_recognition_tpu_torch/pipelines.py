@@ -8,10 +8,11 @@ embedder -> a 512-d vector.
 The models come in as arguments: a keypoint detector and two head embedders,
 for dogs (animal type 1) and cats (type 2), and for the body a Mask R-CNN and
 two body embedders. :func:`build_retrieval_models` makes them at full width
-with seeded random weights, or an embedder from the port FE checkpoint that
-``PFR_{DOG,CAT}_{HEAD,BODY}_FE_CKPT`` names (the JAX
-``configs/retrieval_config.py`` variables); ``weights.retrieval_state_dicts``
-carries the JAX package's over.
+from the port checkpoints that the JAX variables name (the head detector's
+``PFR_KEYPOINT_CKPT``, ``PFR_MASK_CKPT``, the embedders'
+``PFR_{DOG,CAT}_{HEAD,BODY}_FE_CKPT`` of ``configs/retrieval_config.py``),
+or with seeded random weights where no checkpoint is found;
+``weights.retrieval_state_dicts`` carries the JAX package's over.
 
 Every factory obeys the process quant mode (``models/ptq.py``:
 ``PFR_QUANT_MODE``, ``PFR_QUANT_STATE``, ``PFR_QUANT_COMPONENTS``), as the
@@ -130,34 +131,26 @@ def embedder(name: str, seed: int, device: str | torch.device = "cuda",
 def build_retrieval_models(device: str | torch.device = "cuda", seed: int = 0,
                            arch: str = "resnet50", body: bool = False,
                            ) -> tuple[nn.Module, ...]:
-    """``(detector, dog_embedder, cat_embedder)``: the serving detector of
-    ``serving.build_serving_models`` (``arch``: ``"resnet50"`` or
-    ``"mobile"``, the JAX ``PFR_KEYPOINT_ARCH`` values) and two ResNet-50 ->
-    512 embedders, with weights from ``seed``, ``seed + 1`` and ``seed + 2``,
-    in eval mode. With ``body``, three more for the body pipeline:
-    ``(mask_detector, dog_body_embedder, cat_body_embedder)``, the detector
-    of :func:`mask_detector` (random weights from ``seed + 3`` when no
-    checkpoint is found) and two embedders from ``seed + 4`` and ``seed + 5``."""
+    """``(detector, dog_embedder, cat_embedder)``, in eval mode, as the JAX
+    ``configs/retrieval_common.py::build_pipelines`` resolves them: the head
+    detector of :func:`keypoint_detector` (variant ``prod``: the port
+    checkpoint that ``PFR_KEYPOINT_CKPT`` names, default
+    ``results/keypoint/checkpoints``, in the ``arch`` model, ``"resnet50"`` or
+    ``"mobile"``, at ``RCNNConfig``'s test budgets with one detection; without
+    a checkpoint, the serving detector with weights from ``seed``) and the
+    two head embedders of :func:`embedder` (their FE checkpoints, else
+    weights from ``seed + 1`` and ``seed + 2``). With ``body``, three more for
+    the body pipeline: ``(mask_detector, dog_body_embedder,
+    cat_body_embedder)``, the detector of :func:`mask_detector` (random
+    weights from ``seed + 3`` when no checkpoint is found) and two embedders
+    (from ``seed + 4`` and ``seed + 5`` without checkpoints)."""
     dev = resolve_device(device)
-    models = (serving_keypoint_detector(dev, seed, arch), embedder("fe_dog_head", seed + 1, dev),
-              embedder("fe_cat_head", seed + 2, dev))
+    models = (keypoint_detector(dev, seed, "prod", arch=arch),
+              embedder("fe_dog_head", seed + 1, dev), embedder("fe_cat_head", seed + 2, dev))
     if body:
         models += (mask_detector(dev, seed + 3), embedder("fe_dog_body", seed + 4, dev),
                    embedder("fe_cat_body", seed + 5, dev))
     return models
-
-
-def serving_keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
-                              arch: str = "resnet50", dtype: torch.dtype = torch.float32
-                              ) -> nn.Module:
-    """``serving.serving_detector`` (the serving budgets, weights from
-    ``seed``, compute ``dtype``) under the process quant mode, named as the
-    JAX ``prod`` keypoint pipeline."""
-    dev = resolve_device(device)
-    name, supports = _keypoint_name(arch, "prod")
-    mode, det_q, kp_q = detector_quant(name, supports)
-    model = serving_detector(dev, seed, arch, quant=det_q, quant_kp=kp_q, dtype=dtype)
-    return _served(name, model, mode, dev)
 
 
 def _keypoint_name(arch: str, variant: str) -> tuple[str, tuple[str, ...]]:
@@ -212,23 +205,24 @@ def mask_detector(device: str | torch.device = "cuda", seed: int = 0,
 
 
 def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
-                      variant: str = "prod", dtype: torch.dtype = torch.float32) -> nn.Module:
-    """The head detector of the offline transforms, as the JAX
-    ``configs/pipelines.py::keypoint_pipeline(variant)`` resolves it: the
-    port checkpoint that ``variant``'s variable in :data:`KEYPOINT_VARIANTS`
-    names (``prod``: ``PFR_KEYPOINT_CKPT``, default
+                      variant: str = "prod", dtype: torch.dtype = torch.float32,
+                      arch: str | None = None) -> nn.Module:
+    """The head detector, as the JAX ``configs/pipelines.py::
+    keypoint_pipeline(variant)`` resolves it for the chain and the offline
+    transforms: the port checkpoint that ``variant``'s variable in
+    :data:`KEYPOINT_VARIANTS` names (``prod``: ``PFR_KEYPOINT_CKPT``, default
     ``results/keypoint/checkpoints``; ``v2``/``v3``/``v4``:
     ``PFR_KEYPOINT_CKPT_V2``/``_V3``/``_V4``; a folder gives its newest
-    ``epoch=*-step=*``), loaded into the ``PFR_KEYPOINT_ARCH`` detector with
-    frozen norms at ``RCNNConfig``'s test budgets (the RPN's top 1000 a
-    level into NMS, 1000 an image out), as the JAX factory builds it. Without the
-    variable and without a checkpoint at the default, the serving detector
-    of :func:`build_retrieval_models` with weights from ``seed``
-    (``serving.serving_detector``, at the serving budgets of 128 and 16); a
-    variable that names no checkpoint raises. Under ``PFR_QUANT_MODE``, the
-    int8 twin (``det_keypoint_{variant}``, or ``det_keypoint_mobile_{variant}``
-    with the ``kp_head`` component alone). In eval mode on ``device``,
-    computing in ``dtype``."""
+    ``epoch=*-step=*``), loaded into the ``arch`` detector (default
+    ``PFR_KEYPOINT_ARCH``) with frozen norms at ``RCNNConfig``'s test budgets
+    (the RPN's top 1000 a level into NMS, 1000 an image out) and one
+    detection, as the JAX factory builds it. Without the variable and without
+    a checkpoint at the default, the serving detector with weights from
+    ``seed`` (``serving.serving_detector``, at the serving budgets of 128 and
+    16); a variable that names no checkpoint raises. Under
+    ``PFR_QUANT_MODE``, the int8 twin (``det_keypoint_{variant}``, or
+    ``det_keypoint_mobile_{variant}`` with the ``kp_head`` component alone).
+    In eval mode on ``device``, computing in ``dtype``."""
     from .engine.checkpoint import load_params
     from .models.rcnn import keypointrcnn_resnet50_fpn, mobile_net_v3_large_keypoint_rcnn
 
@@ -236,7 +230,7 @@ def keypoint_detector(device: str | torch.device = "cuda", seed: int = 0,
         raise ValueError(f"keypoint variant {variant!r}: expected one of "
                          f"{sorted(KEYPOINT_VARIANTS)}")
     dev = resolve_device(device)
-    arch = keypoint_arch()
+    arch = arch or keypoint_arch()
     env, default = KEYPOINT_VARIANTS[variant]
     ckpt = _checkpoint(env, default)
     name, supports = _keypoint_name(arch, variant)

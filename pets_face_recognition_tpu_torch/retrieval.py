@@ -45,6 +45,11 @@ from .device import float32_matmuls, resolve_device
 ENSEMBLE_BODY_THRESHOLDS = (0.9069641, 0.985643)
 COLUMNS = ("query", "matched_1", "matched_3", "matched_10", "answer")
 NUMERIC_COLUMNS = ("matched_1", "matched_3", "matched_10")
+# the cells pandas' ``read_csv`` reads as missing (its default ``na_values``)
+NA_STRINGS = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+                        "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+                        "nan", "null"})
+_INF = re.compile(r"\s*([+-]?)inf(inity)?\s*$", re.IGNORECASE)
 
 
 @dataclasses.dataclass
@@ -310,7 +315,11 @@ def _read_float(text: str) -> float:
     """``text`` as pandas' default float parser reads it (``precise_xstrtod``
     of its C tokenizer): at most 17 digits, a leading zero included, are
     accumulated as ``n * 10 + d`` and scaled by one power of ten, so the result
-    is not always the correctly rounded ``float(text)``."""
+    is not always the correctly rounded ``float(text)``; ``inf`` and
+    ``infinity`` in any case, signed, are infinite."""
+    inf = _INF.match(text)
+    if inf:
+        return -math.inf if inf.group(1) == "-" else math.inf
     m = _NUMBER.match(text)
     if not m or not (m.group(2) or m.group(3)):
         raise ValueError(f"not a number: {text!r}")
@@ -338,9 +347,10 @@ def _read_float(text: str) -> float:
     return number / _POW10[-exponent]
 
 
-def _read_tsv(path: str | Path) -> list[tuple]:
+def read_tsv(path: str | Path) -> list[tuple]:
     """A tsv with :data:`COLUMNS` as pandas' ``read_csv(sep="\\t")`` reads it:
-    numbers become floats (:func:`_read_float`), empty cells ``None``."""
+    numbers become floats (:func:`_read_float`), missing cells
+    (:data:`NA_STRINGS`: empty, ``nan`` ...) ``None``."""
     with open(path, newline="") as f:
         reader = csv.reader(f, delimiter="\t")
         header = next(reader)
@@ -350,25 +360,26 @@ def _read_tsv(path: str | Path) -> list[tuple]:
         for cells in reader:
             row = dict(zip(COLUMNS, cells))
             rows.append(tuple(
-                None if row.get(c, "") == "" else _read_float(row[c]) if c in NUMERIC_COLUMNS
-                else row[c] for c in COLUMNS))
+                None if row.get(c, "") in NA_STRINGS
+                else _read_float(row[c]) if c in NUMERIC_COLUMNS else row[c] for c in COLUMNS))
     return rows
 
 
 def backfill_missing(rows: list[tuple], stock_tsv: str | Path) -> list[tuple]:
     """Append the rows of a stock predictions tsv whose query has no row yet."""
     have = {r[0] for r in rows}
-    return list(rows) + [r for r in _read_tsv(stock_tsv) if r[0] not in have]
+    return list(rows) + [r for r in read_tsv(stock_tsv) if r[0] not in have]
 
 
 def write_tsv(rows: list[tuple], path: str | Path) -> None:
     """Write ``rows`` under the :data:`COLUMNS` header, tab-separated, floats as
-    ``repr``, ``None`` as an empty cell: the bytes of pandas'
+    ``repr``, ``None`` and NaN as an empty cell: the bytes of pandas'
     ``DataFrame.to_csv(path, sep="\\t", index=False)``."""
     with open(path, "w", newline="") as f:
         writer = csv.writer(f, delimiter="\t", lineterminator="\n")
         writer.writerow(COLUMNS)
-        writer.writerows(rows)
+        writer.writerows(tuple(None if isinstance(v, float) and math.isnan(v) else v
+                               for v in row) for row in rows)
 
 
 def write_scores_dump(dump: Mapping[str, Mapping], path: str | Path) -> Path:

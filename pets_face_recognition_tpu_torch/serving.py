@@ -5,15 +5,16 @@
 ``(B, 512)`` embeddings and a ``(B,)`` validity mask. Validity follows the
 reference's assert-and-skip: the top detection must score above
 ``score_thr`` and its landmarks, rounded to the pixel grid, must be pairwise
-more than 5 px apart. The models compute in their own ``dtype`` (float32 by
-default, bfloat16 as the JAX serving models on an accelerator); products
-run with TF32 off and bfloat16 sums in float32 inside ``embed_batch``,
-whatever the caller set. On a CUDA device the path goes through kernels K2
-and K3 (in the detector) and K1 (in ``align_crop``). K1 runs in the
-service's ``warp_dtype``: bfloat16 by default, as JAX's ``EmbeddingService``
-(``torch.float32`` for the exact warp, ``torch.int8`` for its int8 mode);
-on the CPU the warp is the exact float32 one whatever ``warp_dtype`` says,
-as JAX's ``align_crop`` on its CPU backend.
+more than ``min_distance`` (5 px) apart. The models compute in their own
+``dtype`` (float32 by default, bfloat16 as the JAX serving models on an
+accelerator); products run with TF32 off and bfloat16 sums in float32
+inside ``embed_batch``, whatever the caller set. On a CUDA device the path
+goes through kernels K2 and K3 (in the detector) and K1 (in
+``align_crop``). K1 runs in the service's ``warp_dtype``: bfloat16 by
+default, as JAX's ``EmbeddingService`` (``torch.float32`` for the exact
+warp, ``torch.int8`` for its int8 mode); on the CPU the warp is the exact
+float32 one whatever ``warp_dtype`` says, as JAX's ``align_crop`` on its CPU
+backend.
 
 ``stream`` runs ``embed_batch`` over image files: one producer thread decodes
 and letterboxes the next batches (``native.decode_batch``, PIL where no
@@ -139,12 +140,17 @@ class EmbeddingService:
 
     ``warp_dtype`` is K1's compute mode on a CUDA device (one of
     ``ops.homography.WARP_DTYPES``), bfloat16 by default as in JAX; the CPU
-    warps in exact float32 whatever it is."""
+    warps in exact float32 whatever it is. ``crop_size`` is the aligned
+    crop's ``(H, W)`` and ``min_distance`` the px by which the rounded
+    landmarks must pairwise exceed, with JAX's defaults (``0.0`` drops only
+    coinciding landmarks, as JAX's serving bench asks)."""
 
     def __init__(self, detector: nn.Module, embedder: nn.Module,
                  base_pts: torch.Tensor | None = None, score_thr: float = 0.9,
+                 min_distance: float = MIN_LANDMARK_DISTANCE,
                  device: str | torch.device = "cuda", batch_size: int = 64,
-                 input_size: tuple[int, int] = (320, 320), prefetch: int = 2,
+                 input_size: tuple[int, int] = (320, 320),
+                 crop_size: tuple[int, int] = CROP_SIZE, prefetch: int = 2,
                  mesh: parallel.Mesh | None = None,
                  warp_dtype: torch.dtype = torch.bfloat16):
         if warp_dtype not in WARP_DTYPES:
@@ -159,8 +165,10 @@ class EmbeddingService:
         self.base_pts = torch.tensor(DEFAULT_BASE_PTS) if base_pts is None else base_pts
         self.base_pts = self.base_pts.to(self.device, torch.float32)
         self.score_thr = score_thr
+        self.min_distance = min_distance
         self.batch_size = batch_size
         self.input_size = tuple(input_size)
+        self.crop_size = tuple(crop_size)
         self.prefetch = prefetch
 
     @torch.inference_mode()
@@ -186,9 +194,10 @@ class EmbeddingService:
         d01 = torch.linalg.norm(kps[:, 0] - kps[:, 1], dim=-1)
         d02 = torch.linalg.norm(kps[:, 0] - kps[:, 2], dim=-1)
         d12 = torch.linalg.norm(kps[:, 1] - kps[:, 2], dim=-1)
-        kp_ok = (d01 > MIN_LANDMARK_DISTANCE) & (d02 > MIN_LANDMARK_DISTANCE) \
-            & (d12 > MIN_LANDMARK_DISTANCE)
-        crops = align_crop(imgs, kps, self.base_pts, CROP_SIZE, compute_dtype=self.warp_dtype)
+        kp_ok = (d01 > self.min_distance) & (d02 > self.min_distance) \
+            & (d12 > self.min_distance)
+        crops = align_crop(imgs, kps, self.base_pts, self.crop_size,
+                           compute_dtype=self.warp_dtype)
         emb = self.embedder(crops)
         return emb, ok.to(self.device) & det_ok & kp_ok
 

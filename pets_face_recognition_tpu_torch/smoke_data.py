@@ -1,7 +1,8 @@
 """Seeded synthetic corpora in the reference layouts, for the feature
-extractor's training, for the aligned-corpus transform and for Mask R-CNN's
-training (counterpart of ``tools/make_smoke_datasets.py``'s ``make_fe``,
-``make_data25``, ``make_petfinder_extras`` and ``make_oxford``).
+extractor's training, for the aligned-corpus transform, for Mask R-CNN's
+training and for the retrieval quality instrument (counterpart of
+``tools/make_smoke_datasets.py``'s ``make_fe``, ``make_data25``,
+``make_petfinder_extras``, ``make_oxford`` and ``make_kashtanka_hard``).
 
 Each writer makes the same arrays from the same ``RandomState`` call sequence
 as the tool, and encodes them with the port's own encoders (``native``: JPEG
@@ -17,11 +18,14 @@ encoder's rounding.
 - ``make_petfinder_extras``: ``petfinder_extra_{dogs,cats}/<id>/<j>.png``
   with the entries the transform excludes;
 - ``make_oxford``: the Oxford-IIIT Pet layout (photos, 8-bit grey trimaps,
-  head-box XML, split files).
+  head-box XML, split files);
+- ``make_kashtanka_hard``: a kashtanka test split of near-duplicate
+  identities and its ground truth, for ``quality_instrument``.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -151,3 +155,60 @@ def make_oxford(root: Path, n_imgs: int = 40, size: int = 320, seed: int = 2) ->
     for split, ls in lines.items():
         (base / "annotations" / f"{split}.txt").write_text("\n".join(ls) + "\n")
     return base
+
+
+def make_kashtanka_hard(root: Path, n_ids: int = 120, n_clusters: int = 12,
+                        n_distractors: int = 180, n_imgs: int = 3, seed: int = 9) -> Path:
+    """``test_hard/`` under ``root`` and ``root/hard_gt.json``: a retrieval
+    split where ranking is hard. Each identity's tint is drawn near one of
+    ``n_clusters`` cluster centres (so every identity has near-duplicate
+    confusers), and its eye distance is a second trait; each image adds a
+    lighting shift, noise and its own face position and eye-distance jitter.
+    Queries are the ``lost/lost`` cards ``rl{900000 + i}``; the gallery
+    ``lost/extra_lost`` holds each query's true match ``rf{950000 + i}``
+    (the same identity, fresh images) and ``n_distractors`` cards from the
+    same clusters; ``hard_gt.json`` maps query to match. Two cards on each
+    ``found`` side keep the walk's layout. ``n_imgs`` 320 x 320 JPEGs a
+    card."""
+    rng = np.random.RandomState(seed)
+    out = Path(root) / "test_hard"
+    centers = rng.uniform(45, 105, (n_clusters, 3))
+
+    def identity():
+        c = centers[rng.randint(n_clusters)]
+        tint = np.clip(c + rng.normal(0, 5, 3), 35, 115)
+        return tint, rng.randint(32, 56)
+
+    def image(tint, d_eye, size=320):
+        img = np.clip(tint[None, None, :] + rng.normal(0, 8, 3)[None, None, :]
+                      + rng.normal(0, 12, (size, size, 3)), 0, 255).astype(np.uint8)
+        cx, cy = rng.randint(size // 3, 2 * size // 3, 2)
+        d = max(20, d_eye + rng.randint(-3, 4))
+        pts = [(cx - d, cy), (cx + d, cy), (cx, cy + int(1.2 * d))]
+        yy, xx = np.mgrid[:size, :size]
+        for (x, y), col in zip(pts, ((255, 255, 255), (255, 255, 255), (255, 128, 128))):
+            img[(xx - x) ** 2 + (yy - y) ** 2 < 36] = col
+        return img
+
+    def card(d: Path, animal: int, tint, d_eye):
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "card.json").write_text('{"animal": %d}' % animal)
+        for j in range(n_imgs):
+            write_jpeg(d / f"{j}.jpg", image(tint, d_eye), quality=92)
+
+    gt = {}
+    for i in range(n_ids):
+        tint, d_eye = identity()
+        q, m = f"rl{900000 + i}", f"rf{950000 + i}"
+        card(out / "lost" / "lost" / q, 1 + i % 2, tint, d_eye)
+        card(out / "lost" / "extra_lost" / m, 1 + i % 2, tint, d_eye)
+        gt[q] = m
+    for i in range(n_distractors):
+        tint, d_eye = identity()
+        card(out / "lost" / "extra_lost" / f"rf{960000 + i}", 1 + i % 2, tint, d_eye)
+    for i in range(2):
+        tint, d_eye = identity()
+        card(out / "found" / "found" / f"rf{990000 + i}", 1 + i, tint, d_eye)
+        card(out / "found" / "extra_found" / f"rf{991000 + i}", 1 + i, tint, d_eye)
+    (Path(root) / "hard_gt.json").write_text(json.dumps(gt, indent=0))
+    return out

@@ -57,7 +57,7 @@ def test_importing_the_port_loads_no_jax():
         "models.swin", "models.convnext", "drive_alt_factories", "parallel",
         "parallel.distributed", "parallel.mesh", "utils.tuners", "data_loading.human",
         "models.layers", "models.resnet", "models.fpn", "models.rpn", "models.roi_heads",
-        "kernels._build")]
+        "kernels._build", "diff_tsv_ranks", "quality_instrument", "recalibrate_bn")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
               " or m.split('.')[0] in ('pets_face_recognition_tpu', 'cv2', 'pandas', 'PIL',"
@@ -303,6 +303,12 @@ DTYPE_KNOBS = (
     ("models.convnext", "ConvNeXtBlock", "dtype", "models.convnext", "ConvNeXtBlock", "dtype"),
     ("models.convnext", "ConvNeXt", "dtype", "models.convnext", "ConvNeXt", "dtype"),
 )
+# the JAX service's landmark rule and crop size, with their defaults
+SERVICE_KNOBS = (
+    ("serving", "EmbeddingService", "crop_size", "serving", "EmbeddingService", "crop_size"),
+    ("serving", "EmbeddingService", "min_distance", "serving", "EmbeddingService",
+     "min_distance"),
+)
 
 
 def _jax_default(module: str, name: str, arg: str) -> str:
@@ -326,10 +332,11 @@ def _jax_default(module: str, name: str, arg: str) -> str:
 
 
 def test_reduced_precision_knobs_have_port_counterparts():
-    """Each JAX dtype knob has its port counterpart under the same name with
-    the same default (``jnp.bfloat16`` is ``torch.bfloat16``; a string, such
-    as ``build_fe_config``'s ``"auto"``, is the same string), and
-    ``PFR_INPUT_DTYPE`` is read by both preprocessors."""
+    """Each JAX dtype knob, and the service's ``crop_size`` and
+    ``min_distance``, has its port counterpart under the same name with the
+    same default (``jnp.bfloat16`` is ``torch.bfloat16``; a literal, such as
+    ``build_fe_config``'s ``"auto"`` or ``(224, 224)``, is the same value),
+    and ``PFR_INPUT_DTYPE`` is read by both preprocessors."""
     import ast
     import importlib
     import inspect
@@ -338,10 +345,12 @@ def test_reduced_precision_knobs_have_port_counterparts():
 
     src = (REPO / "pets_face_recognition_tpu" / "preprocessor" / "__init__.py").read_text()
     assert '"PFR_INPUT_DTYPE"' in src and "PFR_INPUT_DTYPE" in inspect.getsource(input_dtype)
-    for j_mod, j_name, j_arg, p_mod, p_name, p_arg in DTYPE_KNOBS:
+    for j_mod, j_name, j_arg, p_mod, p_name, p_arg in DTYPE_KNOBS + SERVICE_KNOBS:
         src = _jax_default(j_mod, j_name, j_arg)
-        want = (ast.literal_eval(src) if src[0] in "'\"" else
-                getattr(torch, src.split(".")[-1]))
+        try:
+            want = ast.literal_eval(src)
+        except ValueError:
+            want = getattr(torch, src.split(".")[-1])
         port = getattr(importlib.import_module(f"pets_face_recognition_tpu_torch.{p_mod}"),
                        p_name)
         got = inspect.signature(port).parameters[p_arg].default
@@ -372,3 +381,35 @@ def test_public_names_match_the_jax_package_but_those_left_out():
                for m, names in jax_names.items()}
     missing = {m: set(v) for m, v in missing.items() if v}
     assert missing == LEFT_OUT
+
+
+# the JAX tools the port carries, each with the port module that holds its
+# public names
+PORTED_TOOLS = {"quality_instrument.py": "quality_instrument",
+                "diff_tsv_ranks.py": "diff_tsv_ranks",
+                "recalibrate_bn.py": "recalibrate_bn"}
+
+
+def test_ported_tools_keep_the_jax_tools_public_names():
+    """Every top-level function and class of the ported JAX tools is defined
+    in its port module, and the hard corpus's generator in ``smoke_data``."""
+    tools = _public_names(REPO / "tools")
+    port = _public_names(PORT)
+    for tool, module in PORTED_TOOLS.items():
+        names = tools[tool[:-len(".py")]]
+        assert names and names <= port[module], (tool, names - port[module])
+    assert "make_kashtanka_hard" in tools["make_smoke_datasets"]
+    assert "make_kashtanka_hard" in port["smoke_data"]
+
+
+def test_quality_tools_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    """``quality_instrument`` and ``recalibrate_bn``, as the entry points
+    above: the card unless ``--device cpu``."""
+    from pets_face_recognition_tpu_torch import quality_instrument, recalibrate_bn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: quality_instrument.main(["--data", str(tmp_path), "--gt",
+                                                  str(tmp_path / "gt.json")]),
+                 lambda: recalibrate_bn.main(["--ckpt", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
